@@ -1,0 +1,135 @@
+"""Raw heads -> padded detection slate + masks (counterpart of
+xrseg_tpu/ops/postprocess.py).
+
+Per image: best-class score and label, a score gate (in logit space when
+the scores are logits: sigmoid is monotonic, so ranking and NMS run on the
+logits and the sigmoid is applied to the survivors only), greedy NMS into
+a fixed max_det slate, the survivors' mask coefficients, and optionally
+their masks. The NMS backend comes from PostprocessConfig.nms_backend;
+"auto" takes the CUDA kernel for CUDA tensors (K1 for the batched path, K2
+per image) and the plain loop for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from xrseg_tpu_torch.config import PostprocessConfig
+from xrseg_tpu_torch.device import resolve_device, to_device
+from xrseg_tpu_torch.ops import masks as mask_ops
+from xrseg_tpu_torch.ops import nms as nms_ops
+
+
+def _check_merge(cfg: PostprocessConfig) -> None:
+    if cfg.merge != "nms":
+        raise NotImplementedError(
+            f"merge {cfg.merge!r} is not ported yet (ROADMAP queue 1, "
+            "accuracy modes: ops/wbf.py)")
+
+
+def _logit_threshold(cfg: PostprocessConfig, scores_are_logits: bool):
+    if not scores_are_logits:
+        return cfg.score_threshold
+    t = min(max(float(cfg.score_threshold), 1e-7), 1 - 1e-7)
+    return float(np.log(t / (1.0 - t)))
+
+
+def _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
+                  with_masks) -> None:
+    """Gather the survivors' coefficients [...,D,nm] and add masks (or the
+    protos, in coefs-only mode) to `det`."""
+    idx = det["indices"].long()[..., None]
+    coefs = coefs_all.gather(-2, idx.expand(*idx.shape[:-1],
+                                            coefs_all.shape[-1]))
+    coefs = coefs * det["valid"][..., None]
+    det["coefs"] = coefs
+    if with_masks:
+        m = mask_ops.synthesize_masks(coefs.to(mask_dtype),
+                                      protos.to(mask_dtype))
+        if crop:
+            m = mask_ops.crop_masks(m, det["boxes_xywh"], input_size)
+        det["masks"] = m.to(mask_dtype)
+    else:
+        det["protos"] = protos.to(mask_dtype)
+
+
+def postprocess_single_parts(boxes, cls_scores, coefs_all, protos,
+                             cfg: PostprocessConfig, crop: bool = False,
+                             input_size=(640, 640),
+                             mask_dtype=torch.float32,
+                             scores_are_logits: bool = False,
+                             with_masks: bool = True
+                             ) -> Dict[str, torch.Tensor]:
+    """One image: boxes [A,4], cls_scores [A,nc], coefs_all [A,nm] or None,
+    protos [h,w,nm] or None. Honours cfg.pre_nms_topk."""
+    _check_merge(cfg)
+    scores, labels = cls_scores.max(-1)
+    scores, labels = scores.float(), labels.int()
+    det = nms_ops.nms_fixed(
+        boxes, scores, labels, iou_threshold=cfg.iou_threshold,
+        score_threshold=_logit_threshold(cfg, scores_are_logits),
+        pre_topk=cfg.pre_nms_topk, max_det=cfg.max_detections,
+        class_aware=cfg.class_aware, backend=cfg.nms_backend)
+    if scores_are_logits:
+        det["scores"] = torch.sigmoid(det["scores"]) * det["valid"]
+    if protos is not None and coefs_all is not None:
+        _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
+                      with_masks)
+    return det
+
+
+def postprocess_batch_parts(boxes, cls_scores, coefs_all, protos,
+                            cfg: PostprocessConfig, crop: bool = False,
+                            input_size=(640, 640),
+                            mask_dtype=torch.float32,
+                            scores_are_logits: bool = False,
+                            with_masks: bool = True
+                            ) -> Dict[str, torch.Tensor]:
+    """Batched hot path: boxes [B,A,4], cls_scores [B,A,nc], coefs_all
+    [B,A,nm] or None, protos [B,h,w,nm] or None. The whole batch goes
+    through ONE NMS call (K1 on the card); always full width, as in the
+    JAX package (no pre_topk)."""
+    _check_merge(cfg)
+    scores, labels = cls_scores.max(-1)
+    scores, labels = scores.float(), labels.int()
+    det = nms_ops.nms_fixed_batched(
+        boxes, scores, labels, iou_threshold=cfg.iou_threshold,
+        score_threshold=_logit_threshold(cfg, scores_are_logits),
+        max_det=cfg.max_detections, class_aware=cfg.class_aware,
+        backend=cfg.nms_backend)
+    if scores_are_logits:
+        det["scores"] = torch.sigmoid(det["scores"]) * det["valid"]
+    if protos is not None and coefs_all is not None:
+        _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
+                      with_masks)
+    return det
+
+
+def postprocess_single(preds, protos, cfg: PostprocessConfig,
+                       num_classes: int = 80, crop: bool = False,
+                       input_size=(640, 640)) -> Dict[str, torch.Tensor]:
+    """preds [A, 4+nc(+nm)] (sigmoid scores); protos [h,w,nm] or None."""
+    coefs_all = preds[:, 4 + num_classes:] if protos is not None else None
+    return postprocess_single_parts(
+        preds[:, :4], preds[:, 4:4 + num_classes], coefs_all, protos, cfg,
+        crop, input_size)
+
+
+def postprocess(preds, protos, cfg: PostprocessConfig, num_classes: int = 80,
+                crop: bool = False, input_size=(640, 640), device="cuda"
+                ) -> Dict[str, torch.Tensor]:
+    """Batched postprocess of the concatenated heads: preds [B,A,C], protos
+    [B,h,w,nm] or None -> [B,D,...]. Each image runs the single-image path
+    (with pre_topk compaction when configured), through K2 on the card.
+    Inputs (numpy or tensors) are moved to `device`."""
+    dev = resolve_device(device)
+    preds = to_device(preds, dev)
+    if protos is not None:
+        protos = to_device(protos, dev)
+    dets = [postprocess_single(preds[b],
+                               None if protos is None else protos[b],
+                               cfg, num_classes, crop, input_size)
+            for b in range(preds.shape[0])]
+    return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
