@@ -7,23 +7,46 @@ Run from the root of a checkout. Phases, each printed as it finishes:
 
 1. device: the card's name and power limit as nvidia-smi gives them, the
    torch and CUDA versions, and the seconds the nvcc build of
-   xrseg_tpu_torch/csrc/ took (with ptxas's register/shared-memory report).
-2. kernels: K1 (nms_select_batched_cuda) at B = 1, 8, 32 and K2
-   (nms_select_cuda) at K = 8400 and at a pre_topk-compacted K = 1024, on
-   numpy-seeded inputs with bf16-quantised (tied) scores, below-gate
-   candidates, zero-area boxes and an all-below-gate image. idx and ok
-   must EQUAL the plain torch version's on the same card. Each is timed
-   with CUDA events beside its plain version and its bound.
-3. pipeline: YOLO11n-seg at full width (640x640, 80 classes, 32 protos at
-   160x160, 8400 anchors, max_det 50) with detection_params weights, on
-   480x640 uint8 frames (stretch): build_pipeline at b=1 and b=8, once with
-   emit_masks="none", and the b=1 postprocess() entry point. Launch counters
-   are zeroed just before these runs and read just after: K1 and K2 must
-   both have launched. Every slate must hold 50 finite detections and equal
-   the same pipeline built with nms_backend="scan". Then b=1 p50 latency
-   and b=8 frames/s, each timed from host frames to a host copy of the
-   slate.
-4. one line {"kernels": [...]}, then the last line
+   xrseg_tpu_torch/csrc/ took (one nvcc per source, all started together;
+   with ptxas's register/shared-memory report).
+2. kernels, each against its plain torch version on the same card and
+   inputs, and timed with CUDA events beside its plain version and its
+   bound:
+   - K1 (nms_select_batched_cuda) at B = 1, 8, 32 with K = 8400 (the
+     640x640 anchors) and at B = 1, 8 with K = 21504 (the 1024x1024
+     anchors: the corner rows no longer fit shared memory), and K2
+     (nms_select_cuda) at K = 8400 and at a pre_topk-compacted K = 1024,
+     on numpy-seeded inputs with bf16-quantised (tied) scores, below-gate
+     candidates, zero-area boxes and an all-below-gate image. idx and ok
+     must EQUAL the plain version's.
+   - K3 (nms_rotated_batched_cuda) at K = 21504, B = 1, 8, 32, on rotated
+     boxes with bf16-tied scores, zero-width boxes, thin near-parallel
+     pairs and an all-below-gate image: idx and ok must EQUAL the plain
+     version's.
+   - K4 (mask_synth_crop_cuda) at B = 8, D = 50, 32 prototypes at 160x160
+     on seeded inputs: the zeroed pixels must equal the plain version's
+     and the values lie within 1e-5. Also timed beside the library
+     formulation torch.sigmoid(coefs @ protos.T) + crop.
+3. segment pipeline: YOLO11n-seg at full width (640x640, 80 classes, 32
+   protos at 160x160, 8400 anchors, max_det 50) with detection_params
+   weights, on 480x640 uint8 frames (stretch): build_pipeline at b=1 and
+   b=8, once with emit_masks="none", and the b=1 postprocess() entry
+   point. Launch counters are zeroed just before these runs and read just
+   after: K1 and K2 must both have launched. Every slate must hold 50
+   finite detections and equal the same pipeline built with
+   nms_backend="scan". Then b=1 p50 latency and b=8 frames/s, each timed
+   from host frames to a host copy of the slate. K4 is then checked on
+   the coefs, protos and boxes of a coefs-only b=8 run of this path.
+4. obb pipeline: YOLO11n-obb at full width (1024x1024, 15 classes, the
+   angle branch, 21504 anchors, max_det 50) with detection_params
+   weights, on 1024x1024 uint8 frames: build_pipeline at b=1 and b=8.
+   Launch counters are zeroed just before these runs and read just after:
+   K3 must have launched. Every slate must hold 50 finite detections and
+   equal postprocess_obb_batch(backend="scan") on the same raw outputs.
+   Then b=1 p50 latency and b=8 frames/s.
+5. one line {"kernels": [...]} (K1-K4; launches are counted on the path
+   that runs each kernel; no path runs K4, as in the JAX package), then
+   the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -42,12 +65,14 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
-from xrseg_tpu_torch.compile import build_pipeline
+from xrseg_tpu_torch.compile import build_pipeline, decode_task_outputs, pack_slate
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
+from xrseg_tpu_torch.ops import mask_kernels as mk
+from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
 from xrseg_tpu_torch.ops import nms_kernels as nk
 from xrseg_tpu_torch.ops import preprocess as pre_ops
-from xrseg_tpu_torch.ops.postprocess import postprocess
+from xrseg_tpu_torch.ops.postprocess import postprocess, postprocess_obb_batch
 from xrseg_tpu_torch.testing import detection_params
 
 # H100 SXM data sheet: HBM rate, and float32 rate outside the tensor cores
@@ -57,20 +82,44 @@ F32_FLOPS_PER_S = 67e12
 # sub, clamp, mul for the overlap; sub, clamp, mul for the area; add, sub,
 # div for the union and ratio) and the suppression test
 OPS_PER_CANDIDATE_STEP = 20
+# K3, per live candidate per step: the probIoU row (3 sums, 2 differences;
+# the denominator 2 mul, sub, clamp, add; t1 2 squares, 2 mul, add, div,
+# mul; t2 sub, 2 mul, div, mul; t3 mul, clamp, sqrt, mul, add, div, add,
+# log, mul; bd 2 add, clamp; iou neg, exp, sub, add, sqrt, sub), the
+# suppression test and the skip test; plus, for every candidate, the
+# argmax compare
+OPS_PER_LIVE_ROTATED = 43
 MAX_DET = 50
 IOU = 0.6
 GATE = float(np.log(0.23 / 0.77))     # logit-space gate of score 0.23
-# the run's shapes: YOLO11n-seg at full width on 480x640 camera frames
 DEVICE = "cuda"
+# the segment path: YOLO11n-seg at full width on 480x640 camera frames
 MODEL = ModelConfig()                 # 640x640, 80 classes, 32 protos
 FRAME_HW = (480, 640)
+# the obb path: YOLO11n-obb (yolo11-obb.yaml at scale n, DOTAv1's 15
+# classes) at its 1024x1024 input, on 1024x1024 frames
+OBB_MODEL = ModelConfig(task="obb", num_classes=15, input_size=(1024, 1024))
+OBB_FRAME_HW = (1024, 1024)
 K1_BATCHES = (1, 8, 32)
+K1_WIDE_BATCHES = (1, 8)
+K3_BATCHES = (1, 8, 32)
 K_FULL, K_COMPACT = 8400, 1024
+K_OBB = OBB_MODEL.num_anchors         # 21504
+K4_SHAPE = dict(B=8, D=MAX_DET, nm=MODEL.num_masks, hw=MODEL.mask_size)
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
           replaces="xrseg_tpu/ops/pallas_kernels.py:218")
 K2 = dict(name="nms_select_cuda", route="cuda", source=SOURCE,
           replaces="xrseg_tpu/ops/pallas_kernels.py:125")
+K3 = dict(name="nms_rotated_batched_cuda", route="cuda",
+          source="xrseg_tpu_torch/csrc/nms_rotated.cu",
+          replaces="xrseg_tpu/ops/pallas_kernels.py:420")
+K4 = dict(name="mask_synth_crop_cuda", route="cuda",
+          source="xrseg_tpu_torch/csrc/mask_synth_crop.cu",
+          replaces="xrseg_tpu/ops/pallas_kernels.py:297",
+          launches_note="no path of build_pipeline runs K4: as in the JAX "
+                        "package, the pipeline keeps the unfused "
+                        "synthesize_masks + crop_masks formulation")
 
 
 class SmokeFailure(Exception):
@@ -97,6 +146,13 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes: float, n_ops: float):
+    """The least time for the work: (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 # ---------------------------------------------------------------------------
 # 1. device
 # ---------------------------------------------------------------------------
@@ -114,7 +170,7 @@ def phase_device() -> str:
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"device: kernel build {build_s:.2f} s (nvcc, sm_90a, "
-          f"{len(paths)} source(s))", flush=True)
+          f"{len(paths)} sources in parallel)", flush=True)
     for name, path in paths.items():
         log = path.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
@@ -127,12 +183,12 @@ def phase_device() -> str:
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def nms_inputs(rng, B: int, K: int):
+def nms_inputs(rng, B: int, K: int, extent: float = 640.0):
     """Card-resident corners [B,K,4] (class offset applied) and masked
     scores [B,K]: bf16-quantised logits (exact ties), about 20% of them
     below the gate, every 13th box of zero width, and, for B > 1, a last
     image entirely below the gate."""
-    cxy = rng.uniform(0, 640, (B, K, 2))
+    cxy = rng.uniform(0, extent, (B, K, 2))
     wh = rng.uniform(4, 96, (B, K, 2))
     wh[:, ::13, 0] = 0.0
     boxes = torch.from_numpy(np.concatenate([cxy, wh], -1).astype(np.float32))
@@ -152,22 +208,66 @@ def nms_bound(ok: torch.Tensor, K: int):
     first non-ok step) over K candidates."""
     B = ok.shape[0]
     steps = sum(min(int(n) + 1, MAX_DET) for n in ok.sum(-1).tolist())
-    t_bytes = (B * K * 5 * 4 + B * MAX_DET * 5) / HBM_BYTES_PER_S * 1e3
-    t_ops = steps * K * OPS_PER_CANDIDATE_STEP / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(B * K * 5 * 4 + B * MAX_DET * 5,
+                 steps * K * OPS_PER_CANDIDATE_STEP)
 
 
-def run_case(kernel, plain, corners, masked, K: int, label: str):
-    idx, ok = kernel(corners, masked, IOU, MAX_DET)
-    ref_idx, ref_ok = plain(corners, masked, IOU, MAX_DET)
+def rotated_inputs(rng, B: int, K: int):
+    """Card-resident K3 inputs: Gaussian rows [B,6,K] of class-shifted
+    rotated boxes in a 1024x1024 scene (15 classes) and masked scores
+    [B,K]: bf16-quantised logits (exact ties), about 20% below the gate,
+    every 13th box of zero width, the first 64 boxes as 32 thin (64x0.5 px)
+    pairs 0.3 px and 1e-3 rad apart, and, for B > 1, a last image entirely
+    below the gate."""
+    boxes = np.concatenate([rng.uniform(0, 1024, (B, K, 2)),
+                            rng.uniform(4, 96, (B, K, 2)),
+                            rng.uniform(-np.pi / 4, 3 * np.pi / 4, (B, K, 1))],
+                           -1).astype(np.float32)
+    boxes[:, ::13, 2] = 0.0
+    boxes[:, 1:64:2, :2] = boxes[:, 0:64:2, :2] + np.float32(0.3)
+    boxes[:, :64, 2:4] = np.float32([64.0, 0.5])
+    boxes[:, 1:64:2, 4] = boxes[:, 0:64:2, 4] + np.float32(1e-3)
+    scores = torch.from_numpy(rng.normal(0.0, 1.5, (B, K)).astype(np.float32))
+    scores = scores.bfloat16().float()
+    if B > 1:
+        scores[-1] = -10.0
+    labels = torch.from_numpy(rng.integers(0, 15, (B, K)))
+    shifted = nms_ops.class_shifted(torch.from_numpy(boxes).to(DEVICE),
+                                    labels.to(DEVICE), True)
+    masked = torch.where(scores > GATE, scores, nk.NEG).to(DEVICE)
+    return nk.rotated_gaussian_rows(shifted), masked
+
+
+def rotated_bound(rows: torch.Tensor, masked: torch.Tensor):
+    """Least time for the work K3 does on these inputs: the rows and scores
+    read once, the slate written once; per step that runs, the argmax over
+    all K and the probIoU row over the candidates still live (the kernel
+    skips the rest), as the plain loop replays it."""
+    B, K = masked.shape
+    ops = 0
+    active = torch.ones(B, dtype=torch.bool, device=masked.device)
+    for _, ok, m in nk.rotated_steps(rows, masked, IOU, MAX_DET):
+        ok = ok[:, 0] & active                 # an image exits at its first
+        live = (m > nk.NEG * 0.5).sum(-1)      # non-ok step
+        ops += int(active.sum()) * K \
+            + int(torch.where(ok, live, 0).sum()) * OPS_PER_LIVE_ROTATED
+        active = ok
+        if not bool(active.any()):
+            break
+    return bound(B * K * 7 * 4 + B * MAX_DET * 5, ops)
+
+
+def run_case(kernel, plain, args, label: str, bound_fn, iters: int = 50):
+    idx, ok = kernel(*args, IOU, MAX_DET)
+    ref_idx, ref_ok = plain(*args, IOU, MAX_DET)
     torch.cuda.synchronize()
     check(torch.equal(idx, ref_idx) and torch.equal(ok, ref_ok),
           f"{label}: kernel idx/ok differ from the plain version")
     err = max(float((idx - ref_idx).abs().max()),
               float((ok.int() - ref_ok.int()).abs().max()))
-    ms = cuda_ms(lambda: kernel(corners, masked, IOU, MAX_DET), 50)
-    plain_ms = cuda_ms(lambda: plain(corners, masked, IOU, MAX_DET), 5, 1)
-    bound_ms, bound_by = nms_bound(ok.reshape(-1, MAX_DET), K)
+    ms = cuda_ms(lambda: kernel(*args, IOU, MAX_DET), iters)
+    plain_ms = cuda_ms(lambda: plain(*args, IOU, MAX_DET), 3, 1)
+    bound_ms, bound_by = bound_fn(ok.reshape(-1, MAX_DET))
     case = dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 n_ok=ok.reshape(-1, MAX_DET).sum(-1).tolist())
@@ -177,25 +277,88 @@ def run_case(kernel, plain, corners, masked, K: int, label: str):
     return case
 
 
-def phase_kernels():
+def phase_nms_kernels():
     rng = np.random.default_rng(0)
-    k1_cases, k2_cases = {}, {}
-    for B in K1_BATCHES:
-        c, m = nms_inputs(rng, B, K_FULL)
-        k1_cases[B] = run_case(nk.nms_select_batched_cuda,
-                               nk.nms_select_batched_torch, c, m, K_FULL,
-                               f"K1 B={B} K={K_FULL}")
+    k1_cases, k2_cases, k3_cases = {}, {}, {}
+    for K, batches, extent in ((K_FULL, K1_BATCHES, 640.0),
+                               (K_OBB, K1_WIDE_BATCHES, 1024.0)):
+        for B in batches:
+            c, m = nms_inputs(rng, B, K, extent)
+            k1_cases[B, K] = run_case(
+                nk.nms_select_batched_cuda, nk.nms_select_batched_torch,
+                (c, m), f"K1 B={B} K={K}", lambda ok, K=K: nms_bound(ok, K))
     for K in (K_FULL, K_COMPACT):
         c, m = nms_inputs(rng, 1, K)
         k2_cases[K] = run_case(nk.nms_select_cuda, nk.nms_select_torch,
-                               c[0], m[0], K, f"K2 K={K}")
-    # the main path's shapes: K1 at b=8 and K2 at the full anchor count
-    return [dict(K1, main=k1_cases[8], cases=list(k1_cases.values())),
-            dict(K2, main=k2_cases[K_FULL], cases=list(k2_cases.values()))]
+                               (c[0], m[0]), f"K2 K={K}",
+                               lambda ok, K=K: nms_bound(ok, K))
+    for B in K3_BATCHES:
+        rows, m = rotated_inputs(rng, B, K_OBB)
+        k3_cases[B] = run_case(
+            nk.nms_rotated_batched_cuda, nk.nms_rotated_batched_torch,
+            (rows, m), f"K3 B={B} K={K_OBB}",
+            lambda ok, rows=rows, m=m: rotated_bound(rows, m), iters=20)
+    # the main paths' shapes: K1 at b=8 and K2 at the full anchor count of
+    # the segment path, K3 at b=8 of the obb path
+    return [dict(K1, main=k1_cases[8, K_FULL], cases=list(k1_cases.values())),
+            dict(K2, main=k2_cases[K_FULL], cases=list(k2_cases.values())),
+            dict(K3, main=k3_cases[8], cases=list(k3_cases.values()))]
+
+
+def k4_library(coefs, protos, boxes, mask_hw, input_size):
+    """The library formulation: one batched matmul, sigmoid, crop."""
+    B, h, w, nm = protos.shape
+    logits = coefs @ protos.reshape(B, h * w, nm).transpose(1, 2)
+    return mask_ops.crop_masks(torch.sigmoid(logits).reshape(B, -1, h, w),
+                               boxes, input_size)
+
+
+def k4_case(coefs, protos, boxes, label: str, iters: int = 50):
+    """K4 against its plain version (exact crop, values within 1e-5), timed
+    beside the plain version and the library formulation."""
+    args = (coefs, protos, boxes, MODEL.mask_size, MODEL.input_size)
+    got = mk.mask_synth_crop_cuda(*args)
+    ref = mk.mask_synth_crop_torch(*args)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and torch.equal(got == 0, ref == 0),
+          f"{label}: K4 zeroes other pixels than the plain version")
+    err = float((got - ref).abs().max())
+    check(err <= 1e-5, f"{label}: K4 differs from the plain version by "
+                       f"{err:.3e} > 1e-5")
+    ms = cuda_ms(lambda: mk.mask_synth_crop_cuda(*args), iters)
+    plain_ms = cuda_ms(lambda: mk.mask_synth_crop_torch(*args), iters)
+    library_ms = cuda_ms(lambda: k4_library(*args), iters)
+    B, D, nm = coefs.shape
+    hw = protos.shape[1] * protos.shape[2]
+    bound_ms, bound_by = bound(
+        4 * B * (D * nm + hw * nm + D * 4) + 4 * B * D * hw,
+        B * D * hw * (2 * nm + 8))            # + sigmoid (3) + crop (5)
+    case = dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                inside_share=float((ref != 0).float().mean()))
+    print(f"kernels: {label}: crop equal, max |err| {err:.2e}, {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by})", flush=True)
+    return case
+
+
+def phase_k4_seeded():
+    rng = np.random.default_rng(1)
+    B, D, nm, (h, w) = (K4_SHAPE[k] for k in ("B", "D", "nm", "hw"))
+    H, W = MODEL.input_size
+    coefs = rng.standard_normal((B, D, nm)).astype(np.float32)
+    protos = rng.standard_normal((B, h, w, nm)).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(0, 1, (B, D, 2)) * [W, H],
+                            rng.uniform(0.02, 0.6, (B, D, 2)) * [W, H]],
+                           -1).astype(np.float32)
+    boxes[:, 0] = [8 * W / w, 6 * H / h, 4 * W / w, 4 * H / h]  # on centres
+    args = [torch.from_numpy(a).to(DEVICE) for a in (coefs, protos, boxes)]
+    case = k4_case(*args, f"K4 seeded B={B} D={D} {nm}x{h}x{w}")
+    return dict(K4, main=case, cases=[case])
 
 
 # ---------------------------------------------------------------------------
-# 3. the main path
+# 3. the segment path
 # ---------------------------------------------------------------------------
 
 def check_det(det, B: int, masks: bool, what: str) -> None:
@@ -213,7 +376,17 @@ def check_det(det, B: int, masks: bool, what: str) -> None:
               and "masks" not in det, f"{what}: bad coefs-only outputs")
 
 
-def phase_pipeline(kernels) -> None:
+def host_ms(pipe, x, iters):
+    """Per-call host times: host frames in, host copy of the slate out."""
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        pipe(x)["slate"].cpu()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_segment():
     cfg = ExecutorConfig(model=MODEL)
     scan = dataclasses.replace(
         cfg, post=dataclasses.replace(cfg.post, nms_backend="scan"))
@@ -239,8 +412,7 @@ def phase_pipeline(kernels) -> None:
                                device=DEVICE)
 
     # --- the main path, with the launch counters zeroed around it
-    nk.nms_select_batched_cuda.launches = 0
-    nk.nms_select_cuda.launches = 0
+    zero_counters()
     runs = {}
     for name, pipe in kern.items():
         B = pipe.input_shape[0]
@@ -248,13 +420,11 @@ def phase_pipeline(kernels) -> None:
             runs[name] = pipe(frames[f:f + B] if B == 1 else frames)
     runs["postprocess_b1"] = b1_postprocess(cfg.post)
     torch.cuda.synchronize()
-    launches = {"nms_select_batched_cuda": nk.nms_select_batched_cuda.launches,
-                "nms_select_cuda": nk.nms_select_cuda.launches}
-    print(f"pipeline: launches on the main path {launches}", flush=True)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main "
-                                 "path")
+    launches = read_counters()
+    print(f"pipeline: segment: launches on the path {launches}", flush=True)
+    for k in (K1, K2):
+        check(launches[k["name"]] > 0, f"{k['name']} never launched on the "
+                                       "segment path")
 
     # --- every run against the same pipeline with the plain NMS
     for name, (B, emit) in specs.items():
@@ -278,24 +448,108 @@ def phase_pipeline(kernels) -> None:
           "nms_backend='scan'", flush=True)
 
     # --- end-to-end timing, host frames in, host slate out
-    def host_ms(pipe, x, iters):
-        out = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            pipe(x)["slate"].cpu()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
     name = torch.cuda.get_device_name(0)
-    b1 = host_ms(kern["b1"], frames[:1], 50)
-    b1_scan = host_ms(plain["b1"], frames[:1], 50)
-    b8 = host_ms(kern["b8"], frames, 20)
-    print(f"pipeline: b=1 p50 {statistics.median(b1):.3f} ms "
+    b1 = host_ms(kern["b1"], frames[:1], 30)
+    b1_scan = host_ms(plain["b1"], frames[:1], 20)
+    b8 = host_ms(kern["b8"], frames, 15)
+    print(f"pipeline: segment b=1 p50 {statistics.median(b1):.3f} ms "
           f"(p95 {np.percentile(b1, 95):.3f} ms; with nms_backend='scan' "
           f"p50 {statistics.median(b1_scan):.3f} ms) on {name}", flush=True)
-    print(f"pipeline: b=8 {8 * 1e3 / statistics.mean(b8):.1f} frames/s "
+    print(f"pipeline: segment b=8 {8 * 1e3 / statistics.mean(b8):.1f} "
+          f"frames/s (mean {statistics.mean(b8):.3f} ms per batch) on {name}",
+          flush=True)
+
+    # --- a coefs-only b=8 run: K4's inputs as the segment path makes them
+    det = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=8,
+                         emit_masks="none", device=DEVICE)(frames)
+    check_det(det, 8, False, "b8_none")
+    return det, launches
+
+
+# ---------------------------------------------------------------------------
+# 4. the obb path
+# ---------------------------------------------------------------------------
+
+def check_obb_det(det, B: int, what: str) -> None:
+    check(det["count"].shape == (B,) and bool((det["count"] == MAX_DET).all()),
+          f"{what}: count {det['count'].tolist()} != {MAX_DET}")
+    check(tuple(det["boxes_xywhr"].shape) == (B, MAX_DET, 5)
+          and bool(det["boxes_xywhr"].isfinite().all()),
+          f"{what}: bad boxes_xywhr")
+    check(det["slate"].shape == (B, MAX_DET * 8 + 1)
+          and bool(det["slate"].isfinite().all()), f"{what}: bad slate")
+
+
+def phase_obb() -> dict:
+    cfg = ExecutorConfig(model=OBB_MODEL)
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=DEVICE)
+    frames = np.random.default_rng(2).integers(
+        0, 256, (8,) + OBB_FRAME_HW + (3,), np.uint8)
+    kern = {n: build_pipeline(cfg, model, frame_hw=OBB_FRAME_HW, batch=b,
+                              device=DEVICE).warmup()
+            for n, b in (("b1", 1), ("b8", 8))}
+
+    # --- the main path, with the launch counters zeroed around it
+    zero_counters()
+    runs, last = {}, {}
+    for name, pipe in kern.items():
+        B = pipe.input_shape[0]
+        for f in range(3):
+            last[name] = frames[f:f + B] if B == 1 else frames
+            runs[name] = pipe(last[name])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"pipeline: obb: launches on the path {launches}", flush=True)
+    check(launches[K3["name"]] > 0, f"{K3['name']} never launched on the "
+                                    "obb path")
+
+    # --- the scan comparison on the same raw outputs
+    for name, pipe in kern.items():
+        B = pipe.input_shape[0]
+        check_obb_det(runs[name], B, f"obb {name}")
+        x = pre_ops.preprocess(torch.from_numpy(last[name]).to(DEVICE),
+                               OBB_MODEL.input_size, dtype=model.dtype)
+        with torch.inference_mode():
+            out = model(x, concat_preds=False)
+            det = decode_task_outputs(out, cfg.model, cfg.post)
+            ref = postprocess_obb_batch(out["boxes_xywhr"], out["cls_logits"],
+                                        cfg.post, scores_are_logits=True,
+                                        backend="scan")
+        check(torch.equal(det["slate"], pack_slate(ref, MAX_DET)),
+              f"obb {name}: slate differs from postprocess_obb_batch("
+              "backend='scan') on the same raw outputs")
+        check(torch.equal(runs[name]["slate"], det["slate"]),
+              f"obb {name}: the pipeline's slate differs from its parts' run")
+        print(f"pipeline: obb {name}: 50/50 detections per image, slate "
+              "equal to postprocess_obb_batch(backend='scan')", flush=True)
+
+    name = torch.cuda.get_device_name(0)
+    b1 = host_ms(kern["b1"], frames[:1], 30)
+    b8 = host_ms(kern["b8"], frames, 15)
+    print(f"pipeline: obb b=1 p50 {statistics.median(b1):.3f} ms "
+          f"(p95 {np.percentile(b1, 95):.3f} ms) on {name}", flush=True)
+    print(f"pipeline: obb b=8 {8 * 1e3 / statistics.mean(b8):.1f} frames/s "
           f"(mean {statistics.mean(b8):.3f} ms per batch) on {name}",
           flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# launch counters and the kernel line
+# ---------------------------------------------------------------------------
+
+WRAPPERS = (nk.nms_select_batched_cuda, nk.nms_select_cuda,
+            nk.nms_rotated_batched_cuda, mk.mask_synth_crop_cuda)
+
+
+def zero_counters() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
 def kernel_line(kernels) -> dict:
@@ -307,10 +561,16 @@ def kernel_line(kernels) -> dict:
             replaces=k["replaces"], launches=k["launches"],
             max_abs_err=max(c["max_abs_err"] for c in k["cases"]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-            bound_by=m["bound_by"], library_ms=None, shape=m["case"],
-            check="idx/ok equal to the plain version in every case",
+            bound_by=m["bound_by"], library_ms=m.get("library_ms"),
+            shape=m["case"],
+            check=("crop equal to the plain version, values within 1e-5"
+                   if k["name"] == K4["name"] else
+                   "idx/ok equal to the plain version in every case"),
+            **({"launches_note": k["launches_note"]}
+               if "launches_note" in k else {}),
             cases=[{key: c[key] for key in ("case", "ms", "plain_ms",
-                                            "bound_ms", "bound_by")}
+                                            "bound_ms", "bound_by")
+                    + (("library_ms",) if "library_ms" in c else ())}
                    for c in k["cases"]]))
     return {"kernels": rows}
 
@@ -320,13 +580,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; nothing was run",
               file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     try:
         phase_device()
-        kernels = phase_kernels()
-        phase_pipeline(kernels)
+        kernels = phase_nms_kernels() + [phase_k4_seeded()]
+        det, seg = phase_segment()
+        kernels[-1]["cases"].append(k4_case(
+            det["coefs"].contiguous(), det["protos"].contiguous(),
+            det["boxes_xywh"].contiguous(), "K4 segment path b=8 coefs-only"))
+        obb = phase_obb()
+        # each kernel's count on the path that runs it; K4 runs on none
+        for k in kernels:
+            k["launches"] = (obb if k["name"] == K3["name"] else seg)[k["name"]]
+        kernels[-1]["launches"] = seg[K4["name"]] + obb[K4["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps(kernel_line(kernels)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,16 +8,21 @@ hence --noconftest there:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 
-Every check is exact: the kernels must give the plain versions' idx/ok.
+The NMS kernels (K1-K3) must give the plain versions' idx/ok exactly. K4
+must zero exactly the pixels its plain version zeroes, with values within
+1e-5 (the dot products are summed in another order than cuBLAS's).
 """
 import numpy as np
 import pytest
 import torch
 
-from xrseg_tpu_torch.compile import build_pipeline
+from xrseg_tpu_torch.compile import build_pipeline, decode_task_outputs, pack_slate
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfig
+from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
+from xrseg_tpu_torch.ops.postprocess import postprocess_obb_batch
+from xrseg_tpu_torch.ops.preprocess import preprocess
 from xrseg_tpu_torch.testing import detection_params
 
 pytestmark = pytest.mark.cuda
@@ -53,7 +58,8 @@ CASES = {"random": {}, "ties": dict(ties=True),
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("B,K", [(1, 8400), (5, 8400), (3, 257), (2, 1)])
+@pytest.mark.parametrize("B,K", [(1, 8400), (5, 8400), (3, 257), (2, 1),
+                                 (1, 21504), (3, 21504)])
 def test_k1_equals_plain(card, case, B, K):
     c, m = (t.to(card) for t in _inputs(B * K, B, K, **CASES[case]))
     got = tk.nms_select_batched_cuda(c, m, 0.45, 50)
@@ -80,11 +86,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         tk.nms_select_batched_cuda(c.double(), m, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         tk.nms_select_batched_cuda(c[:, ::2], m[:, ::2], 0.5)
-    big = 1 << 16
+    big = tk.max_candidates("nms_select", card) + 1     # ~58k on an H100
+    assert big > 21504
     cb = torch.zeros((1, big, 4), device=card)
     mb = torch.zeros((1, big), device=card)
-    with pytest.raises(ValueError, match="shared-memory limit"):
+    with pytest.raises(ValueError, match=f"shared-memory limit of {big - 1}"):
         tk.nms_select_batched_cuda(cb, mb, 0.5)
+    rows = torch.zeros((1, 6, big), device=card)
+    with pytest.raises(ValueError, match=f"shared-memory limit of {big - 1}"):
+        tk.nms_rotated_batched_cuda(rows, mb, 0.5)
+    with pytest.raises(ValueError, match="does not match"):
+        tk.nms_rotated_batched_cuda(rows[:, :5], mb, 0.5)
 
 
 def test_pipeline_goes_through_the_kernels(card):
@@ -101,3 +113,103 @@ def test_pipeline_goes_through_the_kernels(card):
     ref = build_pipeline(scan, model, frame_hw=(96, 128), batch=2)(frames)
     assert torch.equal(got["slate"], ref["slate"])
     assert int(got["count"].min()) == 50
+
+
+def _rotated_inputs(seed, B, K, ties=False, zero_area=False, thin=False,
+                    empty_last=False):
+    """K3's inputs on the CPU: Gaussian rows [B,6,K] of class-shifted
+    rotated boxes and masked scores [B,K]."""
+    rng = np.random.default_rng(seed)
+    boxes = np.concatenate([rng.uniform(0, 1024, (B, K, 2)),
+                            rng.uniform(4, 120, (B, K, 2)),
+                            rng.uniform(-np.pi / 4, 3 * np.pi / 4, (B, K, 1))],
+                           -1).astype(np.float32)
+    if zero_area:
+        boxes[:, ::7, 2] = 0.0
+    if thin:
+        boxes[:, 1:64:2, :2] = boxes[:, 0:64:2, :2] + np.float32(0.3)
+        boxes[:, :64, 2:4] = np.float32([64.0, 0.5])
+        boxes[:, 1:64:2, 4] = boxes[:, 0:64:2, 4] + np.float32(1e-3)
+    scores = torch.from_numpy(rng.normal(0, 1.5, (B, K)).astype(np.float32))
+    if ties:
+        scores = scores.bfloat16().float()
+    if empty_last:
+        scores[-1] = -10.0
+    labels = torch.from_numpy(rng.integers(0, 15, (B, K)))
+    shifted = tnms.class_shifted(torch.from_numpy(boxes), labels, True)
+    return (tk.rotated_gaussian_rows(shifted),
+            torch.where(scores > -1.2, scores, tk.NEG))
+
+
+ROTATED_CASES = {"random": {}, "ties": dict(ties=True),
+                 "zero_area": dict(zero_area=True), "thin": dict(thin=True),
+                 "empty": dict(empty_last=True)}
+
+
+@pytest.mark.parametrize("case", sorted(ROTATED_CASES))
+@pytest.mark.parametrize("B,K", [(1, 21504), (4, 21504), (3, 300), (2, 1)])
+def test_k3_equals_plain(card, case, B, K):
+    rows, m = (t.to(card) for t in _rotated_inputs(
+        B * K + 1, B, K, **ROTATED_CASES[case]))
+    before = tk.nms_rotated_batched_cuda.launches
+    got = tk.nms_rotated_batched_cuda(rows, m, 0.45, 50)
+    ref = tk.nms_rotated_batched_torch(rows, m, 0.45, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert tk.nms_rotated_batched_cuda.launches == before + 1
+
+
+def _mask_inputs(seed, B, D, hw, input_size):
+    rng = np.random.default_rng(seed)
+    H, W = input_size
+    coefs = rng.standard_normal((B, D, 32)).astype(np.float32)
+    protos = rng.standard_normal((B,) + hw + (32,)).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(0, 1, (B, D, 2)) * [W, H],
+                            rng.uniform(0, 0.6, (B, D, 2)) * [W, H]],
+                           -1).astype(np.float32)
+    boxes[:, 0] = [8 * W / hw[1], 6 * H / hw[0], 4 * W / hw[1],
+                   4 * H / hw[0]]             # edges on pixel centres
+    return [torch.from_numpy(a) for a in (coefs, protos, boxes)]
+
+
+@pytest.mark.parametrize("B,D,hw,input_size", [
+    (8, 50, (160, 160), (640, 640)), (1, 50, (160, 160), (640, 640)),
+    (2, 13, (17, 23), (68, 92)), (None, 3, (16, 24), (64, 96))])
+def test_k4_equals_plain(card, B, D, hw, input_size):
+    args = _mask_inputs(D, B or 1, D, hw, input_size)
+    if B is None:
+        args = [a[0] for a in args]
+    args = [a.to(card) for a in args]
+    before = mk.mask_synth_crop_cuda.launches
+    got = mk.mask_synth_crop_cuda(*args, hw, input_size)
+    ref = mk.mask_synth_crop_torch(*args, hw, input_size)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert torch.equal(got == 0, ref == 0)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert mk.mask_synth_crop_cuda.launches == before + 1
+
+
+def test_obb_pipeline_goes_through_k3(card):
+    cfg = ExecutorConfig(model=ModelConfig(task="obb", num_classes=15,
+                                           input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
+                                               np.uint8)
+    pipe = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)
+    before = tk.nms_rotated_batched_cuda.launches
+    got = pipe(frames)
+    assert tk.nms_rotated_batched_cuda.launches == before + 1
+    assert int(got["count"].min()) == 50 and got["slate"].shape == (2, 401)
+    # the scan comparison on the same raw outputs
+    x = preprocess(torch.from_numpy(frames).to(card), (128, 128),
+                   dtype=model.dtype)
+    with torch.inference_mode():
+        out = model(x, concat_preds=False)
+    kern = decode_task_outputs(out, cfg.model, cfg.post)
+    ref = postprocess_obb_batch(out["boxes_xywhr"], out["cls_logits"],
+                                cfg.post, scores_are_logits=True,
+                                backend="scan")
+    assert torch.equal(kern["slate"], pack_slate(ref, 50))
+    assert torch.equal(got["slate"], kern["slate"])

@@ -8,8 +8,8 @@ into its own shared library:
 
 The build happens at first use, into `build/kernels/` at the root of the
 checkout (listed in .gitignore). The file name carries a hash of the
-source and the flags, so an edited source is never served by a stale
-library. `build_all()` starts one nvcc per missing source, all at once,
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source is never served by a stale library. `build_all()` starts one nvcc per missing source, all at once,
 and waits for all of them; ptxas's register and shared-memory report goes
 to `<library>.log` beside the library. A failed build raises.
 """
@@ -23,9 +23,11 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("nms_select",)
+SOURCES = ("nms_select", "nms_rotated", "mask_synth_crop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -43,6 +45,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -75,8 +79,29 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code (its
+    cudaGetLastError() after the launch)."""
+    if err:
+        fn = lib.xrseg_cuda_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what} launch failed: " + fn(err).decode())
+
+
+def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed, with
+    `argtypes` set from `signatures` (function -> ctypes argument types)
+    and an int `restype` for each of those functions."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def device_index(device) -> int:
+    """The CUDA ordinal of a torch device ("cuda" means the current one)."""
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()

@@ -9,7 +9,8 @@ builds the CUDA kernels and runs one dummy frame instead.
 
 This slice ports the segment/detect NMS path with rgb input, stretch and
 letterbox resize, crop_masks, emit_masks "all"/"none", mask_dtype, batch
-and frame_hw. The other options raise NotImplementedError naming their
+and frame_hw, and the obb task (rotated NMS; the slate carries 5-wide
+boxes_xywhr). The other options raise NotImplementedError naming their
 ROADMAP item.
 """
 from __future__ import annotations
@@ -25,7 +26,9 @@ from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfi
 from xrseg_tpu_torch.device import resolve_device, to_device
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.ops import preprocess as pre_ops
-from xrseg_tpu_torch.ops.postprocess import _check_merge, postprocess_batch_parts
+from xrseg_tpu_torch.ops.postprocess import (_check_merge,
+                                             postprocess_batch_parts,
+                                             postprocess_obb_batch)
 from xrseg_tpu_torch.precision import precision_scope
 
 
@@ -116,22 +119,30 @@ def decode_task_outputs(out, mcfg: ModelConfig, pcfg: PostprocessConfig, *,
                         crop_masks: bool = False, mask_dtype=torch.float32,
                         emit_masks: str = "all") -> Dict[str, torch.Tensor]:
     """Raw forward outputs (concat_preds=False) -> the detection dict with
-    the packed slate (segment/detect NMS branch)."""
+    the packed slate. The obb branch, like the JAX one, leaves the NMS
+    backend to postprocess_obb_batch's own "auto" (K3 on CUDA tensors)."""
     yolo11.check_supported(mcfg)
-    det = postprocess_batch_parts(
-        out["boxes_xywh"], out["cls_logits"], out.get("mask_coefs"),
-        out.get("protos"), pcfg, crop_masks, mcfg.input_size,
-        mask_dtype=mask_dtype, scores_are_logits=True,
-        with_masks=(emit_masks == "all"))
+    if mcfg.task == "obb":
+        det = postprocess_obb_batch(out["boxes_xywhr"], out["cls_logits"],
+                                    pcfg, scores_are_logits=True)
+    else:
+        det = postprocess_batch_parts(
+            out["boxes_xywh"], out["cls_logits"], out.get("mask_coefs"),
+            out.get("protos"), pcfg, crop_masks, mcfg.input_size,
+            mask_dtype=mask_dtype, scores_are_logits=True,
+            with_masks=(emit_masks == "all"))
     det["slate"] = pack_slate(det, pcfg.max_detections)
     return det
 
 
 def pack_slate(det: Dict[str, torch.Tensor], max_det: int) -> torch.Tensor:
-    """Small per-frame outputs -> ONE flat [B, D*7+1] f32 array
-    (boxes | scores | labels | valid | count): one host copy per frame."""
+    """Small per-frame outputs -> ONE flat [B, D*(bd+3)+1] f32 array
+    (boxes | scores | labels | valid | count): one host copy per frame.
+    bd = 4 for axis-aligned boxes, 5 for obb (cx, cy, w, h, angle)."""
+    boxes = det.get("boxes_xywhr", det.get("boxes_xywh"))
+    bd = boxes.shape[-1]
     return torch.cat([
-        det["boxes_xywh"].reshape(-1, max_det * 4),
+        boxes.reshape(-1, max_det * bd),
         det["scores"],
         det["labels"].float(),
         det["valid"].float(),
@@ -139,18 +150,20 @@ def pack_slate(det: Dict[str, torch.Tensor], max_det: int) -> torch.Tensor:
     ], -1)
 
 
-def unpack_slate(slate_row, max_det: int) -> Dict[str, Any]:
-    """Host-side inverse of pack_slate for one image's row (numpy out)."""
+def unpack_slate(slate_row, max_det: int, box_dim: int = 4
+                 ) -> Dict[str, Any]:
+    """Host-side inverse of pack_slate for one image's row (numpy out).
+    box_dim=5 decodes an obb slate (key "boxes_xywhr")."""
     if isinstance(slate_row, torch.Tensor):
         slate_row = slate_row.detach().cpu().numpy()
     s = np.asarray(slate_row)
-    D = max_det
+    D, bd = max_det, box_dim
     return {
-        "boxes_xywh": s[:D * 4].reshape(D, 4),
-        "scores": s[D * 4:D * 5],
-        "labels": s[D * 5:D * 6].astype(np.int32),
-        "valid": s[D * 6:D * 7] > 0.5,
-        "count": int(s[D * 7]),
+        ("boxes_xywhr" if bd == 5 else "boxes_xywh"): s[:D * bd].reshape(D, bd),
+        "scores": s[D * bd:D * (bd + 1)],
+        "labels": s[D * (bd + 1):D * (bd + 2)].astype(np.int32),
+        "valid": s[D * (bd + 2):D * (bd + 3)] > 0.5,
+        "count": int(s[D * (bd + 3)]),
     }
 
 

@@ -25,7 +25,7 @@ class ModelConfig:
     num_masks: int = 32              # mask coefficients (segmentation only)
     reg_max: int = 16                # DFL bins per box side
     input_size: Tuple[int, int] = (640, 640)   # (H, W)
-    # "segment" | "detect" are ported; pose / obb / classify are refused
+    # "segment" | "detect" | "obb" are ported; pose / classify are refused
     task: str = "segment"
     kpt_shape: Tuple[int, int] = (17, 3)   # pose: (num_kpts, dims)
     # NMS-free one-to-one head: refused (ROADMAP queue 1, segment options)

@@ -3,13 +3,15 @@ xrseg_tpu/models/yolo11.py).
 
 `YOLO11(cfg)(x)` takes NHWC input [B, H, W, 3] and returns the JAX
 package's raw-head dict: boxes_xywh [B,A,4] f32 (input pixels), scores
-[B,A,nc] f32, cls_logits [B,A,nc] in the compute dtype, and for the segment
-task mask_coefs [B,A,nm] f32 and protos [B,H/4,W/4,nm] f32; with
-concat_preds also preds [B,A,4+nc(+nm)]. The anchor axis is P3, P4, P5,
+[B,A,nc] f32, cls_logits [B,A,nc] in the compute dtype; for the segment
+task mask_coefs [B,A,nm] f32 and protos [B,H/4,W/4,nm] f32; for the obb
+task angle [B,A] f32 (radians) and boxes_xywhr [B,A,5] f32 (the rotated
+boxes). With concat_preds also preds: [B,A,4+nc(+nm)], or [xywh of the
+rotated box, scores, angle] for obb. The anchor axis is P3, P4, P5,
 row-major within a level, channels last: each level's NCHW map is
 permuted to NHWC before it is flattened.
 
-This slice ports arch "yolo11" with tasks "segment" and "detect".
+This slice ports arch "yolo11" with tasks "segment", "detect" and "obb".
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (ROADMAP queue 1, "
             "task family: the YOLOv8 arch)")
-    if cfg.task not in ("segment", "detect"):
+    if cfg.task not in ("segment", "detect", "obb"):
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP queue 1, "
             "task family)")
@@ -79,6 +81,7 @@ class Spec:
         self.c2 = max(16, self.head_ch[0] // 4, reg_max * 4)
         self.c3 = max(self.head_ch[0], min(nc, 100))
         self.c4 = max(self.head_ch[0] // 4, cfg.num_masks)
+        self.c4_obb = max(self.head_ch[0] // 4, 1)         # angle branch
         self.proto_c = ch(256)
         self.strides = (8, 16, 32)
 
@@ -88,7 +91,7 @@ class Spec:
 
 class Branch3(nn.Module):
     """Per-level (conv3x3, conv3x3, 1x1 out) branch: the box branch of the
-    detect head and the mask-coefficient branch."""
+    detect head, the mask-coefficient branch and the obb angle branch."""
 
     def __init__(self, c1: int, c_hidden: int, c_out: int, dtype):
         super().__init__()
@@ -152,6 +155,23 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     return (probs * bins).sum(-1)
 
 
+def decode_rbox(ltrb: torch.Tensor, angle: torch.Tensor,
+                anchors: torch.Tensor, strides: torch.Tensor) -> torch.Tensor:
+    """DFL ltrb distances [B,A,4] + angle [B,A] -> rotated boxes [B,A,5]
+    (cx, cy, w, h in input pixels, angle in radians), ultralytics
+    dist2rbox: the centre offset rotates by the angle; w and h stay
+    axis-local."""
+    lt, rb = ltrb[..., :2], ltrb[..., 2:]
+    c, s = torch.cos(angle), torch.sin(angle)
+    off = (rb - lt) * 0.5
+    xf, yf = off[..., 0], off[..., 1]
+    x = xf * c - yf * s
+    y = xf * s + yf * c
+    xy = (torch.stack([x, y], -1) + anchors) * strides
+    wh = (lt + rb) * strides
+    return torch.cat([xy, wh, angle[..., None]], -1)
+
+
 def _flatten(maps, c: int) -> torch.Tensor:
     """Per-level NCHW maps -> [B, A, c] in anchor order (channels last)."""
     return torch.cat([m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, c)
@@ -159,7 +179,7 @@ def _flatten(maps, c: int) -> torch.Tensor:
 
 
 class YOLO11(nn.Module):
-    """The YOLO11 detect/segment network at one scale."""
+    """The YOLO11 detect/segment/obb network at one scale."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -192,6 +212,9 @@ class YOLO11(nn.Module):
             self.proto = L.Proto(s.head_ch[0], s.proto_c, cfg.num_masks, dt)
             self.seg_cv4 = nn.ModuleList(
                 Branch3(ci, s.c4, cfg.num_masks, dt) for ci in s.head_ch)
+        elif cfg.task == "obb":
+            self.obb_cv4 = nn.ModuleList(
+                Branch3(ci, s.c4_obb, 1, dt) for ci in s.head_ch)
         anchors, strides = make_anchors(cfg.input_size, s.strides)
         self.register_buffer("anchors", torch.from_numpy(anchors),
                              persistent=False)
@@ -232,6 +255,17 @@ class YOLO11(nn.Module):
             out["protos"] = protos.permute(0, 2, 3, 1).float().contiguous()
             if concat_preds:
                 out["preds"] = torch.cat([xywh, scores, out["mask_coefs"]], -1)
+        elif cfg.task == "obb":
+            raw = _flatten([m(f) for m, f in zip(self.obb_cv4, feats)], 1)
+            # ultralytics OBB: angle = (sigmoid(raw) - 0.25) * pi, decoded
+            # before the box (the ltrb offsets rotate by it)
+            angle = (torch.sigmoid(raw[..., 0].float()) - 0.25) * math.pi
+            out["boxes_xywhr"] = decode_rbox(ltrb, angle, self.anchors,
+                                             self.strides)
+            out["angle"] = angle
+            if concat_preds:
+                out["preds"] = torch.cat([out["boxes_xywhr"][..., :4], scores,
+                                          angle[..., None]], -1)
         elif concat_preds:
             out["preds"] = torch.cat([xywh, scores], -1)
         return out

@@ -3,12 +3,15 @@
 Same contract as the JAX package: max_det greedy select-and-suppress
 steps over all candidates (one IoU row per step, no KxK matrix), landing
 in a padded max_det slate plus a count. Class awareness shifts each box
-by label * _CLASS_OFFSET instead of looping over classes.
+by label * _CLASS_OFFSET instead of looping over classes. Rotated boxes
+(the OBB task) use probIoU as the overlap and shift both centre
+coordinates.
 
 Backends:
-  "scan"  the plain torch loop (`_select_and_suppress`), on any device;
+  "scan"  the plain torch loop (`_select_and_suppress`,
+          `_select_and_suppress_rotated`), on any device;
   "cuda"  the hand-written kernel (ops/nms_kernels.py: K2 for nms_fixed,
-          K1 for nms_fixed_batched);
+          K1 for nms_fixed_batched, K3 for nms_fixed_rotated_batched);
   "auto"  "cuda" for CUDA tensors, "scan" for CPU tensors.
 Both are exact greedy NMS and give identical results.
 """
@@ -18,8 +21,12 @@ from typing import Dict
 
 import torch
 
-from xrseg_tpu_torch.ops.nms_kernels import (NEG, as_f32, nms_select_batched_cuda,
-                                             nms_select_cuda)
+from xrseg_tpu_torch.ops.nms_kernels import (NEG, PROBIOU_EPS, as_f32,
+                                             nms_rotated_batched_cuda,
+                                             nms_select_batched_cuda,
+                                             nms_select_cuda, probiou_gauss,
+                                             rbox_covariance,
+                                             rotated_gaussian_rows)
 
 # Separates classes in the shared coordinate space; exceeds any real
 # coordinate (inputs are at most a few thousand pixels).
@@ -180,3 +187,105 @@ def nms_fixed_batched(boxes_xywh: torch.Tensor, scores: torch.Tensor,
                                        iou_threshold, max_det)
     idx = torch.arange(A, dtype=torch.int32, device=scores.device)
     return _take_slate(sel, ok, idx.expand(B, A), boxes_xywh, scores, labels)
+
+
+# ---------------------------------------------------------------------------
+# Rotated boxes (OBB task): probIoU select-and-suppress
+# ---------------------------------------------------------------------------
+
+def _gauss(xywhr: torch.Tensor):
+    a, b, c = rbox_covariance(xywhr)
+    return xywhr[..., 0], xywhr[..., 1], a, b, c, (a * b - c * c).clamp_min(0)
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor,
+            eps: float = PROBIOU_EPS) -> torch.Tensor:
+    """Elementwise/broadcast probIoU of rotated boxes [...,5] -> [...]:
+    one minus the Hellinger distance of the boxes' Gaussian embeddings
+    (the overlap ultralytics' rotated NMS uses)."""
+    return probiou_gauss(*_gauss(obb1.float()), *_gauss(obb2.float()), eps)
+
+
+def probiou_row(box: torch.Tensor, boxes: torch.Tensor,
+                eps: float = PROBIOU_EPS) -> torch.Tensor:
+    """probIoU of one rotated box [5] against many [K,5] -> [K]."""
+    return probiou(box[None] if box.dim() == 1 else box, boxes, eps)
+
+
+def class_shifted(boxes_xywhr: torch.Tensor, labels: torch.Tensor,
+                  class_aware: bool) -> torch.Tensor:
+    """Float32 rotated boxes with label * _CLASS_OFFSET added to cx and cy
+    (far-apart Gaussians: probIoU ~ 0 across classes)."""
+    bx = boxes_xywhr.float()
+    if not class_aware:
+        return bx
+    off = labels.float()[..., None] * _CLASS_OFFSET
+    return torch.cat([bx[..., :2] + off, bx[..., 2:]], -1)
+
+
+def _select_and_suppress_rotated(shifted: torch.Tensor, scores: torch.Tensor,
+                                 alive0: torch.Tensor, iou_threshold: float,
+                                 max_det: int):
+    """The JAX scan path's loop: shifted [...,K,5], scores/alive0 [...,K] ->
+    (indices, ok) [...,max_det]. Each box's Gaussian terms are computed
+    once; each step takes one probIoU row of the selected box."""
+    x, y, a, b, c, det = _gauss(shifted)
+    k_idx = torch.arange(scores.shape[-1], device=scores.device)
+    thr = as_f32(iou_threshold)
+    masked = torch.where(alive0, scores.float(), -torch.inf)
+    idxs, oks = [], []
+    for _ in range(max_det):
+        i = masked.argmax(-1, keepdim=True)        # first maximum
+
+        def g(v):
+            return v.gather(-1, i)
+
+        ok = g(masked) != -torch.inf
+        iou = probiou_gauss(g(x), g(y), g(a), g(b), g(c), g(det),
+                            x, y, a, b, c, det)
+        suppress = (iou > thr) | (k_idx == i)
+        masked = torch.where(ok & suppress, -torch.inf, masked)
+        idxs.append(i[..., 0])
+        oks.append(ok[..., 0])
+    return torch.stack(idxs, -1).int(), torch.stack(oks, -1)
+
+
+def nms_fixed_rotated_batched(boxes_xywhr: torch.Tensor,
+                              scores: torch.Tensor, labels: torch.Tensor, *,
+                              iou_threshold: float, score_threshold: float,
+                              max_det: int = 50, class_aware: bool = True,
+                              backend: str = "scan"
+                              ) -> Dict[str, torch.Tensor]:
+    """Batched rotated NMS over [B,A,...] (boxes [B,A,5]: cx, cy, w, h,
+    angle in radians). backend "cuda" runs ONE K3 launch for the batch;
+    "scan" the plain loop over all rows at once. Identical results. The
+    slate's box key is "boxes_xywhr" [B,max_det,5]."""
+    B, A = scores.shape
+    shifted = class_shifted(boxes_xywhr, labels, class_aware)
+    alive = scores > as_f32(score_threshold)
+    if resolve_backend(backend, scores) == "cuda":
+        masked = torch.where(alive, scores.float(), NEG)
+        sel, ok = nms_rotated_batched_cuda(rotated_gaussian_rows(shifted),
+                                           masked, iou_threshold, max_det)
+    else:
+        sel, ok = _select_and_suppress_rotated(shifted, scores, alive,
+                                               iou_threshold, max_det)
+    idx = torch.arange(A, dtype=torch.int32, device=scores.device)
+    out = _take_slate(sel, ok, idx.expand(B, A), boxes_xywhr, scores.float(),
+                      labels)
+    out["boxes_xywhr"] = out.pop("boxes_xywh")
+    return out
+
+
+def nms_fixed_rotated(boxes_xywhr: torch.Tensor, scores: torch.Tensor,
+                      labels: torch.Tensor, *, iou_threshold: float,
+                      score_threshold: float, max_det: int = 50,
+                      class_aware: bool = True,
+                      backend: str = "scan") -> Dict[str, torch.Tensor]:
+    """Single-image rotated NMS: boxes_xywhr [A,5], scores [A], labels [A]
+    -> the padded slate (key "boxes_xywhr" [max_det,5])."""
+    out = nms_fixed_rotated_batched(
+        boxes_xywhr[None], scores[None], labels[None],
+        iou_threshold=iou_threshold, score_threshold=score_threshold,
+        max_det=max_det, class_aware=class_aware, backend=backend)
+    return {k: v[0] for k, v in out.items()}

@@ -1,19 +1,24 @@
-"""Greedy select-and-suppress NMS kernels (K1, K2), their wrappers and their
-plain versions.
+"""Greedy select-and-suppress NMS kernels (K1, K2, K3), their wrappers and
+their plain versions.
 
-The CUDA source is xrseg_tpu_torch/csrc/nms_select.cu (one block per
-image, candidates resident in shared memory); it replaces the TPU kernels
-xrseg_tpu/ops/pallas_kernels.py `nms_select_batched_pallas` (K1) and
-`nms_select_pallas` (K2).
+The CUDA sources are xrseg_tpu_torch/csrc/nms_select.cu (K1, K2: one
+block per image, the candidates in shared memory while they fit) and
+csrc/nms_rotated.cu (K3: one block per image, the masked scores in shared
+memory, the geometry read from L2). They replace the TPU kernels of
+xrseg_tpu/ops/pallas_kernels.py:
 
-  nms_select_batched_cuda  K1: corners [B,K,4], masked scores [B,K]
-  nms_select_cuda          K2: corners [K,4], masked scores [K]
-                           (the same __global__ launched with B = 1)
+  nms_select_batched_cuda   K1 `nms_select_batched_pallas`: corners
+                            [B,K,4], masked scores [B,K]
+  nms_select_cuda           K2 `nms_select_pallas`: corners [K,4], masked
+                            scores [K] (K1's __global__ launched with B = 1)
+  nms_rotated_batched_cuda  K3 `nms_rotated_batched_pallas`: Gaussian rows
+                            [B,6,K] from rotated_gaussian_rows, masked
+                            scores [B,K] (probIoU overlap)
 
-Both return (idx int32, ok bool) of max_det greedy steps in selection
+Each returns (idx int32, ok bool) of max_det greedy steps in selection
 order. Scores below the score gate must already be float32 min (NEG).
 
-A wrapper given CPU tensors runs the plain version (nms_select_*_torch),
+A wrapper given CPU tensors runs the plain version (nms_*_torch),
 which repeats the kernel's arithmetic step by step in torch; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its own
 launches in `<wrapper>.launches`.
@@ -86,64 +91,168 @@ def nms_select_torch(corners: torch.Tensor, masked: torch.Tensor,
     return idx[0], ok[0]
 
 
+PROBIOU_EPS = 1e-7
+
+
+def rbox_covariance(xywhr: torch.Tensor):
+    """Rotated boxes [...,5] (cx, cy, w, h, angle) -> the covariance terms
+    (a, b, c) of their Gaussian embedding: w^2/12 and h^2/12 rotated by the
+    angle. Each side is floored at 1e-3 px: a zero-area box would otherwise
+    have zero covariance and a probIoU near 1 against anything."""
+    w = xywhr[..., 2].clamp_min(1e-3)
+    h = xywhr[..., 3].clamp_min(1e-3)
+    a0 = w * w / 12.0
+    b0 = h * h / 12.0
+    cs, sn = torch.cos(xywhr[..., 4]), torch.sin(xywhr[..., 4])
+    a = a0 * cs * cs + b0 * sn * sn
+    b = a0 * sn * sn + b0 * cs * cs
+    c = (a0 - b0) * cs * sn
+    return a, b, c
+
+
+def probiou_gauss(x1, y1, a1, b1, c1, det1, x2, y2, a2, b2, c2, det2,
+                  eps: float = PROBIOU_EPS) -> torch.Tensor:
+    """probIoU of box 1 against box 2 from their Gaussian terms (det =
+    clamp_min(a*b - c*c, 0)), broadcasting. The operation order is K3's
+    (csrc/nms_rotated.cu) and the TPU kernel's; the quadratic form is
+    clamped at 0 before eps is added (it rounds negative for degenerate
+    pairs, and log of a negative is NaN)."""
+    sa, sb, sc = a1 + a2, b1 + b2, c1 + c2
+    dy, dx = y1 - y2, x1 - x2
+    denom = (sa * sb - sc * sc).clamp_min(0) + eps
+    t1 = (sa * (dy * dy) + sb * (dx * dx)) / denom * 0.25
+    t2 = (sc * (x2 - x1) * dy) / denom * 0.5
+    t3 = 0.5 * torch.log(
+        denom / (4.0 * torch.sqrt((det1 * det2).clamp_min(0)) + eps) + eps)
+    bd = torch.clamp(t1 + t2 + t3, eps, 100.0)
+    return 1.0 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+
+
+def rotated_gaussian_rows(shifted: torch.Tensor) -> torch.Tensor:
+    """K3's inputs: rotated boxes [B,K,5] (class offset already added to cx
+    and cy) -> rows [B,6,K] f32: x, y, a, b, c, det. The TPU kernel's
+    host-side terms (pallas_kernels.py:388-401); the kernel and its plain
+    version both take this output."""
+    bx = shifted.float()
+    a, b, c = rbox_covariance(bx)
+    det = (a * b - c * c).clamp_min(0)
+    return torch.stack([bx[..., 0], bx[..., 1], a, b, c, det], -2).contiguous()
+
+
+def rotated_steps(rows: torch.Tensor, masked: torch.Tensor,
+                  iou_threshold: float, max_det: int = 50):
+    """K3's loop in torch, one greedy step at a time: rows [B,6,K], masked
+    [B,K] -> yields (i [B,1], ok [B,1], masked [B,K] as the step found it)."""
+    K = masked.shape[-1]
+    x, y, a, b, c, det = rows.float().unbind(-2)
+    col = torch.arange(K, device=masked.device)
+    thr = as_f32(iou_threshold)
+    masked = masked.float()
+    for _ in range(max_det):
+        m = masked.max(-1, keepdim=True).values
+        ok = m > NEG * 0.5
+        i = torch.where(masked == m, col, K).min(-1, keepdim=True).values
+
+        def g(v):
+            return v.gather(-1, i)
+
+        iou = probiou_gauss(g(x), g(y), g(a), g(b), g(c), g(det),
+                            x, y, a, b, c, det)
+        suppress = (iou > thr) | (col == i)
+        yield i, ok, masked
+        masked = torch.where(ok & suppress, NEG, masked)
+
+
+def nms_rotated_batched_torch(rows: torch.Tensor, masked: torch.Tensor,
+                              iou_threshold: float, max_det: int = 50
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's plain version: rows [B,6,K] f32 (rotated_gaussian_rows), masked
+    [B,K] f32 -> (idx [B,max_det] int32, ok [B,max_det] bool)."""
+    idx, oks = [], []
+    for i, ok, _ in rotated_steps(rows, masked, iou_threshold, max_det):
+        idx.append(i[:, 0])
+        oks.append(ok[:, 0])
+    return torch.stack(idx, 1).int(), torch.stack(oks, 1)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-_lib_handle = None
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "nms_select": {"xrseg_nms_select": [_VP, _VP, _CI, _CI, _CF, _CI, _VP,
+                                        _VP, _VP],
+                   "xrseg_nms_select_max_k": [_CI]},
+    "nms_rotated": {"xrseg_nms_rotated": [_VP, _VP, _CI, _CI, _CF, _CF, _CI,
+                                          _VP, _VP, _VP],
+                    "xrseg_nms_rotated_max_k": [_CI]},
+}
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.library("nms_select")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.xrseg_nms_select.argtypes = [vp, vp, ci, ci, ctypes.c_float, ci,
-                                         vp, vp, vp]
-        lib.xrseg_nms_select.restype = ci
-        lib.xrseg_nms_select_max_k.argtypes = [ci]
-        lib.xrseg_nms_select_max_k.restype = ci
-        lib.xrseg_cuda_error_string.argtypes = [ci]
-        lib.xrseg_cuda_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+def _lib(name: str) -> ctypes.CDLL:
+    return _build.library(name, _SIGNATURES[name])
 
 
-def _launch(corners: torch.Tensor, masked: torch.Tensor,
-            iou_threshold: float, max_det: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """corners [B,K,4], masked [B,K], both float32, contiguous, on one card."""
-    if corners.dtype != torch.float32 or masked.dtype != torch.float32:
-        raise TypeError(f"nms_select needs float32 inputs, got "
-                        f"{corners.dtype} and {masked.dtype}")
-    if masked.device != corners.device:
-        raise ValueError(f"inputs on {corners.device} and {masked.device}")
-    if not (corners.is_contiguous() and masked.is_contiguous()):
-        raise ValueError("nms_select needs contiguous inputs")
+def max_candidates(name: str, device: torch.device) -> int:
+    """The largest K the kernel of csrc/<name>.cu takes on `device`: the
+    one whose masked scores fit one block's shared memory."""
+    return getattr(_lib(name), f"xrseg_{name}_max_k")(
+        _build.device_index(device))
+
+
+def _check_inputs(geo: torch.Tensor, masked: torch.Tensor, geo_shape,
+                  max_det: int, what: str) -> Tuple[int, int]:
+    """geo [B,...] and masked [B,K]: float32, contiguous, on one card, geo
+    of shape geo_shape(B, K). Returns (B, K)."""
+    if geo.dtype != torch.float32 or masked.dtype != torch.float32:
+        raise TypeError(f"{what} needs float32 inputs, got "
+                        f"{geo.dtype} and {masked.dtype}")
+    if masked.device != geo.device:
+        raise ValueError(f"inputs on {geo.device} and {masked.device}")
+    if not (geo.is_contiguous() and masked.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous inputs")
+    if masked.dim() != 2:
+        raise ValueError(f"{what} needs masked scores [B,K], got "
+                         f"{tuple(masked.shape)}")
     B, K = masked.shape
-    if tuple(corners.shape) != (B, K, 4):
-        raise ValueError(f"corners {tuple(corners.shape)} do not match "
-                         f"scores {tuple(masked.shape)}")
+    if tuple(geo.shape) != geo_shape(B, K):
+        raise ValueError(f"geometry {tuple(geo.shape)} does not match "
+                         f"scores {tuple(masked.shape)}: expected "
+                         f"{geo_shape(B, K)}")
     if K < 1 or max_det < 1:
-        raise ValueError(f"nms_select needs K >= 1 and max_det >= 1, got "
+        raise ValueError(f"{what} needs K >= 1 and max_det >= 1, got "
                          f"K={K}, max_det={max_det}")
-    lib = _lib()
-    dev = corners.device.index
-    max_k = lib.xrseg_nms_select_max_k(dev)
+    max_k = max_candidates(what, geo.device)
     if K > max_k:
         raise ValueError(f"K={K} candidates exceed the kernel's shared-memory "
-                         f"limit of {max_k} per image on this card")
-    idx = torch.empty((B, max_det), dtype=torch.int32, device=corners.device)
-    ok = torch.empty((B, max_det), dtype=torch.bool, device=corners.device)
-    with torch.cuda.device(corners.device):
+                         f"limit of {max_k} per image on this card (the "
+                         "masked scores of one image must fit one block)")
+    return B, K
+
+
+def _launch(what: str, geo: torch.Tensor, masked: torch.Tensor,
+            geo_shape, max_det: int, *scalars
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs, allocate (idx, ok) [B,max_det] and launch
+    xrseg_<what>(geo, masked, B, K, *scalars, max_det, idx, ok, stream) on
+    the current stream."""
+    B, K = _check_inputs(geo, masked, geo_shape, max_det, what)
+    idx = torch.empty((B, max_det), dtype=torch.int32, device=geo.device)
+    ok = torch.empty((B, max_det), dtype=torch.bool, device=geo.device)
+    lib = _lib(what)
+    with torch.cuda.device(geo.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xrseg_nms_select(corners.data_ptr(), masked.data_ptr(), B,
-                                   K, as_f32(iou_threshold), max_det,
-                                   idx.data_ptr(), ok.data_ptr(), stream)
-    if err:
-        raise RuntimeError("nms_select launch failed: "
-                           + lib.xrseg_cuda_error_string(err).decode())
+        err = getattr(lib, f"xrseg_{what}")(
+            geo.data_ptr(), masked.data_ptr(), B, K, *scalars, max_det,
+            idx.data_ptr(), ok.data_ptr(), stream)
+    _build.check_launch(lib, err, what)
     return idx, ok
+
+
+def _select(corners, masked, iou_threshold, max_det):
+    return _launch("nms_select", corners, masked, lambda B, K: (B, K, 4),
+                   max_det, as_f32(iou_threshold))
 
 
 def _check_device(t: torch.Tensor) -> bool:
@@ -152,7 +261,7 @@ def _check_device(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"nms_select runs on cuda or cpu tensors, not "
+    raise ValueError(f"the NMS kernels run on cuda or cpu tensors, not "
                      f"{t.device}")
 
 
@@ -163,7 +272,7 @@ def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
     if not _check_device(corners):
         return nms_select_batched_torch(corners, masked, iou_threshold,
                                         max_det)
-    out = _launch(corners, masked, iou_threshold, max_det)
+    out = _select(corners, masked, iou_threshold, max_det)
     nms_select_batched_cuda.launches += 1
     return out
 
@@ -177,10 +286,24 @@ def nms_select_cuda(corners: torch.Tensor, masked: torch.Tensor,
     if corners.dim() != 2 or masked.dim() != 1:
         raise ValueError(f"nms_select_cuda takes [K,4] and [K], got "
                          f"{tuple(corners.shape)} and {tuple(masked.shape)}")
-    idx, ok = _launch(corners[None], masked[None], iou_threshold, max_det)
+    idx, ok = _select(corners[None], masked[None], iou_threshold, max_det)
     nms_select_cuda.launches += 1
     return idx[0], ok[0]
 
 
+def nms_rotated_batched_cuda(rows: torch.Tensor, masked: torch.Tensor,
+                             iou_threshold: float, max_det: int = 50
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: rows [B,6,K] f32 (rotated_gaussian_rows), masked [B,K] f32 ->
+    (idx, ok) [B,max_det]."""
+    if not _check_device(rows):
+        return nms_rotated_batched_torch(rows, masked, iou_threshold, max_det)
+    out = _launch("nms_rotated", rows, masked, lambda B, K: (B, 6, K),
+                  max_det, as_f32(iou_threshold), as_f32(PROBIOU_EPS))
+    nms_rotated_batched_cuda.launches += 1
+    return out
+
+
 nms_select_batched_cuda.launches = 0
 nms_select_cuda.launches = 0
+nms_rotated_batched_cuda.launches = 0

@@ -7,7 +7,9 @@ logits and the sigmoid is applied to the survivors only), greedy NMS into
 a fixed max_det slate, the survivors' mask coefficients, and optionally
 their masks. The NMS backend comes from PostprocessConfig.nms_backend;
 "auto" takes the CUDA kernel for CUDA tensors (K1 for the batched path, K2
-per image) and the plain loop for CPU tensors.
+per image) and the plain loop for CPU tensors. The OBB task
+(postprocess_obb_batch) runs rotated NMS with its own backend argument,
+as in the JAX package: "auto" takes K3 for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -104,6 +106,30 @@ def postprocess_batch_parts(boxes, cls_scores, coefs_all, protos,
     if protos is not None and coefs_all is not None:
         _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
                       with_masks)
+    return det
+
+
+def postprocess_obb_batch(boxes_xywhr, cls_scores, cfg: PostprocessConfig,
+                          scores_are_logits: bool = False,
+                          backend: str = "auto") -> Dict[str, torch.Tensor]:
+    """OBB task: rotated (probIoU) NMS on boxes_xywhr [B,A,5] and
+    cls_scores [B,A,nc]; the slate's box key is "boxes_xywhr" [B,max_det,5]
+    (cx, cy, w, h, angle in radians). The whole batch goes through ONE NMS
+    call (K3 on the card under "auto")."""
+    if cfg.merge == "wbf":
+        raise NotImplementedError(
+            "merge 'wbf' for rotated boxes is not ported yet (ROADMAP queue "
+            "1, accuracy modes: ops/wbf.py wbf_rotated_fixed_batched)")
+    _check_merge(cfg)
+    scores, labels = cls_scores.max(-1)
+    scores, labels = scores.float(), labels.int()
+    det = nms_ops.nms_fixed_rotated_batched(
+        boxes_xywhr, scores, labels, iou_threshold=cfg.iou_threshold,
+        score_threshold=_logit_threshold(cfg, scores_are_logits),
+        max_det=cfg.max_detections, class_aware=cfg.class_aware,
+        backend=backend)
+    if scores_are_logits:
+        det["scores"] = torch.sigmoid(det["scores"]) * det["valid"]
     return det
 
 

@@ -1,8 +1,11 @@
 """Where the frame pipeline's time goes on the card: a torch.profiler
-breakdown of YOLO11n-seg at full width (640x640, detection_params weights,
-480x640 uint8 frames, stretch), per batch size.
+breakdown of a model at full width with detection_params weights, per
+batch size. --model seg (the default) is YOLO11n-seg (640x640 on 480x640
+uint8 frames, stretch); --model obb is YOLO11n-obb (1024x1024, 15 classes,
+on 1024x1024 frames).
 
-    python -m xrseg_tpu_torch.profile [--batch 1 8] [--iters 20] [--json PATH]
+    python -m xrseg_tpu_torch.profile [--model seg|obb] [--batch 1 8]
+        [--iters 20] [--json PATH]
 
 For each batch size it prints, per frame batch: the host wall time (host
 frames in, host slate out; measured without the profiler, then with it),
@@ -24,6 +27,14 @@ from torch.profiler import ProfilerActivity, profile
 from xrseg_tpu_torch.compile import build_pipeline
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
 from xrseg_tpu_torch.testing import detection_params
+
+
+# model -> (its config, the frame size it is fed)
+MODELS = {
+    "seg": (ModelConfig(), (480, 640)),
+    "obb": (ModelConfig(task="obb", num_classes=15, input_size=(1024, 1024)),
+            (1024, 1024)),
+}
 
 
 def profile_batch(pipe, frames, iters: int, top: int = 12) -> dict:
@@ -59,18 +70,20 @@ def profile_batch(pipe, frames, iters: int, top: int = 12) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="seg")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
-    cfg = ExecutorConfig(model=ModelConfig())
+    mcfg, frame_hw = MODELS[args.model]
+    cfg = ExecutorConfig(model=mcfg)
     model = detection_params(torch.Generator().manual_seed(0), cfg.model)
     rng = np.random.default_rng(1)
     rows = []
     for B in args.batch:
-        pipe = build_pipeline(cfg, model, frame_hw=(480, 640),
+        pipe = build_pipeline(cfg, model, frame_hw=frame_hw,
                               batch=B).warmup()
-        frames = rng.integers(0, 256, (B, 480, 640, 3), np.uint8)
+        frames = rng.integers(0, 256, (B,) + frame_hw + (3,), np.uint8)
         r = profile_batch(pipe, frames, args.iters)
         rows.append(r)
         print(f"b={B}: wall {r['wall_ms']:.3f} ms "
@@ -80,7 +93,8 @@ def main() -> int:
               f"{r['launches']:.0f} kernel launches per batch")
         for t in r["top"]:
             print(f"  {t['ms']:8.4f} ms {t['launches']:6.1f}x  {t['kernel']}")
-    out = {"device": torch.cuda.get_device_name(0), "rows": rows}
+    out = {"device": torch.cuda.get_device_name(0), "model": args.model,
+           "rows": rows}
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
