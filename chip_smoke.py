@@ -12,9 +12,9 @@ Run from the root of a checkout. Phases, each printed as it finishes:
 2. kernels, each against its plain torch version on the same card and
    inputs, and timed with CUDA events beside its plain version and its
    bound:
-   - K1 (nms_select_batched_cuda) at B = 1, 8, 32 with K = 8400 (the
-     640x640 anchors) and at B = 1, 8 with K = 21504 (the 1024x1024
-     anchors: the corner rows no longer fit shared memory), and K2
+   - K1 (nms_select_batched_cuda) at B = 1, 8, 32, 128 with K = 8400 (the
+     640x640 anchors; B = 128 is the launch plan's one-block-per-image
+     end) and at B = 1, 8 with K = 21504 (the 1024x1024 anchors), and K2
      (nms_select_cuda) at K = 8400 and at a pre_topk-compacted K = 1024,
      on numpy-seeded inputs with bf16-quantised (tied) scores, below-gate
      candidates, zero-area boxes and an all-below-gate image. idx and ok
@@ -23,6 +23,12 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      boxes with bf16-tied scores, zero-width boxes, thin near-parallel
      pairs and an all-below-gate image: idx and ok must EQUAL the plain
      version's.
+   - Each NMS line names the cluster size (blocks per image) the launch
+     plan chose and the microseconds per greedy step run. Then, per
+     kernel, every cluster size 1, 2, 4, 8 forced at ragged K (8399, 8199,
+     21503; B = 3 with an empty last image): idx and ok must EQUAL the
+     plain version's, and a size whose blocks cannot hold K must raise.
+     A K beyond the plan's largest must raise too.
    - K4 (mask_synth_crop_cuda) at B = 8, D = 50, 32 prototypes at 160x160
      on seeded inputs: the zeroed pixels must equal the plain version's
      and the values lie within 1e-5. Also timed beside the library
@@ -67,6 +73,8 @@ import torch
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.compile import build_pipeline, decode_task_outputs, pack_slate
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
+from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
+                                       rotated_inputs, steps_run)
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
@@ -89,9 +97,6 @@ OPS_PER_CANDIDATE_STEP = 20
 # suppression test and the skip test; plus, for every candidate, the
 # argmax compare
 OPS_PER_LIVE_ROTATED = 43
-MAX_DET = 50
-IOU = 0.6
-GATE = float(np.log(0.23 / 0.77))     # logit-space gate of score 0.23
 DEVICE = "cuda"
 # the segment path: YOLO11n-seg at full width on 480x640 camera frames
 MODEL = ModelConfig()                 # 640x640, 80 classes, 32 protos
@@ -100,7 +105,11 @@ FRAME_HW = (480, 640)
 # classes) at its 1024x1024 input, on 1024x1024 frames
 OBB_MODEL = ModelConfig(task="obb", num_classes=15, input_size=(1024, 1024))
 OBB_FRAME_HW = (1024, 1024)
-K1_BATCHES = (1, 8, 32)
+K1_BATCHES = (1, 8, 32, 128)
+K_ONCE = 128                          # from this B on the plain loop runs once
+# (kernel, K) of the forced-cluster cases: ragged slices at every size
+FORCED = (("K1", 8399), ("K1", 21503), ("K2", 8399), ("K3", 8199),
+          ("K3", 21503))
 K1_WIDE_BATCHES = (1, 8)
 K3_BATCHES = (1, 8, 32)
 K_FULL, K_COMPACT = 8400, 1024
@@ -129,21 +138,6 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -183,25 +177,6 @@ def phase_device() -> str:
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def nms_inputs(rng, B: int, K: int, extent: float = 640.0):
-    """Card-resident corners [B,K,4] (class offset applied) and masked
-    scores [B,K]: bf16-quantised logits (exact ties), about 20% of them
-    below the gate, every 13th box of zero width, and, for B > 1, a last
-    image entirely below the gate."""
-    cxy = rng.uniform(0, extent, (B, K, 2))
-    wh = rng.uniform(4, 96, (B, K, 2))
-    wh[:, ::13, 0] = 0.0
-    boxes = torch.from_numpy(np.concatenate([cxy, wh], -1).astype(np.float32))
-    scores = torch.from_numpy(rng.normal(0.0, 1.5, (B, K)).astype(np.float32))
-    scores = scores.bfloat16().float()
-    if B > 1:
-        scores[-1] = -10.0
-    labels = torch.from_numpy(rng.integers(0, 4, (B, K)))
-    corners = nms_ops.class_corners(boxes, labels, True).to(DEVICE)
-    masked = torch.where(scores > GATE, scores, nk.NEG).to(DEVICE)
-    return corners, masked
-
-
 def nms_bound(ok: torch.Tensor, K: int):
     """Least time for the work these inputs need: each image's data read
     once and its slate written once; the steps the loop runs (until the
@@ -210,32 +185,6 @@ def nms_bound(ok: torch.Tensor, K: int):
     steps = sum(min(int(n) + 1, MAX_DET) for n in ok.sum(-1).tolist())
     return bound(B * K * 5 * 4 + B * MAX_DET * 5,
                  steps * K * OPS_PER_CANDIDATE_STEP)
-
-
-def rotated_inputs(rng, B: int, K: int):
-    """Card-resident K3 inputs: Gaussian rows [B,6,K] of class-shifted
-    rotated boxes in a 1024x1024 scene (15 classes) and masked scores
-    [B,K]: bf16-quantised logits (exact ties), about 20% below the gate,
-    every 13th box of zero width, the first 64 boxes as 32 thin (64x0.5 px)
-    pairs 0.3 px and 1e-3 rad apart, and, for B > 1, a last image entirely
-    below the gate."""
-    boxes = np.concatenate([rng.uniform(0, 1024, (B, K, 2)),
-                            rng.uniform(4, 96, (B, K, 2)),
-                            rng.uniform(-np.pi / 4, 3 * np.pi / 4, (B, K, 1))],
-                           -1).astype(np.float32)
-    boxes[:, ::13, 2] = 0.0
-    boxes[:, 1:64:2, :2] = boxes[:, 0:64:2, :2] + np.float32(0.3)
-    boxes[:, :64, 2:4] = np.float32([64.0, 0.5])
-    boxes[:, 1:64:2, 4] = boxes[:, 0:64:2, 4] + np.float32(1e-3)
-    scores = torch.from_numpy(rng.normal(0.0, 1.5, (B, K)).astype(np.float32))
-    scores = scores.bfloat16().float()
-    if B > 1:
-        scores[-1] = -10.0
-    labels = torch.from_numpy(rng.integers(0, 15, (B, K)))
-    shifted = nms_ops.class_shifted(torch.from_numpy(boxes).to(DEVICE),
-                                    labels.to(DEVICE), True)
-    masked = torch.where(scores > GATE, scores, nk.NEG).to(DEVICE)
-    return nk.rotated_gaussian_rows(shifted), masked
 
 
 def rotated_bound(rows: torch.Tensor, masked: torch.Tensor):
@@ -257,24 +206,105 @@ def rotated_bound(rows: torch.Tensor, masked: torch.Tensor):
     return bound(B * K * 7 * 4 + B * MAX_DET * 5, ops)
 
 
-def run_case(kernel, plain, args, label: str, bound_fn, iters: int = 50):
+def plan_cluster(what: str, masked: torch.Tensor) -> int:
+    """The cluster size launch_plan chooses for these scores on this card."""
+    B, K = masked.reshape(-1, masked.shape[-1]).shape
+    return nk.launch_plan(what, B, K, *nk.device_limits(what, masked.device))[0]
+
+
+def event_ms(fn):
+    """fn()'s result and the device time of that one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_case(kernel, plain, args, label: str, what: str, bound_fn,
+             iters: int = 50, plain_once: bool = False):
     idx, ok = kernel(*args, IOU, MAX_DET)
-    ref_idx, ref_ok = plain(*args, IOU, MAX_DET)
+    (ref_idx, ref_ok), plain_ms = event_ms(lambda: plain(*args, IOU, MAX_DET))
     torch.cuda.synchronize()
     check(torch.equal(idx, ref_idx) and torch.equal(ok, ref_ok),
           f"{label}: kernel idx/ok differ from the plain version")
     err = max(float((idx - ref_idx).abs().max()),
               float((ok.int() - ref_ok.int()).abs().max()))
     ms = cuda_ms(lambda: kernel(*args, IOU, MAX_DET), iters)
-    plain_ms = cuda_ms(lambda: plain(*args, IOU, MAX_DET), 3, 1)
+    if not plain_once:
+        plain_ms = cuda_ms(lambda: plain(*args, IOU, MAX_DET), 3, 1)
     bound_ms, bound_by = bound_fn(ok.reshape(-1, MAX_DET))
+    steps = steps_run(ok)
     case = dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
+                cluster=plan_cluster(what, args[1]), steps=steps,
+                us_per_step=1e3 * ms / steps,
                 n_ok=ok.reshape(-1, MAX_DET).sum(-1).tolist())
-    print(f"kernels: {label}: equal, {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.5f} ms by {bound_by}), "
-          f"ok per image {case['n_ok']}", flush=True)
+    n_ok = case["n_ok"] if len(case["n_ok"]) <= 32 else \
+        f"{min(case['n_ok'])}..{max(case['n_ok'])} over {len(case['n_ok'])}"
+    print(f"kernels: {label}: equal, cluster {case['cluster']}, {ms:.4f} ms, "
+          f"{case['us_per_step']:.3f} us a step over {steps} steps (plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}), "
+          f"ok per image {n_ok}", flush=True)
     return case
+
+
+def forced_cluster_cases(rng) -> None:
+    """Every cluster size forced at ragged K: equal to the plain version
+    where the size's blocks hold K, refused where they do not."""
+    for name, K in FORCED:
+        if name == "K3":
+            args = rotated_inputs(rng, 3, K)
+            kernel, plain = (nk.nms_rotated_batched_cuda,
+                             nk.nms_rotated_batched_torch)
+        else:
+            args = nms_inputs(rng, 3, K)
+            kernel, plain = (nk.nms_select_batched_cuda,
+                             nk.nms_select_batched_torch)
+            if name == "K2":
+                args = tuple(a[0] for a in args)
+                kernel, plain = nk.nms_select_cuda, nk.nms_select_torch
+        ref = plain(*args, IOU, MAX_DET)
+        ran, refused = [], []
+        for cluster in nk.CLUSTER_SIZES:
+            try:
+                got = kernel(*args, IOU, MAX_DET, cluster=cluster)
+            except ValueError as e:
+                check("cannot hold" in str(e)
+                      and cluster < nk.CLUSTER_SIZES[-1],
+                      f"{name} K={K} cluster {cluster}: refused: {e}")
+                refused.append(cluster)
+                continue
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"{name} K={K} forced cluster {cluster}: idx/ok differ "
+                  "from the plain version")
+            ran.append(cluster)
+        print(f"kernels: {name} K={K} forced clusters {ran}: equal"
+              + (f"; {refused} refused (the blocks cannot hold K)"
+                 if refused else ""), flush=True)
+
+
+def refusal_cases() -> None:
+    """A K beyond the launch plan's largest must raise, not launch."""
+    for what, kernel, shape in (
+            ("nms_select", nk.nms_select_batched_cuda, lambda K: (1, K, 4)),
+            ("nms_rotated", nk.nms_rotated_batched_cuda, lambda K: (1, 6, K))):
+        K = nk.max_candidates(what, torch.device(DEVICE)) + 1
+        geo = torch.zeros(shape(K), device=DEVICE)
+        masked = torch.zeros((1, K), device=DEVICE)
+        before = kernel.launches
+        try:
+            kernel(geo, masked, IOU, MAX_DET)
+        except ValueError as e:
+            check(f"limit of {K - 1} " in str(e),
+                  f"{what}: the refusal does not name the limit: {e}")
+        else:
+            raise SmokeFailure(f"{what}: K={K} beyond the largest was taken")
+        check(kernel.launches == before, f"{what}: a refused call counted")
+        print(f"kernels: {what} refuses K={K} (largest {K - 1})", flush=True)
 
 
 def phase_nms_kernels():
@@ -286,18 +316,21 @@ def phase_nms_kernels():
             c, m = nms_inputs(rng, B, K, extent)
             k1_cases[B, K] = run_case(
                 nk.nms_select_batched_cuda, nk.nms_select_batched_torch,
-                (c, m), f"K1 B={B} K={K}", lambda ok, K=K: nms_bound(ok, K))
+                (c, m), f"K1 B={B} K={K}", "nms_select",
+                lambda ok, K=K: nms_bound(ok, K), plain_once=B >= K_ONCE)
     for K in (K_FULL, K_COMPACT):
         c, m = nms_inputs(rng, 1, K)
         k2_cases[K] = run_case(nk.nms_select_cuda, nk.nms_select_torch,
-                               (c[0], m[0]), f"K2 K={K}",
+                               (c[0], m[0]), f"K2 K={K}", "nms_select",
                                lambda ok, K=K: nms_bound(ok, K))
     for B in K3_BATCHES:
         rows, m = rotated_inputs(rng, B, K_OBB)
         k3_cases[B] = run_case(
             nk.nms_rotated_batched_cuda, nk.nms_rotated_batched_torch,
-            (rows, m), f"K3 B={B} K={K_OBB}",
+            (rows, m), f"K3 B={B} K={K_OBB}", "nms_rotated",
             lambda ok, rows=rows, m=m: rotated_bound(rows, m), iters=20)
+    forced_cluster_cases(rng)
+    refusal_cases()
     # the main paths' shapes: K1 at b=8 and K2 at the full anchor count of
     # the segment path, K3 at b=8 of the obb path
     return [dict(K1, main=k1_cases[8, K_FULL], cases=list(k1_cases.values())),
@@ -552,6 +585,10 @@ def read_counters() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
+CASE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "cluster", "steps", "us_per_step")
+
+
 def kernel_line(kernels) -> dict:
     rows = []
     for k in kernels:
@@ -568,9 +605,7 @@ def kernel_line(kernels) -> dict:
                    "idx/ok equal to the plain version in every case"),
             **({"launches_note": k["launches_note"]}
                if "launches_note" in k else {}),
-            cases=[{key: c[key] for key in ("case", "ms", "plain_ms",
-                                            "bound_ms", "bound_by")
-                    + (("library_ms",) if "library_ms" in c else ())}
+            cases=[{key: c[key] for key in CASE_KEYS if key in c}
                    for c in k["cases"]]))
     return {"kernels": rows}
 

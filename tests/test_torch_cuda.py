@@ -8,7 +8,9 @@ hence --noconftest there:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 
-The NMS kernels (K1-K3) must give the plain versions' idx/ok exactly. K4
+The NMS kernels (K1-K3) must give the plain versions' idx/ok exactly, under
+the launch plan's own cluster size and under every forced one (1, 2, 4, 8
+blocks per image; a size whose blocks cannot hold K must be refused). K4
 must zero exactly the pixels its plain version zeroes, with values within
 1e-5 (the dot products are summed in another order than cuBLAS's).
 """
@@ -53,31 +55,48 @@ def _inputs(seed, B, K, ties=False, zero_area=False, empty_last=False):
     return corners, masked
 
 
+CLUSTERS = [None, 1, 2, 4, 8]         # None: launch_plan's own choice
+
+
+def _check_nms(what, kernel, plain, args, B, K, cluster, card, thr):
+    """kernel == plain under `cluster`; a forced size that cannot hold K
+    must raise instead of launching."""
+    try:
+        tk.launch_plan(what, B, K, *tk.device_limits(what, card),
+                       cluster=cluster)
+    except ValueError:
+        with pytest.raises(ValueError, match="cannot hold"):
+            kernel(*args, thr, 50, cluster=cluster)
+        return
+    before = kernel.launches
+    got = kernel(*args, thr, 50, cluster=cluster)
+    ref = plain(*args, thr, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert kernel.launches == before + 1
+
+
 CASES = {"random": {}, "ties": dict(ties=True),
          "zero_area": dict(zero_area=True), "empty": dict(empty_last=True)}
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("B,K", [(1, 8400), (5, 8400), (3, 257), (2, 1),
-                                 (1, 21504), (3, 21504)])
-def test_k1_equals_plain(card, case, B, K):
+@pytest.mark.parametrize("B,K", [(1, 8400), (5, 8400), (5, 8399), (3, 257),
+                                 (2, 1), (1, 21504), (3, 21504), (40, 8400)])
+def test_k1_equals_plain(card, case, B, K, cluster):
     c, m = (t.to(card) for t in _inputs(B * K, B, K, **CASES[case]))
-    got = tk.nms_select_batched_cuda(c, m, 0.45, 50)
-    ref = tk.nms_select_batched_torch(c, m, 0.45, 50)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    _check_nms("nms_select", tk.nms_select_batched_cuda,
+               tk.nms_select_batched_torch, (c, m), B, K, cluster, card, 0.45)
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("K", [8400, 1024, 33])
-def test_k2_equals_plain(card, case, K):
+def test_k2_equals_plain(card, case, K, cluster):
     c, m = (t.to(card) for t in _inputs(K, 1, K, **CASES[case]))
-    before = tk.nms_select_cuda.launches
-    got = tk.nms_select_cuda(c[0], m[0], 0.6, 50)
-    ref = tk.nms_select_torch(c[0], m[0], 0.6, 50)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert tk.nms_select_cuda.launches == before + 1
+    _check_nms("nms_select", tk.nms_select_cuda, tk.nms_select_torch,
+               (c[0], m[0]), 1, K, cluster, card, 0.6)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -86,17 +105,77 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         tk.nms_select_batched_cuda(c.double(), m, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         tk.nms_select_batched_cuda(c[:, ::2], m[:, ::2], 0.5)
-    big = tk.max_candidates("nms_select", card) + 1     # ~58k on an H100
+    with pytest.raises(ValueError, match="aligned"):
+        tk.nms_select_cuda(torch.zeros(64 * 4 + 1, device=card)[1:]
+                           .view(64, 4), m[0], 0.5)
+    with pytest.raises(ValueError, match="the sizes that can are"):
+        tk.nms_select_batched_cuda(c, m, 0.5, cluster=3)
+    # the largest K is what 8 blocks' shared memory holds: 92160 candidates
+    # of 20 bytes, 65824 of 28 bytes on an H100
+    big = tk.max_candidates("nms_select", card) + 1
     assert big > 21504
-    cb = torch.zeros((1, big, 4), device=card)
     mb = torch.zeros((1, big), device=card)
     with pytest.raises(ValueError, match=f"shared-memory limit of {big - 1}"):
-        tk.nms_select_batched_cuda(cb, mb, 0.5)
-    rows = torch.zeros((1, 6, big), device=card)
+        tk.nms_select_batched_cuda(torch.zeros((1, big, 4), device=card), mb,
+                                   0.5)
+    big = tk.max_candidates("nms_rotated", card) + 1
+    assert big > 21504
+    rows, mb = torch.zeros((1, 6, big), device=card), mb[:, :big]
     with pytest.raises(ValueError, match=f"shared-memory limit of {big - 1}"):
         tk.nms_rotated_batched_cuda(rows, mb, 0.5)
     with pytest.raises(ValueError, match="does not match"):
         tk.nms_rotated_batched_cuda(rows[:, :5], mb, 0.5)
+
+
+@pytest.mark.parametrize("what", ["nms_select", "nms_rotated"])
+def test_device_limits(card, what):
+    """What the launch plan is made from, as the card answers: its SMs, a
+    block's opt-in shared memory, and the clusters of each size that run at
+    once with an SM to each block (at most SMs // size, at least one)."""
+    sm_count, smem_optin, room = tk.device_limits(what, card)
+    props = torch.cuda.get_device_properties(card)
+    assert sm_count == props.multi_processor_count
+    assert smem_optin > 48 * 1024
+    assert sorted(room) == list(tk.CLUSTER_SIZES)
+    assert all(1 <= room[c] <= sm_count // c for c in room)
+
+
+@pytest.mark.parametrize("what", ["nms_select", "nms_rotated"])
+def test_largest_k_runs(card, what):
+    """The plan's largest K fills the shared memory of 8 blocks an image;
+    the card must place that cluster and the kernel equal the plain loop."""
+    K = tk.max_candidates(what, card)
+    if what == "nms_select":
+        args = [t.to(card) for t in _inputs(7, 2, K, ties=True)]
+        kernel, plain = tk.nms_select_batched_cuda, tk.nms_select_batched_torch
+    else:
+        args = [t.to(card) for t in _rotated_inputs(7, 2, K, ties=True)]
+        kernel, plain = (tk.nms_rotated_batched_cuda,
+                         tk.nms_rotated_batched_torch)
+    assert tk.launch_plan(what, 2, K, *tk.device_limits(what, card))[0] == 8
+    _check_nms(what, kernel, plain, args, 2, K, None, card, 0.45)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("what", ["K1", "K2", "K3"])
+def test_all_below_gate_leaves_at_step_0(card, what, cluster):
+    """Every candidate below the gate: ok is false from step 0 on and every
+    step repeats index 0, whatever the cluster size; blocks with an empty
+    slice (K = 33 on 8 blocks) included."""
+    for B, K in ((3, 8199), (2, 33)):   # 8199: K3's rows fit one block
+        if what == "K3":
+            rows, _ = _rotated_inputs(3, B, K)
+            args, kernel = (rows.to(card),), tk.nms_rotated_batched_cuda
+        else:
+            corners, _ = _inputs(3, B, K)
+            args, kernel = (corners.to(card),), tk.nms_select_batched_cuda
+        m = torch.full((B, K), tk.NEG, device=card)
+        if what == "K2":
+            args, m, kernel = (args[0][0],), m[0], tk.nms_select_cuda
+        idx, ok = kernel(*args, m, 0.45, 50, cluster=cluster)
+        torch.cuda.synchronize()
+        assert not bool(ok.any()) and not bool(idx.any())
+        assert ok.shape == idx.shape == m.shape[:-1] + (50,)
 
 
 def test_pipeline_goes_through_the_kernels(card):
@@ -146,17 +225,16 @@ ROTATED_CASES = {"random": {}, "ties": dict(ties=True),
                  "empty": dict(empty_last=True)}
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("case", sorted(ROTATED_CASES))
-@pytest.mark.parametrize("B,K", [(1, 21504), (4, 21504), (3, 300), (2, 1)])
-def test_k3_equals_plain(card, case, B, K):
+@pytest.mark.parametrize("B,K", [(1, 21504), (4, 21504), (5, 8399), (3, 300),
+                                 (3, 257), (2, 1), (40, 8400)])
+def test_k3_equals_plain(card, case, B, K, cluster):
     rows, m = (t.to(card) for t in _rotated_inputs(
         B * K + 1, B, K, **ROTATED_CASES[case]))
-    before = tk.nms_rotated_batched_cuda.launches
-    got = tk.nms_rotated_batched_cuda(rows, m, 0.45, 50)
-    ref = tk.nms_rotated_batched_torch(rows, m, 0.45, 50)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert tk.nms_rotated_batched_cuda.launches == before + 1
+    _check_nms("nms_rotated", tk.nms_rotated_batched_cuda,
+               tk.nms_rotated_batched_torch, (rows, m), B, K, cluster, card,
+               0.45)
 
 
 def _mask_inputs(seed, B, D, hw, input_size):

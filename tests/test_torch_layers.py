@@ -15,18 +15,19 @@ import torch
 from xrseg_tpu.models import layers as JL
 from xrseg_tpu_torch.io.bridge import state_dict_from_jax
 from xrseg_tpu_torch.models import layers as TL
+from xrseg_tpu_torch.models import yolo11 as TY
 
 F32 = torch.float32
 
 
-def _params(init, *args, seed=1):
+def _params(init, *args, seed=1, sigma=0.3):
     """The JAX init's pytree structure (traced with eval_shape, not run),
     every leaf drawn from a numpy seed."""
     tree = jax.eval_shape(lambda k: init(JL.KeyGen(k), *args),
                           jax.random.key(0))
     rng = np.random.default_rng(seed)
     return jax.tree.map(
-        lambda a: (rng.standard_normal(a.shape) * 0.3).astype(np.float32),
+        lambda a: (rng.standard_normal(a.shape) * sigma).astype(np.float32),
         tree)
 
 
@@ -159,3 +160,76 @@ def test_upsample_nearest():
 def test_bridge_rejects_unknown_leaf():
     with pytest.raises(KeyError, match="gamma"):
         state_dict_from_jax({"bn": {"gamma": np.zeros(3)}})
+
+
+# ---------------------------------------------------------------------------
+# bfloat16, one layer at a time
+# ---------------------------------------------------------------------------
+
+def _bf16_values(a):
+    """float32 array holding bfloat16-representable values only."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _head_branch_jax(p, x, dtype):
+    y = JL.conv_apply(p["conv0"], x, dtype=dtype)
+    y = JL.conv_apply(p["conv1"], y, dtype=dtype)
+    return JL.head_conv_apply(p["out"], y, dtype=dtype)
+
+
+def _head_branch_init(kg, c1, c_hidden, c_out):
+    return {"conv0": JL.conv_init(kg, c1, c_hidden, 3),
+            "conv1": JL.conv_init(kg, c_hidden, c_hidden, 3),
+            "out": JL.head_conv_init(kg, c_hidden, c_out, 1)}
+
+
+# layer -> (JAX init, its arguments, NHWC input shape, JAX apply, the port's
+# module, sigma of the weights). C2PSA's 128-channel convs take unit-gain
+# weights (sigma 0.1): at 0.3 each has a gain of 3.4, the attention logits
+# reach hundreds, the softmax saturates, and one bf16 ulp of q.k flips
+# which key a query attends to (3.5 ulps measured there, 1.0 at unit gain).
+BF16_LAYERS = {
+    "conv": (JL.conv_init, (6, 10, 3), (2, 8, 8, 6),
+             lambda p, x, dt: JL.conv_apply(p, x, dtype=dt),
+             lambda dt: TL.Conv(6, 10, 3, dtype=dt), 0.3),
+    "c3k2": (JL.c3k2_init, (16, 32, 1, True, 0.25), (2, 8, 8, 16),
+             lambda p, x, dt: JL.c3k2_apply(p, x, shortcut=True, dtype=dt),
+             lambda dt: TL.C3k2(16, 32, 1, True, 0.25, dtype=dt), 0.3),
+    "sppf": (JL.sppf_init, (16, 16), (1, 6, 6, 16),
+             lambda p, x, dt: JL.sppf_apply(p, x, dtype=dt),
+             lambda dt: TL.SPPF(16, 16, dtype=dt), 0.3),
+    "c2psa": (JL.c2psa_init, (128, 1), (1, 4, 4, 128),
+              lambda p, x, dt: JL.c2psa_apply(p, x, dtype=dt),
+              lambda dt: TL.C2PSA(128, 1, dtype=dt), 0.1),
+    "proto": (JL.proto_init, (16, 24, 8), (1, 6, 6, 16),
+              lambda p, x, dt: JL.proto_apply(p, x, dtype=dt),
+              lambda dt: TL.Proto(16, 24, 8, dtype=dt), 0.3),
+    "head_branch": (_head_branch_init, (16, 16, 12), (1, 6, 6, 16),
+                    _head_branch_jax,
+                    lambda dt: TY.Branch3(16, 16, 12, dt), 0.3),
+}
+
+
+@pytest.mark.parametrize("layer", sorted(BF16_LAYERS))
+def test_layer_bf16(layer):
+    """One layer in bfloat16 on the CPU: the same bf16-valued input and
+    weights through the JAX apply(dtype=bfloat16) and the port's module.
+    Tolerance: two bf16 ulps at the output's scale (the spacing of bf16
+    values at the largest magnitude, 2^-7 of its power of two). The JAX
+    conv rounds to bf16 once, after bias and SiLU; the port's conv rounds
+    once more before the bias: one ulp a conv where the two roundings
+    disagree, which blocks of a few convs keep inside two."""
+    init, args, shape, japply, module, sigma = BF16_LAYERS[layer]
+    p = jax.tree.map(_bf16_values, _params(init, *args, sigma=sigma))
+    x = _bf16_values(_x(2, shape))
+    j = np.asarray(japply(p, jnp.asarray(x), jnp.bfloat16).astype(jnp.float32))
+    with torch.no_grad():
+        t = _load(module(torch.bfloat16), p)(
+            torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert t.dtype == torch.bfloat16
+    t = t.float().permute(0, 2, 3, 1).numpy()
+    assert t.shape == j.shape
+    scale = float(np.abs(j).max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    err = float(np.abs(t - j).max())
+    assert err <= 2 * ulp, f"{err / ulp:.2f} bf16 ulps at scale {scale}"

@@ -1,5 +1,5 @@
 // Greedy probIoU select-and-suppress NMS for rotated boxes (the OBB task)
-// on Hopper (sm_90a): one thread block per image.
+// on Hopper (sm_90a): one image on one thread-block cluster.
 //
 // Replaces the TPU kernel xrseg_tpu/ops/pallas_kernels.py
 // nms_rotated_batched_pallas (K3; body _nms_rotated_batched_kernel). For
@@ -17,21 +17,27 @@
 // masked scores [B, K] f32 (below the score gate = NEG). Outputs: idx
 // [B, max_det] int32, ok [B, max_det] bool.
 //
-// What bounds it on this card: the data is 7 * K * 4 bytes per image (602
-// KB at K = 21504, the anchors of a 1024x1024 input) read once, and the
-// work about 45 operations per candidate per step, among them a division
-// pair, a log, an exp and two square roots. The 50 steps are a serial chain
-// of block-wide reductions, so at small B the kernel is bound by the
-// latency of each step and uses B of the card's 132 SMs.
+// What bounds it on this card: the data is 28 bytes a candidate per image
+// (602 KB at K = 21504, the anchors of a 1024x1024 input) read once, and
+// the work about 45 operations per candidate per step, among them a
+// division pair, a log, an exp and two square roots. The 50 steps are a
+// serial chain of reductions and barriers: the kernel is bound by the
+// latency of one step, and by how many of the card's 132 SMs one image can
+// use.
 //
-// What the design does about it: the 602 KB do not fit a block's 227 KB
-// of shared memory, so only the masked scores live there (86 KB at
-// K = 21504), updated in place; each step reads the six read-only geometry
-// rows through the read-only cache (__ldg), and they stay in the 50 MB L2
-// across steps. A candidate already at NEG skips the overlap math (it can
-// only be set to NEG again), so late steps touch only live candidates. The
-// step's argmax is K1's (nms_common.cuh). Once ok turns false the rest of
-// the slate is filled and the block exits.
+// What the design does about it (the loop itself is nms_common.cuh's): the
+// 602 KB do not fit one block's 227 KB of shared memory, but they fit a
+// cluster's: an image runs on up to 8 blocks on 8 SMs, and each block keeps
+// all seven rows of its slice resident (75 KB a block at K = 21504), so a
+// step reads no device memory at any K the cluster holds (65824 on an
+// H100). A step is one pass over the 3 candidates a thread owns, which
+// writes the suppressions and keeps the best survivor for the next step;
+// two redux.sync per warp and one block barrier; then each block sends its
+// winner, Gaussian terms included, into every block's shared memory with
+// st.async and waits on its own mbarrier for the 8 offers: no cluster-wide
+// barrier. A candidate already at NEG skips the overlap math (it can only
+// be set to NEG again), so late steps compute only live candidates. Once ok
+// turns false the rest of the slate is filled and the cluster leaves.
 //
 // Exactness: idx/ok must equal the plain torch loop
 // (ops/nms_kernels.nms_rotated_batched_torch) bit for bit on the card. The
@@ -48,8 +54,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-
 // torch.clamp_min(v, 0): NaN stays NaN
 __device__ __forceinline__ float clamp0(float v) { return v < 0.f ? 0.f : v; }
 
@@ -61,11 +65,6 @@ __device__ __forceinline__ float clamp(float v, float lo, float hi) {
 struct Gauss {
   float x, y, a, b, c, det;
 };
-
-__device__ __forceinline__ Gauss load(const float* g, int K, int k) {
-  return {__ldg(g + k), __ldg(g + K + k), __ldg(g + 2 * K + k),
-          __ldg(g + 3 * K + k), __ldg(g + 4 * K + k), __ldg(g + 5 * K + k)};
-}
 
 // probIoU of the selected box s against candidate q, in the plain version's
 // operation order.
@@ -94,76 +93,57 @@ __device__ __forceinline__ float probiou(const Gauss& s, const Gauss& q,
   return __fsub_rn(1.f, __fsqrt_rn(__fadd_rn(__fsub_rn(1.f, expf(-bd)), eps)));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-nms_rotated_kernel(const float* __restrict__ rows,
-                   const float* __restrict__ scores, int K, float thr,
-                   float eps, int max_det, int* __restrict__ idx_out,
-                   bool* __restrict__ ok_out) {
-  extern __shared__ float sm[];                // masked scores, updated
-  const int b = blockIdx.x;
-  const float* g = rows + static_cast<size_t>(b) * 6 * K;
-  const float* s = scores + static_cast<size_t>(b) * K;
-  int* idx = idx_out + static_cast<size_t>(b) * max_det;
-  bool* okp = ok_out + static_cast<size_t>(b) * max_det;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) sm[k] = s[k];
-  __syncthreads();
+struct Rotated {
+  using Box = Gauss;
+  using Selected = Gauss;
+  static constexpr int kFloats = 6;
+  float eps;
 
-  for (int t = 0; t < max_det; ++t) {
-    int i;
-    const bool ok = block_argmax(sm, K, i) > kNeg * 0.5f;
-    if (threadIdx.x == 0) {
-      idx[t] = i;
-      okp[t] = ok;
-    }
-    if (!ok) {
-      // nothing is suppressed any more: every later step repeats this one
-      for (int u = t + 1 + threadIdx.x; u < max_det; u += blockDim.x) {
-        idx[u] = i;
-        okp[u] = false;
-      }
-      return;                                  // uniform across the block
-    }
-    const Gauss sel = load(g, K, i);
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      if (sm[k] == kNeg) continue;             // suppressed or below the gate
-      if (k == i || probiou(sel, load(g, K, k), eps) > thr) sm[k] = kNeg;
-    }
-    __syncthreads();
+  // the image's rows are [6, K] in device memory and [6, S] in the block
+  __device__ static __forceinline__ Box from_global(const float* g, int K,
+                                                    int k) {
+    return {__ldg(g + k),         __ldg(g + K + k),     __ldg(g + 2 * K + k),
+            __ldg(g + 3 * K + k), __ldg(g + 4 * K + k), __ldg(g + 5 * K + k)};
   }
-}
+  __device__ static __forceinline__ void put(float* rows, int S, int j,
+                                             const Box& q) {
+    rows[j] = q.x;
+    rows[S + j] = q.y;
+    rows[2 * S + j] = q.a;
+    rows[3 * S + j] = q.b;
+    rows[4 * S + j] = q.c;
+    rows[5 * S + j] = q.det;
+  }
+  __device__ static __forceinline__ Box get(const float* rows, int S, int j) {
+    return {rows[j],         rows[S + j],     rows[2 * S + j],
+            rows[3 * S + j], rows[4 * S + j], rows[5 * S + j]};
+  }
+  __device__ __forceinline__ float overlap(const Gauss& s,
+                                           const Gauss& q) const {
+    return probiou(s, q, eps);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Largest K the kernel takes: the one whose masked scores fit the block's
-// shared memory.
-int xrseg_nms_rotated_max_k(int device) { return scores_max_k(device); }
-
-// Launches one block per image on `stream`; returns cudaGetLastError().
-int xrseg_nms_rotated(const void* rows, const void* scores, int B, int K,
-                      float thr, float eps, int max_det, void* idx, void* ok,
-                      void* stream) {
-  if (B <= 0 || max_det <= 0) return 0;
-  const long long budget = smem_budget();
-  if (budget < 0) return static_cast<int>(-budget);
-  const size_t smem = static_cast<size_t>(K) * sizeof(float);
-  if (static_cast<long long>(smem) > budget)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      nms_rotated_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int threads = (K + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  nms_rotated_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), static_cast<const float*>(scores), K,
-      thr, eps, max_det, static_cast<int*>(idx), static_cast<bool*>(ok));
-  return static_cast<int>(cudaGetLastError());
+// The current card's SM count, a block's opt-in shared-memory bytes, and
+// room[0..3]: the clusters of 1, 2, 4 and 8 blocks that it runs at once
+// with an SM to each block. Returns a CUDA error code.
+int xrseg_nms_rotated_limits(int* sm_count, int* smem_optin, int* room) {
+  return card_limits<Rotated>(sm_count, smem_optin, room);
 }
 
-const char* xrseg_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+// Launches B clusters of `cluster` blocks of `threads` threads, one cluster
+// per image, on `stream`. The plan comes from the caller; a plan the kernel
+// cannot run, or the card cannot place, returns a CUDA error code.
+int xrseg_nms_rotated(const void* rows, const void* scores, int B, int K,
+                      float thr, float eps, int max_det, void* idx, void* ok,
+                      int cluster, int threads, int smem_bytes,
+                      void* stream) {
+  return launch(rows, scores, B, K, thr, Rotated{eps}, max_det, idx, ok,
+                cluster, threads, smem_bytes, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,9 @@
-"""Greedy select-and-suppress NMS kernels (K1, K2, K3), their wrappers and
-their plain versions.
+"""Greedy select-and-suppress NMS kernels (K1, K2, K3), their wrappers, their
+launch plan and their plain versions.
 
-The CUDA sources are xrseg_tpu_torch/csrc/nms_select.cu (K1, K2: one
-block per image, the candidates in shared memory while they fit) and
-csrc/nms_rotated.cu (K3: one block per image, the masked scores in shared
-memory, the geometry read from L2). They replace the TPU kernels of
+The CUDA sources are xrseg_tpu_torch/csrc/nms_select.cu (K1, K2: IoU of
+axis-aligned boxes) and csrc/nms_rotated.cu (K3: probIoU of rotated boxes);
+both run the loop of csrc/nms_common.cuh. They replace the TPU kernels of
 xrseg_tpu/ops/pallas_kernels.py:
 
   nms_select_batched_cuda   K1 `nms_select_batched_pallas`: corners
@@ -18,6 +17,17 @@ xrseg_tpu/ops/pallas_kernels.py:
 Each returns (idx int32, ok bool) of max_det greedy steps in selection
 order. Scores below the score gate must already be float32 min (NEG).
 
+What bounds the kernels is the latency of one greedy step (the 50 steps
+are a serial chain) and how many SMs one image can use. So one image runs
+on a thread-block cluster of up to 8 blocks; every block keeps its slice of
+the candidates, geometry included, in shared memory, and a step is one
+fused suppress-and-argmax pass, one block barrier and one wait on the
+block's own mbarrier for the other blocks' winners, sent with st.async
+through distributed shared memory (csrc/nms_common.cuh). `launch_plan`
+chooses the cluster size, the threads and the shared-memory bytes from B,
+K and the card's limits; it is a pure function, and the C launchers only
+validate what it hands them.
+
 A wrapper given CPU tensors runs the plain version (nms_*_torch),
 which repeats the kernel's arithmetic step by step in torch; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its own
@@ -26,7 +36,8 @@ launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,17 +187,91 @@ def nms_rotated_batched_torch(rows: torch.Tensor, masked: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The launch plan
+# ---------------------------------------------------------------------------
+
+CLUSTER_SIZES = (1, 2, 4, 8)          # 8 is the portable maximum
+MAX_THREADS = 1024
+STATIC_SMEM_RESERVE = 2048            # kStaticSmemReserve of nms_common.cuh
+# resident bytes per candidate: the masked score and the geometry
+BYTES_PER_CANDIDATE = {"nms_select": 4 * (1 + 4), "nms_rotated": 4 * (1 + 6)}
+
+
+def _slice(K: int, cluster: int) -> int:
+    """Candidates owned by one block: block r holds [r*S, min(K, r*S + S))."""
+    return -(-K // cluster)
+
+
+def max_k(what: str, smem_optin: int) -> int:
+    """The largest K the kernel of csrc/<what>.cu takes: the one whose
+    slices fill the shared memory of the largest cluster's blocks."""
+    per_block = (smem_optin - STATIC_SMEM_RESERVE) // BYTES_PER_CANDIDATE[what]
+    return max(per_block, 0) * CLUSTER_SIZES[-1]
+
+
+def launch_plan(what: str, B: int, K: int, sm_count: int, smem_optin: int,
+                room: Optional[Dict[int, int]] = None,
+                cluster: Optional[int] = None) -> Tuple[int, int, int]:
+    """(cluster size, threads per block, dynamic shared-memory bytes per
+    block) for B images of K candidates on a card with `sm_count` SMs and
+    `smem_optin` bytes of opt-in shared memory a block. `room[c]` is the
+    number of clusters of c blocks the card runs at once with an SM to each
+    block (the card's own answer where the wrapper asks; sm_count // c
+    otherwise).
+
+    Up to 1024 candidates an image takes one block: a candidate a thread,
+    and a step with one barrier and no traffic between blocks. Beyond that
+    the cluster is the largest of 8, 4, 2, 1 that still gives the images'
+    clusters SMs of their own, B <= room[c] + 1: blocks that share an SM
+    take turns, and the slowest image sets the launch's time. (One cluster
+    past the card's answer ran at full speed at every size measured on an
+    H100, where the card answers 15 and 30 for clusters of 8 and 4; two
+    past it ran 1.2 to 2 times slower.) The cluster is never smaller than
+    the smallest whose slices fit the blocks' shared memory; past the card's
+    room such images run in waves. `cluster` forces a size instead; it must
+    hold K. Threads: the slice spread evenly over the fewest passes of at
+    most 1024 threads, rounded up to a warp.
+    """
+    if B < 1 or K < 1:
+        raise ValueError(f"{what} needs B >= 1 and K >= 1, got B={B}, K={K}")
+    per = BYTES_PER_CANDIDATE[what]
+    budget = smem_optin - STATIC_SMEM_RESERVE
+    fits = [c for c in CLUSTER_SIZES if _slice(K, c) * per <= budget]
+    if not fits:
+        raise ValueError(
+            f"K={K} candidates exceed the kernel's shared-memory limit of "
+            f"{max_k(what, smem_optin)} per image on this card (an image's "
+            f"candidates, {per} bytes each, must fit the shared memory of a "
+            f"cluster of {CLUSTER_SIZES[-1]} blocks)")
+    if cluster is None:
+        if room is None:
+            room = {c: sm_count // c for c in CLUSTER_SIZES}
+        own = [c for c in CLUSTER_SIZES
+               if K > MAX_THREADS and B <= room[c] + 1]
+        cluster = max(own[-1] if own else 1, fits[0])
+    elif cluster not in fits:
+        raise ValueError(
+            f"a cluster of {cluster} blocks cannot hold K={K} candidates of "
+            f"{what}: the sizes that can are {fits}")
+    S = _slice(K, cluster)
+    passes = -(-S // MAX_THREADS)
+    threads = max(32, -(-(-(-S // passes)) // 32) * 32)
+    return cluster, threads, S * per
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(_CI)
 _SIGNATURES = {
     "nms_select": {"xrseg_nms_select": [_VP, _VP, _CI, _CI, _CF, _CI, _VP,
-                                        _VP, _VP],
-                   "xrseg_nms_select_max_k": [_CI]},
+                                        _VP, _CI, _CI, _CI, _VP],
+                   "xrseg_nms_select_limits": [_IP, _IP, _IP]},
     "nms_rotated": {"xrseg_nms_rotated": [_VP, _VP, _CI, _CI, _CF, _CF, _CI,
-                                          _VP, _VP, _VP],
-                    "xrseg_nms_rotated_max_k": [_CI]},
+                                          _VP, _VP, _CI, _CI, _CI, _VP],
+                    "xrseg_nms_rotated_limits": [_IP, _IP, _IP]},
 }
 
 
@@ -194,11 +279,40 @@ def _lib(name: str) -> ctypes.CDLL:
     return _build.library(name, _SIGNATURES[name])
 
 
+@functools.lru_cache(maxsize=None)
+def _device_limits(name: str, index: int
+                   ) -> Tuple[int, int, Tuple[Tuple[int, int], ...]]:
+    """(SM count, opt-in shared-memory bytes a block, ((c, clusters of c
+    blocks that run at once with an SM to each block), ...)) of card `index`,
+    asked of the card through csrc/<name>.cu."""
+    lib = _lib(name)
+    sm_count, smem_optin = _CI(), _CI()
+    room = (_CI * len(CLUSTER_SIZES))()
+    with torch.cuda.device(index):
+        _build.check_launch(lib, getattr(lib, f"xrseg_{name}_limits")(
+            ctypes.byref(sm_count), ctypes.byref(smem_optin), room),
+            f"{name} limits")
+    return sm_count.value, smem_optin.value, tuple(zip(CLUSTER_SIZES, room))
+
+
+def device_limits(name: str, device: torch.device
+                  ) -> Tuple[int, int, Dict[int, int]]:
+    """launch_plan's (sm_count, smem_optin, room) for `device`."""
+    sm_count, smem_optin, room = _device_limits(
+        name, _build.device_index(device))
+    return sm_count, smem_optin, dict(room)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_on(what: str, B: int, K: int, index: int, cluster: Optional[int]):
+    """launch_plan on card `index`, remembered per shape."""
+    sm_count, smem_optin, room = _device_limits(what, index)
+    return launch_plan(what, B, K, sm_count, smem_optin, dict(room), cluster)
+
+
 def max_candidates(name: str, device: torch.device) -> int:
-    """The largest K the kernel of csrc/<name>.cu takes on `device`: the
-    one whose masked scores fit one block's shared memory."""
-    return getattr(_lib(name), f"xrseg_{name}_max_k")(
-        _build.device_index(device))
+    """The largest K the kernel of csrc/<name>.cu takes on `device`."""
+    return max_k(name, device_limits(name, device)[1])
 
 
 def _check_inputs(geo: torch.Tensor, masked: torch.Tensor, geo_shape,
@@ -223,21 +337,17 @@ def _check_inputs(geo: torch.Tensor, masked: torch.Tensor, geo_shape,
     if K < 1 or max_det < 1:
         raise ValueError(f"{what} needs K >= 1 and max_det >= 1, got "
                          f"K={K}, max_det={max_det}")
-    max_k = max_candidates(what, geo.device)
-    if K > max_k:
-        raise ValueError(f"K={K} candidates exceed the kernel's shared-memory "
-                         f"limit of {max_k} per image on this card (the "
-                         "masked scores of one image must fit one block)")
     return B, K
 
 
 def _launch(what: str, geo: torch.Tensor, masked: torch.Tensor,
-            geo_shape, max_det: int, *scalars
+            geo_shape, max_det: int, cluster: Optional[int], *scalars
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check the inputs, allocate (idx, ok) [B,max_det] and launch
-    xrseg_<what>(geo, masked, B, K, *scalars, max_det, idx, ok, stream) on
-    the current stream."""
+    """Check the inputs, plan the launch, allocate (idx, ok) [B,max_det] and
+    launch xrseg_<what>(geo, masked, B, K, *scalars, max_det, idx, ok,
+    *plan, stream) on the current stream."""
     B, K = _check_inputs(geo, masked, geo_shape, max_det, what)
+    plan = _plan_on(what, B, K, _build.device_index(geo.device), cluster)
     idx = torch.empty((B, max_det), dtype=torch.int32, device=geo.device)
     ok = torch.empty((B, max_det), dtype=torch.bool, device=geo.device)
     lib = _lib(what)
@@ -245,14 +355,17 @@ def _launch(what: str, geo: torch.Tensor, masked: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"xrseg_{what}")(
             geo.data_ptr(), masked.data_ptr(), B, K, *scalars, max_det,
-            idx.data_ptr(), ok.data_ptr(), stream)
-    _build.check_launch(lib, err, what)
+            idx.data_ptr(), ok.data_ptr(), *plan, stream)
+    _build.check_launch(lib, err, f"{what} (cluster {plan[0]}, {plan[1]} "
+                                  f"threads, {plan[2]} bytes)")
     return idx, ok
 
 
-def _select(corners, masked, iou_threshold, max_det):
+def _select(corners, masked, iou_threshold, max_det, cluster):
+    if corners.data_ptr() % 16:         # the kernel reads a box as one float4
+        raise ValueError("nms_select needs corners aligned to 16 bytes")
     return _launch("nms_select", corners, masked, lambda B, K: (B, K, 4),
-                   max_det, as_f32(iou_threshold))
+                   max_det, cluster, as_f32(iou_threshold))
 
 
 def _check_device(t: torch.Tensor) -> bool:
@@ -266,19 +379,22 @@ def _check_device(t: torch.Tensor) -> bool:
 
 
 def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
-                            iou_threshold: float, max_det: int = 50
+                            iou_threshold: float, max_det: int = 50, *,
+                            cluster: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: corners [B,K,4] f32, masked [B,K] f32 -> (idx, ok) [B,max_det]."""
+    """K1: corners [B,K,4] f32, masked [B,K] f32 -> (idx, ok) [B,max_det].
+    `cluster` forces the blocks per image instead of launch_plan's choice."""
     if not _check_device(corners):
         return nms_select_batched_torch(corners, masked, iou_threshold,
                                         max_det)
-    out = _select(corners, masked, iou_threshold, max_det)
+    out = _select(corners, masked, iou_threshold, max_det, cluster)
     nms_select_batched_cuda.launches += 1
     return out
 
 
 def nms_select_cuda(corners: torch.Tensor, masked: torch.Tensor,
-                    iou_threshold: float, max_det: int = 50
+                    iou_threshold: float, max_det: int = 50, *,
+                    cluster: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: corners [K,4] f32, masked [K] f32 -> (idx, ok) [max_det]."""
     if not _check_device(corners):
@@ -286,20 +402,23 @@ def nms_select_cuda(corners: torch.Tensor, masked: torch.Tensor,
     if corners.dim() != 2 or masked.dim() != 1:
         raise ValueError(f"nms_select_cuda takes [K,4] and [K], got "
                          f"{tuple(corners.shape)} and {tuple(masked.shape)}")
-    idx, ok = _select(corners[None], masked[None], iou_threshold, max_det)
+    idx, ok = _select(corners[None], masked[None], iou_threshold, max_det,
+                      cluster)
     nms_select_cuda.launches += 1
     return idx[0], ok[0]
 
 
 def nms_rotated_batched_cuda(rows: torch.Tensor, masked: torch.Tensor,
-                             iou_threshold: float, max_det: int = 50
+                             iou_threshold: float, max_det: int = 50, *,
+                             cluster: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: rows [B,6,K] f32 (rotated_gaussian_rows), masked [B,K] f32 ->
     (idx, ok) [B,max_det]."""
     if not _check_device(rows):
         return nms_rotated_batched_torch(rows, masked, iou_threshold, max_det)
     out = _launch("nms_rotated", rows, masked, lambda B, K: (B, 6, K),
-                  max_det, as_f32(iou_threshold), as_f32(PROBIOU_EPS))
+                  max_det, cluster, as_f32(iou_threshold),
+                  as_f32(PROBIOU_EPS))
     nms_rotated_batched_cuda.launches += 1
     return out
 
