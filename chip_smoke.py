@@ -50,9 +50,28 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    K3 must have launched. Every slate must hold 50 finite detections and
    equal postprocess_obb_batch(backend="scan") on the same raw outputs.
    Then b=1 p50 latency and b=8 frames/s.
-5. one line {"kernels": [...]} (K1-K4; launches are counted on the path
-   that runs each kernel; no path runs K4, as in the JAX package), then
-   the last line
+5. XR tick: the product path at full width. Two Executors on the segment
+   model (emit_masks="none", 480x640 frames, a 128x128 depth plane,
+   sampling_step 4), one with fused_tick (frame, re-lock, target mask and
+   RGBD fusion as one program and one pinned readback on a copy stream),
+   one classic (slate, then mask fetch, then fusion), each under an
+   XRLoop: tick until a result, aim the controller at the first box, pull
+   the trigger, check the lock, then 30 tracked ticks, fused and classic
+   in turns on the same frames. Every fused tick must be tracked, carry a
+   finite non-empty point cloud, and agree with the host TargetTracker on
+   the same slate; classic must track the same index with the same
+   points (valid equal; positions within one depth texel of the plane,
+   2e-2 m, and all but 1% of them within 1e-4 m: the classic box goes
+   through screen space and back, which can move a truncated depth index
+   by one). K1's launches over the fused ticks must equal the dispatches.
+   One tick runs from its uploads to its queued readback under torch's
+   sync debug mode "error" (no operation may wait for the card); its
+   packed output must equal its parts run apart on the card bit for bit, and extract_points must agree with extract_points_numpy
+   (valid equal, positions within 1e-5 m). Prints tick p50/p95 and the
+   tracer's per-stage means for both.
+6. one line {"kernels": [...]} (K1-K4; launches are counted on the path
+   that runs each kernel, K1's over the segment path plus the fused
+   ticks; no path runs K4, as in the JAX package), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -71,17 +90,27 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
-from xrseg_tpu_torch.compile import build_pipeline, decode_task_outputs, pack_slate
+from xrseg_tpu_torch.compile import (build_pipeline, build_xr_tick_pipeline,
+                                     decode_task_outputs, pack_slate)
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
 from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
                                        rotated_inputs, steps_run)
+from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
 from xrseg_tpu_torch.ops import nms_kernels as nk
 from xrseg_tpu_torch.ops import preprocess as pre_ops
 from xrseg_tpu_torch.ops.postprocess import postprocess, postprocess_obb_batch
-from xrseg_tpu_torch.testing import detection_params
+from xrseg_tpu_torch.ops.relock import relock_match
+from xrseg_tpu_torch.perception.tracking import (TargetTracker,
+                                                 box_to_model_space)
+from xrseg_tpu_torch.precision import precision_scope
+from xrseg_tpu_torch.runtime.executor import Executor
+from xrseg_tpu_torch.runtime.frame_source import FrameData
+from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
+                                             aim_controller_at_frame_point)
+from xrseg_tpu_torch.testing import detection_params, xr_frames
 
 # H100 SXM data sheet: HBM rate, and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -105,6 +134,10 @@ FRAME_HW = (480, 640)
 # classes) at its 1024x1024 input, on 1024x1024 frames
 OBB_MODEL = ModelConfig(task="obb", num_classes=15, input_size=(1024, 1024))
 OBB_FRAME_HW = (1024, 1024)
+# the XR tick: the segment model on the same frames, with a depth frame
+DEPTH_HW = (128, 128)
+N_TICKS = 30
+TICK_DEADLINE_S = 60.0
 K1_BATCHES = (1, 8, 32, 128)
 K_ONCE = 128                          # from this B on the plain loop runs once
 # (kernel, K) of the forced-cluster cases: ragged slices at every size
@@ -371,7 +404,9 @@ def k4_case(coefs, protos, boxes, label: str, iters: int = 50):
                 inside_share=float((ref != 0).float().mean()))
     print(f"kernels: {label}: crop equal, max |err| {err:.2e}, {ms:.4f} ms "
           f"(plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms by {bound_by})", flush=True)
+          f"{bound_ms:.5f} ms by {bound_by}); "
+          f"{case['inside_share']:.1%} of the values inside their box",
+          flush=True)
     return case
 
 
@@ -569,6 +604,231 @@ def phase_obb() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5. the XR tick
+# ---------------------------------------------------------------------------
+
+def tick_until_result(loop: XRLoop, frame, controller=None):
+    """Feed `frame` and poll the loop until its result: (result, ms). The
+    controller snapshot is handled once, on the first call."""
+    t0 = time.perf_counter()
+    result = loop.tick(frame, controller)
+    while result is None:
+        check(time.perf_counter() - t0 < TICK_DEADLINE_S,
+              f"no result within {TICK_DEADLINE_S:.0f} s "
+              f"(state {loop.executor.state})")
+        result = loop.tick(frame)
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def start_tracking(loop: XRLoop, frames) -> None:
+    """First result, then aim at its first box and pull the trigger."""
+    ex = loop.executor
+    first, _ = tick_until_result(loop, frames[0])
+    check(first.count == MAX_DET, f"first tick: {first.count} detections")
+    b = first.boxes[0]
+    w, h = ex.screen_wh
+    ctl = aim_controller_at_frame_point(
+        frames[1].intrinsics, frames[1].pose,
+        (b.center_x + w / 2, b.center_y + h / 2), (w, h))
+    ctl.trigger = True
+    tick_until_result(loop, frames[1], ctl)
+    check(loop.selected and ex.is_tracking and loop.laser_visible,
+          "the trigger did not lock a target")
+
+
+def release_and_reset(loop: XRLoop) -> None:
+    """Trigger released and B pressed, on a tick without a camera image."""
+    loop.tick(FrameData(rgb=None), ControllerState(button_b=True))
+    check(not loop.executor.is_tracking and not loop.laser_visible,
+          "the B button did not reset tracking")
+
+
+def check_tracked(ex: Executor, prev_locked, r, what: str) -> None:
+    """A tracked tick: target set, cloud finite and non-empty, and the
+    match equal to the host tracker's on the same slate."""
+    check(r.tracked is not None, f"{what}: target lost")
+    pc = r.point_cloud
+    check(pc is not None and len(pc.positions) > 0
+          and bool(np.isfinite(pc.positions).all())
+          and bool(np.isfinite(pc.depths).all()),
+          f"{what}: empty or non-finite point cloud")
+    oracle = TargetTracker(ex.cfg.tracking_gate_px, ex.cfg.select_margin_px)
+    oracle.locked_box, oracle.is_tracking = prev_locked, True
+    want = oracle.update(r.boxes)
+    check(want is not None and want.index == r.tracked.index,
+          f"{what}: tracked index {r.tracked.index}, the host tracker says "
+          f"{None if want is None else want.index}")
+
+
+def stage_means(ex: Executor) -> str:
+    s = ex.tracer.summary()
+    return ", ".join(f"{k} {s[k]['mean_ms']:.3f} (x{s[k]['count']})"
+                     for k in ("dispatch", "device_wait", "readback",
+                               "process", "mask_fetch", "depth_fusion")
+                     if k in s)
+
+
+def check_packed_parts(cfg, model, frame, locked) -> None:
+    """One tick's packed output against its parts, each run apart on the
+    card and read back on its own: equal bit for bit. Then the fusion
+    against the numpy oracle."""
+    tick = build_xr_tick_pipeline(cfg, model, frame_hw=FRAME_HW,
+                                  depth_hw=DEPTH_HW, device=DEVICE)
+    plain = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=1,
+                           emit_masks="none", device=DEVICE)
+    size = tuple(map(float, MODEL.input_size))
+    w, h = float(FRAME_HW[1]), float(FRAME_HW[0])
+    cx, cy, _, _ = box_to_model_space(locked, (w, h), size)
+    intr, pose = frame.intrinsics, frame.pose
+    aux = tick.pack_aux(intr.focal_length, intr.principal_point,
+                        intr.resolution, pose.position, pose.rotation,
+                        (cx, cy, float(locked.label), 1.0),
+                        (w / size[1], h / size[0]))
+    x = torch.from_numpy(frame.rgb[None]).to(DEVICE)
+    a = torch.from_numpy(aux).to(DEVICE)
+    depth = df.depth_bits(frame.depth_fp16, DEVICE)
+    # from the uploads to the queued copy the host only queues work: any
+    # operation that waits for the card raises here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tick.run(x, depth, a)
+        tick.readback.start(out["packed"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tick.readback.wait()
+    packed = torch.from_numpy(tick.readback.host().copy())
+    check(torch.equal(packed, out["packed"].cpu()),
+          "the pinned readback differs from packed.cpu()")
+    got = tick.unpack(packed)
+    print("tick: no operation between the uploads and the queued readback "
+          "waits for the card (sync debug mode 'error'); the pinned buffer "
+          "equals packed.cpu()", flush=True)
+
+    det = plain(frame.rgb[None])
+    dcfg = cfg.depth
+    with torch.inference_mode(), precision_scope(MODEL.matmul_precision):
+        boxes = det["boxes_xywh"][0]
+        matched, idx = relock_match(boxes, det["labels"][0], det["valid"][0],
+                                    a[13:17], a[17:19],
+                                    gate_px=cfg.tracking_gate_px)
+        mask = mask_ops.synthesize_one_mask(det["coefs"][0], det["protos"][0],
+                                            idx)
+        box = mask_ops.select_row(boxes, idx)
+        pts = df.extract_points(
+            depth, mask, box, a[0:2], a[2:4], a[4:6], a[6:9], a[9:13],
+            confidence_threshold=dcfg.confidence_threshold,
+            min_depth=dcfg.min_depth_m, max_depth=dcfg.max_depth_m,
+            sampling_step=dcfg.sampling_step, mask_hw=MODEL.mask_size)
+    check(bool(matched.cpu()) and bool(got["matched"]),
+          "packed vs parts: the tick did not match its target")
+    parts = torch.cat([det["slate"][0].cpu(),
+                       torch.stack([matched.float(), idx.float()]).cpu(),
+                       mask.reshape(-1).cpu(),
+                       pts["packed"].reshape(-1).cpu()])
+    check(packed.shape == parts.shape and torch.equal(packed, parts),
+          "packed differs from its parts run apart on the card")
+    print(f"tick: packed [{packed.numel()}] equals slate | relock_match | "
+          "synthesize_one_mask | extract_points run apart, bit for bit",
+          flush=True)
+
+    ref = df.extract_points_numpy(
+        frame.depth_fp16, mask.cpu().numpy(), box.cpu().numpy(),
+        intr.focal_length, intr.principal_point, intr.resolution,
+        pose.position, pose.rotation,
+        confidence_threshold=dcfg.confidence_threshold,
+        min_depth=dcfg.min_depth_m, max_depth=dcfg.max_depth_m,
+        sampling_step=dcfg.sampling_step)
+    valid = pts["valid"].cpu().numpy()
+    err = float(np.abs(pts["positions"].cpu().numpy()
+                       - ref["positions"]).max())
+    check(np.array_equal(valid, ref["valid"]) and valid.any(),
+          "extract_points: valid differs from extract_points_numpy")
+    check(err <= 1e-5, f"extract_points differs from extract_points_numpy "
+                       f"by {err:.3e} m > 1e-5")
+    print(f"tick: extract_points on the card equals extract_points_numpy "
+          f"({int(valid.sum())} of {valid.size} points valid, max |err| "
+          f"{err:.2e} m)", flush=True)
+
+
+def phase_tick() -> dict:
+    model = detection_params(torch.Generator().manual_seed(0), MODEL,
+                             device=DEVICE)
+    frames = xr_frames(N_TICKS + 2, FRAME_HW, DEPTH_HW, seed=3)
+    loops = {}
+    for name, fused in (("fused", True), ("classic", False)):
+        cfg = ExecutorConfig(model=MODEL, fused_tick=fused, emit_masks="none")
+        ex = Executor(cfg, params=model, frame_hw=FRAME_HW, device=DEVICE)
+        loops[name] = XRLoop(ex)
+    fused, classic = loops["fused"].executor, loops["classic"].executor
+
+    # --- one tick each, not counted: the first fused dispatch binds and
+    # warms the tick pipeline of this geometry
+    for loop in loops.values():
+        tick_until_result(loop, frames[0])
+
+    # --- the main path (fused ticks only), with the launch counters zeroed
+    # around it
+    zero_counters()
+    before = fused.tracer.counters["frames_dispatched"]
+    start_tracking(loops["fused"], frames)
+    first_locked = fused.tracker.locked_box
+    for i, frame in enumerate(frames[2:]):
+        prev = fused.tracker.locked_box
+        rf, _ = tick_until_result(loops["fused"], frame)
+        check_tracked(fused, prev, rf, f"fused tick {i}")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    dispatched = fused.tracer.counters["frames_dispatched"] - before
+    check(launches[K1["name"]] == dispatched == N_TICKS + 2,
+          f"fused ticks: K1 launched {launches[K1['name']]} times over "
+          f"{dispatched} dispatches")
+    st = fused.tracer.summary()
+    check("mask_fetch" not in st or st["mask_fetch"]["count"] == 0,
+          "a fused tracked tick fetched a mask on its own")
+    print(f"tick: fused: target locked over {N_TICKS} ticks at full width, "
+          f"device relock equals the host tracker on every tick, K1 "
+          f"launched {launches[K1['name']]} times over {dispatched} "
+          "dispatches", flush=True)
+
+    # --- fused and classic in turns on the same frames
+    release_and_reset(loops["fused"])
+    for loop in loops.values():
+        loop.executor.tracer.reset()
+        start_tracking(loop, frames)
+    ms = {"fused": [], "classic": []}
+    worst, far, total = 0.0, 0, 0
+    for i, frame in enumerate(frames[2:]):
+        rf, t = tick_until_result(loops["fused"], frame)
+        ms["fused"].append(t)
+        rc, t = tick_until_result(loops["classic"], frame)
+        ms["classic"].append(t)
+        check(rc.tracked is not None and rf.tracked is not None
+              and rc.tracked.index == rf.tracked.index,
+              f"tick {i}: classic and fused track different boxes")
+        pf, pc = rf.point_cloud.positions, rc.point_cloud.positions
+        check(pf.shape == pc.shape and len(pf) > 0,
+              f"tick {i}: {len(pf)} fused points, {len(pc)} classic")
+        d = np.abs(pf - pc).max(-1)
+        worst, far, total = max(worst, float(d.max())), \
+            far + int((d > 1e-4).sum()), total + len(d)
+    check(worst <= 2e-2 and far <= 0.01 * total,
+          f"classic points differ from fused: max {worst:.3e} m, {far} of "
+          f"{total} beyond 1e-4 m")
+    print(f"tick: classic tracks the same box with the same points over "
+          f"{N_TICKS} ticks (max |diff| {worst:.2e} m, {far} of {total} "
+          "points beyond 1e-4 m)", flush=True)
+    name = torch.cuda.get_device_name(0)
+    for k in ("fused", "classic"):
+        print(f"tick: {k} p50 {statistics.median(ms[k]):.3f} ms, p95 "
+              f"{np.percentile(ms[k], 95):.3f} ms over {N_TICKS} ticks on "
+              f"{name}; stage means (ms): "
+              f"{stage_means(loops[k].executor)}", flush=True)
+
+    check_packed_parts(fused.cfg, model, frames[2], first_locked)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -586,7 +846,7 @@ def read_counters() -> dict:
 
 
 CASE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "cluster", "steps", "us_per_step")
+             "cluster", "steps", "us_per_step", "inside_share")
 
 
 def kernel_line(kernels) -> dict:
@@ -603,8 +863,8 @@ def kernel_line(kernels) -> dict:
             check=("crop equal to the plain version, values within 1e-5"
                    if k["name"] == K4["name"] else
                    "idx/ok equal to the plain version in every case"),
-            **({"launches_note": k["launches_note"]}
-               if "launches_note" in k else {}),
+            **{key: k[key] for key in ("launches_note", "launches_by_path")
+               if key in k},
             cases=[{key: c[key] for key in CASE_KEYS if key in c}
                    for c in k["cases"]]))
     return {"kernels": rows}
@@ -624,10 +884,15 @@ def main() -> int:
             det["coefs"].contiguous(), det["protos"].contiguous(),
             det["boxes_xywh"].contiguous(), "K4 segment path b=8 coefs-only"))
         obb = phase_obb()
-        # each kernel's count on the path that runs it; K4 runs on none
+        tick = phase_tick()
+        # each kernel's count on the paths that run it (K1: the segment
+        # path and the fused ticks); K4 runs on none
         for k in kernels:
             k["launches"] = (obb if k["name"] == K3["name"] else seg)[k["name"]]
-        kernels[-1]["launches"] = seg[K4["name"]] + obb[K4["name"]]
+        kernels[0]["launches"] += tick[K1["name"]]
+        kernels[0]["launches_by_path"] = {"segment": seg[K1["name"]],
+                                          "tick": tick[K1["name"]]}
+        kernels[-1]["launches"] = sum(p[K4["name"]] for p in (seg, obb, tick))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

@@ -291,3 +291,104 @@ def test_obb_pipeline_goes_through_k3(card):
                                 backend="scan")
     assert torch.equal(kern["slate"], pack_slate(ref, 50))
     assert torch.equal(got["slate"], kern["slate"])
+
+
+# K4 at ragged sizes: mask widths that are no multiple of the warp's tile
+# (32 pixels of a row), tile counts that are no multiple of a block's
+# warps, one instance and fifty, and boxes wholly outside the mask.
+@pytest.mark.parametrize("D", [1, 50])
+@pytest.mark.parametrize("hw,input_size", [
+    ((17, 23), (68, 92)), ((33, 65), (132, 260)), ((7, 160), (28, 640)),
+    ((5, 31), (20, 124)), ((160, 160), (640, 640))])
+def test_k4_ragged_sizes_and_outside_boxes(card, hw, input_size, D):
+    coefs, protos, boxes = _mask_inputs(7 + D, 2, D, hw, input_size)
+    H, W = input_size
+    boxes[0, -1] = torch.tensor([-3.0 * W, 0.5 * H, 0.2 * W, 0.2 * H])
+    boxes[1, -1] = torch.tensor([0.5 * W, 2.0 * H, 0.2 * W, 0.2 * H])
+    args = [a.to(card) for a in (coefs, protos, boxes)]
+    got = mk.mask_synth_crop_cuda(*args, hw, input_size)
+    ref = mk.mask_synth_crop_torch(*args, hw, input_size)
+    torch.cuda.synchronize()
+    assert torch.equal(got == 0, ref == 0)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert not bool(got[:, -1].any())         # the boxes outside the mask
+
+
+def test_k4_refuses_misaligned_inputs(card):
+    coefs, protos, boxes = [a.to(card) for a in
+                            _mask_inputs(3, 1, 4, (16, 16), (64, 64))]
+    before = mk.mask_synth_crop_cuda.launches
+    shifted = torch.empty(coefs.numel() + 1, device=card)[1:].view_as(coefs)
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.mask_synth_crop_cuda(shifted.copy_(coefs), protos, boxes, (16, 16),
+                                (64, 64))
+    assert mk.mask_synth_crop_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the pinned side-stream readback
+# ---------------------------------------------------------------------------
+
+def _tick_inputs(cfg, frame_hw, seed):
+    from xrseg_tpu_torch.testing import xr_frames
+    f = xr_frames(1, frame_hw, (32, 32), seed=seed)[0]
+    aux = np.zeros(19, np.float32)
+    aux[0:6] = (*f.intrinsics.focal_length, *f.intrinsics.principal_point,
+                *f.intrinsics.resolution)
+    aux[12] = 1.0                              # identity rotation
+    aux[13:17] = (32.0, 32.0, 0.0, 1.0)        # a locked target of class 0
+    aux[17:19] = (frame_hw[1] / cfg.model.input_size[1],
+                  frame_hw[0] / cfg.model.input_size[0])
+    return f.rgb[None], f.depth_fp16, aux
+
+
+def test_pinned_readback_equals_packed_and_results_survive(card):
+    from xrseg_tpu_torch.compile import build_xr_tick_pipeline
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    pipe = build_xr_tick_pipeline(cfg, model, frame_hw=(96, 128),
+                                  depth_hw=(32, 32)).warmup()
+    assert pipe.readback.buffer.is_pinned()
+    assert pipe.readback.buffer.numel() == pipe.packed_len
+    out = pipe(*_tick_inputs(cfg, (96, 128), 0))
+    pipe.readback.start(out["packed"])
+    pipe.readback.wait()
+    assert pipe.readback.computed() and pipe.readback.copied()
+    want = out["packed"].cpu().numpy()
+    np.testing.assert_array_equal(pipe.readback.host(), want)
+    first = pipe.unpack(pipe.readback.host())
+    assert first["matched"]
+    kept = {k: np.array(v) for k, v in first.items()}
+    # a second dispatch overwrites the buffer, not what unpack returned
+    out2 = pipe(*_tick_inputs(cfg, (96, 128), 1))
+    pipe.readback.start(out2["packed"])
+    pipe.readback.wait()
+    assert not np.array_equal(pipe.readback.host(), want)
+    for k, v in first.items():
+        np.testing.assert_array_equal(np.asarray(v), kept[k], err_msg=k)
+
+
+def test_executor_on_the_card_polls_events(card):
+    import time
+
+    from xrseg_tpu_torch.runtime.executor import ExecState, Executor
+    from xrseg_tpu_torch.testing import xr_frames
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)),
+                         fused_tick=True, emit_masks="none")
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    ex = Executor(cfg, params=model, frame_hw=(96, 128))
+    frames = xr_frames(3, (96, 128), (32, 32))
+    seen = []
+    for f in frames:
+        assert ex.run_inference(f) and not ex.run_inference(f)
+        deadline = time.monotonic() + 60.0
+        while ex.state != ExecState.COMPLETED:
+            assert time.monotonic() < deadline
+            if not seen or seen[-1] != ex.state:
+                seen.append(ex.state)
+            ex.update()
+        assert ex.last_result.count == 50
+    assert ExecState.REQUESTING_OUTPUTS in seen and ExecState.SUCCESS in seen
+    assert tk.nms_select_batched_cuda.launches > 0

@@ -13,9 +13,15 @@ Quick start (on a card):
     pipe = build_pipeline(cfg, model).warmup()     # device="cuda"
     det = pipe(frames_uint8)                       # [B,H,W,3] -> slate
 
+The XR product path (laser-select, track, fuse mask and depth into a
+point cloud) is runtime.executor.Executor under runtime.xr_loop.XRLoop;
+with ExecutorConfig(fused_tick=True) a tracked frame is one program and
+one readback (compile.build_xr_tick_pipeline).
+
 Importing the package touches no device and builds nothing.
 """
-from xrseg_tpu_torch.compile import (CompiledPipeline, build_pipeline,
+from xrseg_tpu_torch.compile import (CompiledPipeline, XRTickPipeline,
+                                     build_pipeline, build_xr_tick_pipeline,
                                      decode_task_outputs, load_model,
                                      pack_slate, unpack_slate)
 from xrseg_tpu_torch.config import (TEST_PRESET, XR_PRESET, DepthConfig,
@@ -25,7 +31,8 @@ from xrseg_tpu_torch.models.yolo11 import YOLO11, init_params
 from xrseg_tpu_torch.ops.postprocess import postprocess
 
 __all__ = [
-    "CompiledPipeline", "build_pipeline", "decode_task_outputs", "load_model",
+    "CompiledPipeline", "XRTickPipeline", "build_pipeline",
+    "build_xr_tick_pipeline", "decode_task_outputs", "load_model",
     "pack_slate", "unpack_slate", "TEST_PRESET", "XR_PRESET", "DepthConfig",
     "ExecutorConfig", "ModelConfig", "PostprocessConfig", "YOLO11",
     "init_params", "postprocess",

@@ -82,8 +82,9 @@ class DepthConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutorConfig:
-    """Inference runtime knobs. The executor itself is not ported yet
-    (ROADMAP queue 1); build_pipeline reads `model`, `post`, `batch_size`."""
+    """Inference runtime knobs: build_pipeline reads `model`, `post` and
+    `batch_size`; runtime.executor.Executor reads the rest (nothing reads
+    `max_inflight`, in either package)."""
     model: ModelConfig = ModelConfig()
     post: PostprocessConfig = PostprocessConfig()
     depth: DepthConfig = DepthConfig()

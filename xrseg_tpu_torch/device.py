@@ -2,6 +2,9 @@
 
 Entry points run on the card unless the caller asks for the CPU; without
 a card they raise instead of carrying on quietly on the CPU.
+
+`Readback` is the one device-to-host copy of a frame: a pinned host buffer
+filled on a copy stream of its own, with two events a caller can poll.
 """
 from __future__ import annotations
 
@@ -24,3 +27,63 @@ def to_device(x, dev: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     return torch.tensor(np.asarray(x), device=dev)
+
+
+class Readback:
+    """One flat float32 output's way to the host without blocking it.
+
+    On a card it owns a pinned host buffer of `numel` floats and a copy
+    stream. `start(out)` is called once the frame's last op is queued: the
+    copy stream waits for the compute stream's work so far, then copies
+    `out` into the buffer. `computed()` and `copied()` poll the two events
+    and never block; `wait()` blocks until the copy has landed. `host()` is
+    a view of the buffer that the next `start` overwrites, so a caller
+    copies what it keeps.
+
+    On the CPU there is no stream: `start` copies at once and both polls
+    are true.
+    """
+
+    def __init__(self, numel: int, dev: torch.device):
+        on_card = dev.type == "cuda"
+        if on_card and dev.index is None:      # "cuda" -> the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.buffer = torch.empty(numel, dtype=torch.float32,
+                                  pin_memory=on_card)
+        self.stream = torch.cuda.Stream(dev) if on_card else None
+        self._computed = torch.cuda.Event() if on_card else None
+        self._copied = torch.cuda.Event() if on_card else None
+
+    def start(self, out: torch.Tensor) -> None:
+        flat = out.detach().reshape(-1)
+        if flat.shape != self.buffer.shape or flat.dtype != torch.float32 \
+                or flat.device != self.device:
+            raise ValueError(
+                f"readback of {tuple(out.shape)} {out.dtype} on {out.device} "
+                f"into a buffer of {self.buffer.numel()} float32 for "
+                f"{self.device}")
+        if self.stream is None:
+            self.buffer.copy_(flat)
+            return
+        self._computed.record(torch.cuda.current_stream(self.device))
+        self.stream.wait_event(self._computed)
+        with torch.cuda.stream(self.stream):
+            self.buffer.copy_(flat, non_blocking=True)
+            self._copied.record(self.stream)
+        # the allocator must not hand `out`'s memory to the compute stream
+        # while the copy stream still reads it
+        flat.record_stream(self.stream)
+
+    def computed(self) -> bool:
+        return self.stream is None or self._computed.query()
+
+    def copied(self) -> bool:
+        return self.stream is None or self._copied.query()
+
+    def wait(self) -> None:
+        if self.stream is not None:
+            self._copied.synchronize()
+
+    def host(self) -> np.ndarray:
+        return self.buffer.numpy()

@@ -1,8 +1,10 @@
 """Fused mask synthesis + box crop (K4), its wrapper and its plain version.
 
-The CUDA source is xrseg_tpu_torch/csrc/mask_synth_crop.cu (a block per
-128-pixel tile, the pixel's prototypes in registers, coefficients and box
-bounds in shared memory); it replaces the TPU kernel
+The CUDA source is xrseg_tpu_torch/csrc/mask_synth_crop.cu (a warp per
+tile of 32 pixels of one mask row, each pixel's prototypes in
+registers, coefficients and box bounds in shared memory, and nothing but
+zero stores for an instance whose box the tile does not meet); it
+replaces the TPU kernel
 xrseg_tpu/ops/pallas_kernels.py `mask_synth_crop_pallas` (K4).
 
   mask_synth_crop_cuda   coefs [D,nm], protos [h,w,nm], boxes [D,4] (cx, cy,
@@ -90,6 +92,9 @@ def mask_synth_crop_cuda(coefs: torch.Tensor, protos: torch.Tensor,
         raise ValueError("mask_synth_crop inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mask_synth_crop needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("mask_synth_crop reads its inputs 16 bytes at a "
+                         "time: each must start on a 16-byte boundary")
     lib = _lib()
     batched = coefs.dim() == 3
     B = coefs.shape[0] if batched else 1

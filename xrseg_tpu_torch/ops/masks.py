@@ -2,9 +2,10 @@
 (counterpart of xrseg_tpu/ops/masks.py).
 
 The product is a plain matmul (the JAX package leaves it to XLA; kernel K4,
-the fused synthesis + crop, is still to be ported, ROADMAP queue 2). As in
-the JAX einsum with preferred_element_type=float32, operands of a narrower
-mask dtype are multiplied exactly and accumulated in float32.
+the fused synthesis + crop, is ops/mask_kernels.py and stands on no path,
+as in the JAX package). As in the JAX einsum with
+preferred_element_type=float32, operands of a narrower mask dtype are
+multiplied exactly and accumulated in float32.
 """
 from __future__ import annotations
 
@@ -48,5 +49,14 @@ def threshold_masks(masks: torch.Tensor, confidence: float) -> torch.Tensor:
 def synthesize_one_mask(coefs: torch.Tensor, protos: torch.Tensor,
                         index) -> torch.Tensor:
     """One instance's mask for the coefs-only mode: coefs [D,nm], protos
-    [H,W,nm], index (int or 0-dim tensor) -> [H,W] f32 sigmoid mask."""
-    return torch.sigmoid(protos.float() @ coefs[index].float())
+    [H,W,nm], index (int or 0-dim tensor) -> [H,W] f32 sigmoid mask. The
+    row is taken with index_select, so an index that lives on the device
+    stays there (coefs[index] would read it back to the host)."""
+    return torch.sigmoid(protos.float() @ select_row(coefs, index).float())
+
+
+def select_row(rows: torch.Tensor, index) -> torch.Tensor:
+    """rows[index] for an int or a 0-dim integer tensor, without a host
+    read of a device index."""
+    index = torch.as_tensor(index, device=rows.device).reshape(1)
+    return rows.index_select(0, index.long())[0]

@@ -9,9 +9,14 @@ used.
 
 mode="stretch" is the reference's ToTensor semantics; mode="letterbox"
 pads to the model size with gray 114 (ultralytics semantics).
+
+The gather plan and the 1/255 scale are small constants of the geometry.
+They are uploaded once per (geometry, dtype, device) and kept, so a frame
+uploads nothing but itself and the host never waits for the card here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -29,14 +34,27 @@ def _tap_indices(src: int, dst: int):
     return i0, i1, frac
 
 
+@functools.lru_cache(maxsize=64)
+def _taps_on(src: int, dst: int, dtype: torch.dtype, device: torch.device):
+    """_tap_indices as tensors on `device` (the weight in `dtype`)."""
+    i0, i1, f = _tap_indices(src, dst)
+    return (torch.as_tensor(i0, device=device),
+            torch.as_tensor(i1, device=device),
+            torch.as_tensor(f, device=device).to(dtype))
+
+
+@functools.lru_cache(maxsize=16)
+def _scale_on(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """1/255 rounded to `dtype`, on `device`."""
+    return torch.tensor(1.0 / 255.0, dtype=dtype, device=device)
+
+
 def _lerp_axis(x: torch.Tensor, axis: int, src: int, dst: int
                ) -> torch.Tensor:
-    i0, i1, f = _tap_indices(src, dst)
+    i0, i1, f = _taps_on(src, dst, x.dtype, x.device)
     shape = [1] * x.dim()
     shape[axis] = dst
-    f = torch.as_tensor(f, device=x.device).to(x.dtype).reshape(shape)
-    i0 = torch.as_tensor(i0, device=x.device)
-    i1 = torch.as_tensor(i1, device=x.device)
+    f = f.reshape(shape)
     return x.index_select(axis, i0) * (1 - f) + x.index_select(axis, i1) * f
 
 
@@ -45,8 +63,7 @@ def resize_normalize(frames: torch.Tensor, out_hw: Tuple[int, int],
     """uint8 [B,H,W,3] -> dtype [B,oh,ow,3] in [0, 1]."""
     _, H, W, _ = frames.shape
     oh, ow = out_hw
-    x = frames.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
-                                        device=frames.device)
+    x = frames.to(dtype) * _scale_on(dtype, frames.device)
     if H != oh:
         x = _lerp_axis(x, 1, H, oh)
     if W != ow:

@@ -18,11 +18,17 @@ port's own generator and differ from the JAX package's.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
+import numpy as np
 import torch
 
 from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.device import resolve_device
 from xrseg_tpu_torch.models import yolo11
+from xrseg_tpu_torch.perception.camera import (CameraIntrinsics, Pose,
+                                               quat_identity)
+from xrseg_tpu_torch.runtime.frame_source import FrameData
 
 _CALIBRATION_SEED = 20260817
 
@@ -62,3 +68,25 @@ def detection_params(gen: torch.Generator, cfg: ModelConfig, *,
             box_out.weight.copy_(
                 torch.randn(box_out.weight.shape, generator=gen) * 1e-3)
     return model
+
+
+def xr_frames(n: int, frame_hw: Tuple[int, int],
+              depth_hw: Tuple[int, int] = (128, 128), seed: int = 0,
+              fps: float = 30.0) -> List[FrameData]:
+    """`n` seeded XR frames for drives that need the whole tick: uint8 noise
+    images, a tilted depth plane from 1.0 m (top left) to 2.0 m (bottom
+    right) as raw fp16 bits (inside the 0.1-3.0 m range filter), the
+    camera at the origin with no rotation, Quest-3-like intrinsics, and
+    timestamps at `fps`."""
+    rng = np.random.default_rng(seed)
+    dh, dw = depth_hw
+    plane = 1.0 + 0.5 * (np.arange(dw)[None, :] / max(dw - 1, 1)
+                         + np.arange(dh)[:, None] / max(dh - 1, 1))
+    depth = plane.astype(np.float16).view(np.uint16)
+    return [FrameData(rgb=rng.integers(0, 256, tuple(frame_hw) + (3,),
+                                       np.uint8),
+                      timestamp=i / fps,
+                      pose=Pose(np.zeros(3, np.float32), quat_identity()),
+                      intrinsics=CameraIntrinsics.quest3_like(),
+                      depth_fp16=depth)
+            for i in range(n)]
