@@ -69,9 +69,41 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    packed output must equal its parts run apart on the card bit for bit, and extract_points must agree with extract_points_numpy
    (valid equal, positions within 1e-5 m). Prints tick p50/p95 and the
    tracer's per-stage means for both.
-6. one line {"kernels": [...]} (K1-K4; launches are counted on the path
-   that runs each kernel, K1's over the segment path plus the fused
-   ticks; no path runs K4, as in the JAX package), then the last line
+6. serving, on the segment model at full width on 480x640 frames:
+   - the HTTP InferenceServer on 127.0.0.1 (ephemeral port) at
+     micro_batch 8 (every bucket built first), then capped at 1 and at 8
+     in turn, 16 client threads posting npy frames, 16 requests each. Every answer must equal the
+     direct b=1 pipeline on its frame (count and labels equal, boxes
+     within 0.5 px; the worst difference is printed); the micro-batch
+     server must have run a batch of 8 and K1 must have launched with
+     B=8. Prints requests/s and p50/p95 per micro-batch size. Then
+     /reload of a save_npz of seed-1 weights must change the answers and
+     make them equal a fresh b=1 pipeline on those weights, and with
+     max_pending=1 and the device held a flood must get 503s and the
+     server must answer again after it.
+   - StreamingRunner at depth 1, 2, 3 over 64 b=1 frames and 32 b=8
+     batches: every result equal to the direct call, in FIFO order;
+     frames/s per depth.
+   - PipelinedTickRunner at depth 1, 2, 3 over 60 tracked ticks: depth 1
+     equal to the sequential fused executor (box and points), every depth
+     locked on every tick; tick p50/p95 per depth.
+   - the options: yuv420 planes give a full slate; params_dtype
+     "bfloat16" against "float32" storage: launches per frame (the
+     profiler's count), device ms and b=1 p50, and the launches must fall
+     by at least the number of weight casts; mask_display_hw=(480, 640)
+     gives finite masks of that shape; an o2o model (det_o2o seeded from
+     det) gives 50/50 detections with no NMS launch.
+   K1's launches are counted over the two timed server loads ("serve")
+   and over the runners ("stream"): every reference, build, warm-up and
+   lock comes first, and the counters are zeroed and read around each
+   load and each runner's run alone, where K1 must have launched once a
+   batch or a tick. The phase's numbers, and the seconds it spent on
+   set-up and on its timed windows, are printed as one line
+   "serve: {...}".
+7. one line {"kernels": [...]} (K1-K4; launches are counted on the path
+   that runs each kernel, K1's over the segment path, the fused ticks,
+   the serve loads and the runners; no path runs K4, as in the JAX
+   package), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -79,20 +111,29 @@ device it exits 2 and runs nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.compile import (build_pipeline, build_xr_tick_pipeline,
-                                     decode_task_outputs, pack_slate)
+                                     decode_task_outputs, pack_slate,
+                                     unpack_slate)
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
+from xrseg_tpu_torch.io.weights import save_npz
+from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
                                        rotated_inputs, steps_run)
 from xrseg_tpu_torch.ops import depth_fusion as df
@@ -103,11 +144,16 @@ from xrseg_tpu_torch.ops import nms_kernels as nk
 from xrseg_tpu_torch.ops import preprocess as pre_ops
 from xrseg_tpu_torch.ops.postprocess import postprocess, postprocess_obb_batch
 from xrseg_tpu_torch.ops.relock import relock_match
+from xrseg_tpu_torch.ops.yuv import rgb_to_yuv420_numpy
 from xrseg_tpu_torch.perception.tracking import (TargetTracker,
                                                  box_to_model_space)
 from xrseg_tpu_torch.precision import precision_scope
+from xrseg_tpu_torch.profile import frame_step, profile_batch
 from xrseg_tpu_torch.runtime.executor import Executor
 from xrseg_tpu_torch.runtime.frame_source import FrameData
+from xrseg_tpu_torch.runtime.server import InferenceServer
+from xrseg_tpu_torch.runtime.streaming import (PipelinedTickRunner,
+                                               StreamingRunner)
 from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
 from xrseg_tpu_torch.testing import detection_params, xr_frames
@@ -148,6 +194,24 @@ K3_BATCHES = (1, 8, 32)
 K_FULL, K_COMPACT = 8400, 1024
 K_OBB = OBB_MODEL.num_anchors         # 21504
 K4_SHAPE = dict(B=8, D=MAX_DET, nm=MODEL.num_masks, hw=MODEL.mask_size)
+# the serve phase: 16 distinct 480x640 frames sent as npy bodies by 16
+# client threads, 16 requests each, to a server at micro-batch 1 and 8
+SERVE_FRAMES, SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 16, 16
+SERVE_WINDOW_MS = 3.0
+SERVE_TIMEOUT_S = 60.0
+# frame pixels; answers are rounded to 0.01 px, and a batch of 8 may run
+# other cuDNN algorithms than a batch of 1, which can move the last bits
+SERVE_BOX_TOL = 0.5
+# scores of bf16 logits near 2.0 (detection_params): a few bf16 ulps of
+# the logit through the sigmoid's slope there (0.1)
+SERVE_SCORE_TOL = 4 * 2 ** -6 * 0.1
+# the exact-parity configuration, whose answers must not depend on the
+# batch: float32 compute without TF32
+EXACT_MODEL = dataclasses.replace(MODEL, dtype="float32",
+                                  matmul_precision="highest")
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "serve"
+STREAM_B1_FRAMES, STREAM_B8_BATCHES = 64, 32
+PIPE_TICKS = 60                       # PipelinedTickRunner ticks per depth
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
           replaces="xrseg_tpu/ops/pallas_kernels.py:218")
@@ -829,6 +893,510 @@ def phase_tick() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6. serving: the HTTP server, the streaming runners, the pipeline options
+# ---------------------------------------------------------------------------
+
+def http(port: int, body: bytes, path: str = "/infer"):
+    """POST to the local server: (status, json body)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def npy_bytes(frame: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, frame)
+    return buf.getvalue()
+
+
+def flood(port: int, bodies, clients: int, per_client: int):
+    """`clients` threads, each posting `per_client` requests in turn:
+    [(frame index, status, json, ms)] and the wall seconds of the whole."""
+    out = [None] * (clients * per_client)
+
+    def client(c):
+        for k in range(per_client):
+            i = c * per_client + k
+            t0 = time.perf_counter()
+            status, body = http(port, bodies[i % len(bodies)])
+            out[i] = (i % len(bodies), status, body,
+                      (time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT_S)
+    check(not any(t.is_alive() for t in threads), "a client did not finish")
+    return out, time.perf_counter() - t0
+
+
+def answers_match(results, ref, what: str, exact: bool = True) -> str:
+    """Every response against the direct b=1 pipeline's answer on its
+    frame: status 200, count and labels equal. exact: every box within
+    SERVE_BOX_TOL px, row by row. Otherwise (bf16 compute at another
+    batch size) the descending scores within SERVE_SCORE_TOL, and the rows
+    whose box moved are counted: bf16 logits tie by the hundred over 8400
+    anchors, ties go to the lower anchor, and one ulp of difference moves
+    an anchor within its tie. Returns what was found, for the log."""
+    worst, moved, rows = 0.0, 0, 0
+    for i, status, body, _ in results:
+        check(status == 200, f"{what}: status {status}: {body}")
+        want = ref[i]
+        check(body["count"] == want["count"] == MAX_DET,
+              f"{what}: frame {i}: count {body['count']} != {want['count']}")
+        got_l = [d["label"] for d in body["detections"]]
+        check(got_l == [d["label"] for d in want["detections"]],
+              f"{what}: frame {i}: labels differ from the b=1 pipeline")
+        diff = np.abs(np.array([d["box_xywh"] for d in body["detections"]])
+                      - [d["box_xywh"] for d in want["detections"]]).max(-1)
+        if exact:
+            worst = max(worst, float(diff.max()))
+            continue
+        scores = [d["score"] for d in body["detections"]]
+        err = np.abs(np.array(scores)
+                     - [d["score"] for d in want["detections"]]).max()
+        check(err <= SERVE_SCORE_TOL, f"{what}: frame {i}: scores differ "
+                                      f"from the b=1 pipeline by {err:.4f}")
+        worst = max(worst, float(err))
+        moved += int((diff > SERVE_BOX_TOL).sum())
+        rows += len(diff)
+    if exact:
+        check(worst <= SERVE_BOX_TOL, f"{what}: boxes differ from the b=1 "
+                                      f"pipeline by {worst:.3f} px")
+        return f"worst box difference {worst:.3f} px"
+    return (f"worst score difference {worst:.4f}; {moved} of {rows} rows "
+            "hold another anchor of the same score tie")
+
+
+def serve_numbers(results, wall_s: float) -> dict:
+    ms = [r[3] for r in results]
+    return {"requests_per_s": len(results) / wall_s,
+            "p50_ms": statistics.median(ms),
+            "p95_ms": float(np.percentile(ms, 95))}
+
+
+def direct_answers(srv: InferenceServer, pipe, frames) -> list:
+    """The server's JSON for each frame, computed by a direct b=1 pipeline
+    call and the server's own host-side formatting."""
+    out = []
+    for f in frames:
+        slate = pipe(f[None])["slate"][0].cpu()
+        out.append(srv._format(unpack_slate(slate, MAX_DET), 0.0))
+    return out
+
+
+def warm_buckets(srv: InferenceServer, bodies) -> None:
+    """Run every bucket once before timing: b requests at once, with the
+    server's cap set to b so that the batch goes as soon as it is full.
+    The dispatch thread builds bucket b and warms the CUDA state PyTorch
+    keeps per thread for its shapes. Then the server's counters start
+    from zero."""
+    cap, window = srv.micro_batch, srv.batch_window_ms
+    srv.batch_window_ms = 1000.0
+    try:
+        b = 1
+        while b <= cap:
+            srv.micro_batch = b
+            results, _ = flood(srv.port, bodies, b, 1)
+            check(all(r[1] == 200 for r in results), "warm-up request")
+            b *= 2
+    finally:
+        srv.micro_batch, srv.batch_window_ms = cap, window
+    srv._batch_hist.clear()
+    srv.tracer.reset()
+
+
+SPENT: dict = {}
+
+
+@contextlib.contextmanager
+def spent(what: str):
+    """Add the wall seconds of the block to SPENT[what]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SPENT[what] = SPENT.get(what, 0.0) + time.perf_counter() - t0
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_server(cfg, model, frames, b1) -> tuple:
+    """The server at micro-batch 1 and 8 under 16 clients, /reload, and
+    503 shedding. Returns the K1 launches of the two timed loads and
+    their numbers."""
+    name = torch.cuda.get_device_name(0)
+    bodies = [npy_bytes(f) for f in frames]
+    # room for every client, so the timed loads shed nothing
+    srv = InferenceServer(cfg, params=model, frame_hw=FRAME_HW, port=0,
+                          micro_batch=8, batch_window_ms=SERVE_WINDOW_MS,
+                          max_pending=2 * SERVE_CLIENTS,
+                          device=DEVICE).start()
+    try:
+        with spent("server set-up"):
+            ref = direct_answers(srv, b1, frames)
+            # why the server runs every request on its one dispatch
+            # thread: a thread's first frame rebuilds CUDA state PyTorch
+            # keeps per thread
+            fresh = []
+            th = threading.Thread(
+                target=lambda: fresh.extend(host_ms(b1, frames[:1], 2)))
+            th.start()
+            th.join()
+            print(f"serve: a b=1 frame on a fresh thread: {fresh[0]:.3f} "
+                  f"ms, then {fresh[1]:.3f} ms; on the main thread p50 "
+                  f"{statistics.median(host_ms(b1, frames[:1], 5)):.3f} ms"
+                  f" on {name}", flush=True)
+            warm_buckets(srv, bodies)
+
+        # one server takes both loads: its dispatch thread reads the cap
+        # for every batch, so micro-batch 1 is the same server capped at 1
+        numbers, hist = {}, {}
+        zero_counters()
+        for mb in (1, 8):
+            srv.micro_batch = mb
+            srv._batch_hist.clear()
+            srv.tracer.reset()
+            with spent("server timed"):
+                results, wall = flood(srv.port, bodies, SERVE_CLIENTS,
+                                      SERVE_PER_CLIENT)
+            found = answers_match(results, ref, f"server mb={mb}",
+                                  exact=(mb == 1))
+            numbers[mb] = serve_numbers(results, wall)
+            hist[mb] = {str(k): v for k, v in sorted(srv._batch_hist.items())}
+            stages = {k: round(srv.stats()["stages"][k]["p50_ms"], 3)
+                      for k in ("decode", "infer")}
+            print(f"serve: micro_batch {mb}: {len(results)} requests from "
+                  f"{SERVE_CLIENTS} clients, "
+                  f"{numbers[mb]['requests_per_s']:.1f} requests/s, p50 "
+                  f"{numbers[mb]['p50_ms']:.3f} ms, p95 "
+                  f"{numbers[mb]['p95_ms']:.3f} ms on {name}; server stage "
+                  f"p50 ms {stages}; batches {hist[mb]}; answers against the"
+                  f" b=1 pipeline: {found}", flush=True)
+        launches = read_counters()
+        by_batch = dict(nk.nms_select_batched_cuda.launches_by_batch)
+        check(hist[1] == {"1": SERVE_CLIENTS * SERVE_PER_CLIENT},
+              f"micro-batch 1 ran other batches: {hist[1]}")
+        check(any(int(n) > 4 for n in hist[8]),
+              "the micro-batch server never ran its bucket of 8")
+        check(by_batch.get(8, 0) > 0, f"K1 never launched with B=8 on the "
+                                      f"serve path: {by_batch}")
+        check(launches[K1["name"]] == sum(hist[1].values())
+              + sum(hist[8].values()),
+              f"K1 launched {launches[K1['name']]} times over the batches "
+              f"{hist}")
+        print(f"serve: K1 launches by batch size {by_batch}", flush=True)
+
+        # /reload: seed-1 weights change the answers, which then equal a
+        # fresh pipeline on those weights
+        with spent("reload"):
+            new = detection_params(torch.Generator().manual_seed(1),
+                                   cfg.model, device=DEVICE)
+            path = SERVE_DIR / "seed1.npz"
+            save_npz(str(path), new)
+            status, body = http(srv.port,
+                                json.dumps({"path": str(path)}).encode(),
+                                "/reload")
+            check(status == 200 and body["ok"], f"/reload: {status} {body}")
+            fresh = direct_answers(srv, build_pipeline(
+                cfg, new, frame_hw=FRAME_HW, batch=1, device=DEVICE),
+                frames[:4])
+            after = [(i, *http(srv.port, bodies[i]), 0.0) for i in range(4)]
+            check(any(a[2]["detections"] != ref[a[0]]["detections"]
+                      for a in after), "/reload did not change the answers")
+            answers_match(after, fresh, "after /reload")
+        print("serve: /reload of a seed-1 npz changed the answers; they "
+              "equal a fresh b=1 pipeline on those weights", flush=True)
+    finally:
+        srv.close()
+
+    # the exact-parity configuration: every micro-batched answer equals
+    # the b=1 pipeline box for box
+    exact_cfg = ExecutorConfig(model=EXACT_MODEL)
+    exact = detection_params(torch.Generator().manual_seed(0), EXACT_MODEL,
+                             device=DEVICE)
+    with spent("exact server"):
+        srv = InferenceServer(exact_cfg, params=exact, frame_hw=FRAME_HW,
+                              port=0, micro_batch=8,
+                              batch_window_ms=SERVE_WINDOW_MS,
+                              max_pending=2 * SERVE_CLIENTS,
+                              device=DEVICE).start()
+        try:
+            ref = direct_answers(srv, build_pipeline(
+                exact_cfg, exact, frame_hw=FRAME_HW, batch=1,
+                device=DEVICE), frames)
+            warm_buckets(srv, bodies)
+            results, _ = flood(srv.port, bodies, SERVE_CLIENTS, 2)
+            found = answers_match(results, ref, "exact server mb=8")
+            print(f"serve: float32 without TF32, micro_batch 8: every "
+                  f"answer equals the b=1 pipeline ({found}); batches "
+                  f"{srv.stats()['batch_hist']}", flush=True)
+        finally:
+            srv.close()
+
+    # shedding: with the device held, a flood against max_pending=1 gets
+    # 503s at once (the dispatch thread holds one request and the queue
+    # one more); then the server answers again
+    with spent("shedding"):
+        srv = InferenceServer(cfg, params=model, frame_hw=FRAME_HW, port=0,
+                              max_pending=1, device=DEVICE).start()
+        try:
+            results = [None] * SERVE_CLIENTS
+
+            def one(i):
+                results[i] = http(srv.port, bodies[i % len(bodies)])
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            with srv._lock:
+                for t in threads:
+                    t.start()
+                deadline = time.monotonic() + SERVE_TIMEOUT_S
+                while sum(r is not None and r[0] == 503 for r in results) \
+                        < SERVE_CLIENTS - 2:
+                    check(time.monotonic() < deadline,
+                          "no 503 under the flood")
+                    time.sleep(0.01)
+            for t in threads:
+                t.join(timeout=SERVE_TIMEOUT_S)
+            codes = sorted(r[0] for r in results)
+            check(codes == [200] * 2 + [503] * (SERVE_CLIENTS - 2),
+                  f"flood codes {codes}")
+            check(http(srv.port, bodies[0])[0] == 200,
+                  "no recovery after 503s")
+            print(f"serve: max_pending=1 shed {SERVE_CLIENTS - 2} of "
+                  f"{SERVE_CLIENTS} flooding requests with 503, then "
+                  "answered again", flush=True)
+        finally:
+            srv.close()
+    return launches, numbers
+
+
+def slate_rows(slate) -> list:
+    """Host copies of a [B, L] slate's unpacked rows."""
+    return [unpack_slate(row, MAX_DET) for row in slate.cpu()]
+
+
+def same_rows(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in b)
+
+
+def phase_streaming(pipes, frames) -> tuple:
+    """StreamingRunner at depth 1, 2, 3 against direct calls, frame for
+    frame in FIFO order; frames/s per depth. The references are computed
+    first; the counters are zeroed and read around each runner's run
+    alone, which must launch K1 once a batch."""
+    name = torch.cuda.get_device_name(0)
+    out, launches = {}, {}
+    for B, n in ((1, STREAM_B1_FRAMES), (8, STREAM_B8_BATCHES)):
+        pipe = pipes[B]
+        # batch i starts at frame i, so it repeats every len(frames)
+        batches = [np.roll(frames, -i, 0)[:B] for i in range(n)]
+        with spent("stream references"):
+            want = [slate_rows(pipe(x)["slate"])
+                    for x in batches[:len(frames)]]
+        for depth in (1, 2, 3):
+            runner = StreamingRunner(pipe, depth=depth)
+            torch.cuda.synchronize()
+            zero_counters()
+            with spent("stream timed"):
+                t0 = time.perf_counter()
+                results = list(runner.run(iter(batches)))
+                fps = n * B / (time.perf_counter() - t0)
+            counts = read_counters()
+            add_counts(launches, counts)
+            check(counts[K1["name"]] == n, f"stream b={B} depth {depth}: "
+                  f"K1 launched {counts[K1['name']]} times over {n} batches")
+            check([r.frame_id for r in results] == list(range(n)),
+                  f"stream b={B} depth {depth}: results out of order")
+            for r in results:
+                rows = [r.slate] if B == 1 else [
+                    {k: r.slate[k][j] for k in r.slate} for j in range(B)]
+                ref = want[r.frame_id % len(frames)]
+                check(all(same_rows(g, w) for g, w in zip(rows, ref)),
+                      f"stream b={B} depth {depth}: frame {r.frame_id} "
+                      "differs from the direct call")
+            out[B, depth] = fps
+            print(f"stream: StreamingRunner b={B} depth {depth}: {n} "
+                  f"batches equal to direct calls in FIFO order, {fps:.1f} "
+                  f"frames/s on {name}", flush=True)
+    return out, launches
+
+
+def locked_executor(model, frames):
+    cfg = ExecutorConfig(model=MODEL, fused_tick=True, emit_masks="none")
+    ex = Executor(cfg, params=model, frame_hw=FRAME_HW, device=DEVICE)
+    first = ex.run_sync(frames[0])
+    b = first.boxes[0]
+    check(ex.select_target_from_screen_pos(
+        (b.center_x + ex.screen_wh[0] / 2, b.center_y + ex.screen_wh[1] / 2)),
+        "the executor did not lock its first box")
+    return ex
+
+
+def phase_pipelined_ticks(model) -> tuple:
+    """PipelinedTickRunner at depth 1, 2, 3 over PIPE_TICKS tracked ticks:
+    depth 1 equals the sequential fused executor; deeper stays locked.
+    The sequential reference and every executor's lock come first; the
+    counters are zeroed and read around each runner's ticks alone, which
+    must launch K1 once a tick."""
+    name = torch.cuda.get_device_name(0)
+    frames = xr_frames(PIPE_TICKS + 1, FRAME_HW, DEPTH_HW, seed=5)
+    with spent("tick set-up"):
+        seq = locked_executor(model, frames)
+        want = [seq.run_sync(f) for f in frames[1:]]
+        executors = {d: locked_executor(model, frames) for d in (1, 2, 3)}
+    out, launches = {}, {}
+    for depth, ex in executors.items():
+        runner = PipelinedTickRunner(ex, depth=depth)
+        got, ms = [], []
+        torch.cuda.synchronize()
+        zero_counters()
+        with spent("tick timed"):
+            for f in frames[1:]:
+                t0 = time.perf_counter()
+                r = runner.submit(f)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if r is not None:
+                    got.append(r)
+            got.extend(runner.drain())
+        counts = read_counters()
+        add_counts(launches, counts)
+        check(counts[K1["name"]] == PIPE_TICKS, f"tick runner depth {depth}:"
+              f" K1 launched {counts[K1['name']]} times over {PIPE_TICKS} "
+              "ticks")
+        check(len(got) == PIPE_TICKS and all(
+            r.tracked is not None and r.point_cloud is not None
+            and len(r.point_cloud.positions) > 0 for r in got),
+            f"tick runner depth {depth}: the target was lost")
+        same = sum(g.tracked.index == w.tracked.index
+                   and np.array_equal(g.point_cloud.positions,
+                                      w.point_cloud.positions)
+                   for g, w in zip(got, want))
+        if depth == 1:
+            check(same == PIPE_TICKS, f"tick runner depth 1: {same} of "
+                                      f"{PIPE_TICKS} ticks equal the "
+                                      "sequential executor")
+        steady = ms[depth - 1:]
+        out[depth] = {"p50_ms": statistics.median(steady),
+                      "p95_ms": float(np.percentile(steady, 95))}
+        print(f"stream: PipelinedTickRunner depth {depth}: locked over "
+              f"{PIPE_TICKS} ticks, {same} of them equal to the sequential "
+              f"executor (box and points); tick p50 "
+              f"{out[depth]['p50_ms']:.3f} ms, p95 "
+              f"{out[depth]['p95_ms']:.3f} ms over {len(steady)} submits on "
+              f"{name}", flush=True)
+    return out, launches
+
+
+def phase_options(cfg, model, frames, b1) -> dict:
+    """yuv420 input, bf16 weight storage, display-resolution masks and the
+    NMS-free o2o head on the card. b1 is the float32-stored b=1
+    pipeline."""
+    name = torch.cuda.get_device_name(0)
+    pipe = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=1,
+                          input_format="yuv420", device=DEVICE).warmup()
+    det = pipe(rgb_to_yuv420_numpy(frames[:1]))
+    check_det(det, 1, True, "yuv420")
+    print("options: yuv420 planes give 50/50 finite detections", flush=True)
+
+    pipes = {"float32": b1,
+             "bfloat16": build_pipeline(cfg, model, frame_hw=FRAME_HW,
+                                        batch=1, params_dtype="bfloat16",
+                                        device=DEVICE).warmup()}
+    x = frames[:1]
+    # launches and device time repeat frame for frame: a short trace will
+    # do, and the profiler's cost grows with it
+    with spent("options profile"):
+        rows = {dt: profile_batch(frame_step(p, x), 1, 3)
+                for dt, p in pipes.items()}
+    ms = {dt: [] for dt in pipes}
+    for _ in range(2):                       # in turns
+        for dt, p in pipes.items():
+            ms[dt] += host_ms(p, x, 15)
+    out = {dt: {"launches": rows[dt]["launches"],
+                "device_ms": rows[dt]["device_ms"],
+                "p50_ms": statistics.median(ms[dt])} for dt in pipes}
+    n_convs = sum(isinstance(m, (L.Conv, L.Proto)) for m in model.modules())
+    check(out["float32"]["launches"] - out["bfloat16"]["launches"]
+          >= n_convs, f"bf16 storage saved fewer launches than its "
+                      f"{n_convs} weight casts: {out}")
+    print(f"options: weight storage float32 / bfloat16: "
+          f"{out['float32']['launches']:.0f} / "
+          f"{out['bfloat16']['launches']:.0f} launches per frame ({n_convs} "
+          f"weight casts), device {out['float32']['device_ms']:.3f} / "
+          f"{out['bfloat16']['device_ms']:.3f} ms, b=1 p50 "
+          f"{out['float32']['p50_ms']:.3f} / {out['bfloat16']['p50_ms']:.3f}"
+          f" ms on {name}", flush=True)
+
+    det = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=2,
+                         mask_display_hw=FRAME_HW, device=DEVICE)(frames[:2])
+    check(tuple(det["masks"].shape) == (2, MAX_DET) + FRAME_HW
+          and bool(det["masks"].isfinite().all()),
+          "mask_display_hw: bad masks")
+    print(f"options: mask_display_hw {FRAME_HW} gives finite masks "
+          f"{tuple(det['masks'].shape)}", flush=True)
+
+    o2o_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        MODEL, o2o=True))
+    o2o = detection_params(torch.Generator().manual_seed(0), o2o_cfg.model,
+                           device=DEVICE)
+    o2o.det_o2o.load_state_dict(o2o.det.state_dict())    # seeded from det
+    pipe = build_pipeline(o2o_cfg, o2o, frame_hw=FRAME_HW, batch=1,
+                          device=DEVICE).warmup()
+    zero_counters()
+    det = pipe(frames[:1])
+    torch.cuda.synchronize()
+    check(sum(read_counters().values()) == 0, "the o2o path launched NMS")
+    check_det(det, 1, True, "o2o")
+    print("options: the o2o head gives 50/50 detections with no NMS launch",
+          flush=True)
+    return out
+
+
+def phase_serve() -> dict:
+    cfg = ExecutorConfig(model=MODEL)
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=DEVICE)
+    frames = np.random.default_rng(4).integers(
+        0, 256, (SERVE_FRAMES,) + FRAME_HW + (3,), np.uint8)
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    SPENT.clear()
+    t0 = time.perf_counter()
+    # the direct pipelines: the b=1 one is the server's reference, and
+    # both carry the StreamingRunners
+    with spent("pipelines"):
+        pipes = {B: build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=B,
+                                   device=DEVICE).warmup() for B in (1, 8)}
+    serve_launches, servers = phase_server(cfg, model, frames, pipes[1])
+    streams, stream_launches = phase_streaming(pipes, frames)
+    ticks, tick_launches = phase_pipelined_ticks(model)
+    add_counts(stream_launches, tick_launches)
+    check(stream_launches[K1["name"]] > 0, "K1 never launched on the "
+                                           "stream path")
+    with spent("options"):
+        options = phase_options(cfg, model, frames, pipes[1])
+    SPENT["whole phase"] = time.perf_counter() - t0
+    print("serve: seconds spent " + json.dumps(
+        {k: round(v, 3) for k, v in SPENT.items()}), flush=True)
+    return {"serve": serve_launches, "stream": stream_launches,
+            "numbers": {"server": servers, "streaming": {
+                f"b{b}_depth{d}": v for (b, d), v in streams.items()},
+                "ticks": ticks, "weight_storage": options,
+                "seconds": dict(SPENT)}}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -839,6 +1407,7 @@ WRAPPERS = (nk.nms_select_batched_cuda, nk.nms_select_cuda,
 def zero_counters() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    nk.nms_select_batched_cuda.launches_by_batch.clear()
 
 
 def read_counters() -> dict:
@@ -876,15 +1445,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    seconds = {}                              # wall seconds per phase
     try:
         phase_device()
         kernels = phase_nms_kernels() + [phase_k4_seeded()]
+        seconds["device, kernels"] = time.perf_counter() - t0
         det, seg = phase_segment()
         kernels[-1]["cases"].append(k4_case(
             det["coefs"].contiguous(), det["protos"].contiguous(),
             det["boxes_xywh"].contiguous(), "K4 segment path b=8 coefs-only"))
+        seconds["segment"] = time.perf_counter() - t0 - sum(seconds.values())
         obb = phase_obb()
+        seconds["obb"] = time.perf_counter() - t0 - sum(seconds.values())
         tick = phase_tick()
+        seconds["tick"] = time.perf_counter() - t0 - sum(seconds.values())
         # each kernel's count on the paths that run it (K1: the segment
         # path and the fused ticks); K4 runs on none
         for k in kernels:
@@ -893,11 +1467,19 @@ def main() -> int:
         kernels[0]["launches_by_path"] = {"segment": seg[K1["name"]],
                                           "tick": tick[K1["name"]]}
         kernels[-1]["launches"] = sum(p[K4["name"]] for p in (seg, obb, tick))
+        serve = phase_serve()
+        seconds["serve"] = time.perf_counter() - t0 - sum(seconds.values())
+        for path in ("serve", "stream"):
+            kernels[0]["launches"] += serve[path][K1["name"]]
+            kernels[0]["launches_by_path"][path] = serve[path][K1["name"]]
+            kernels[-1]["launches"] += serve[path][K4["name"]]
+        print("serve: " + json.dumps(serve["numbers"]), flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; by phase "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }", flush=True)
     print(json.dumps(kernel_line(kernels)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -392,3 +392,108 @@ def test_executor_on_the_card_polls_events(card):
         assert ex.last_result.count == 50
     assert ExecState.REQUESTING_OUTPUTS in seen and ExecState.SUCCESS in seen
     assert tk.nms_select_batched_cuda.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# serving: readback slots, micro-batch buckets, bf16 weight storage
+# ---------------------------------------------------------------------------
+
+def test_readback_slots_never_overwrite_frames_in_flight(card):
+    """Two frames started back to back on one pipeline, each into its own
+    slot of a ring, both land intact; a third start on a slot whose frame
+    was not read raises."""
+    from xrseg_tpu_torch.runtime.streaming import ReadbackSlots
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    pipe = build_pipeline(cfg, model, frame_hw=(96, 128), batch=1).warmup()
+    numel = pipe.readback.buffer.numel()
+    ring = ReadbackSlots(card, 2)
+    rng = np.random.default_rng(0)
+    outs, slots = [], []
+    for _ in range(2):
+        out = pipe(rng.integers(0, 256, (1, 96, 128, 3), np.uint8))["slate"]
+        slot = ring.next(numel)
+        slot.start(out)
+        outs.append(out)
+        slots.append(slot)
+    with pytest.raises(RuntimeError, match="overwrite"):
+        ring.next(numel).start(outs[0])
+    assert slots[0].buffer.is_pinned() and slots[0] is not slots[1]
+    for out, slot in zip(outs, slots):
+        np.testing.assert_array_equal(slot.host(), out.cpu().numpy().ravel())
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_streaming_runner_on_the_card_equals_direct_calls(card):
+    from xrseg_tpu_torch.compile import unpack_slate
+    from xrseg_tpu_torch.runtime.streaming import StreamingRunner
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    pipe = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2).warmup()
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, 256, (2, 96, 128, 3), np.uint8)
+               for _ in range(6)]
+    want = [[unpack_slate(r, 50) for r in pipe(x)["slate"].cpu()]
+            for x in batches]
+    for depth in (1, 2, 3):
+        got = list(StreamingRunner(pipe, depth=depth).run(iter(batches)))
+        assert [r.frame_id for r in got] == list(range(6))
+        for r, w in zip(got, want):
+            for j in range(2):
+                for k in w[j]:
+                    np.testing.assert_array_equal(r.slate[k][j], w[j][k])
+
+
+def test_b8_bucket_equals_eight_b1_calls(card):
+    """In float32 without TF32 (the exact-parity mode) a batch of 8 gives
+    each frame the slate of its own b=1 call (boxes within 1e-3 px: cuDNN
+    may sum in another order at another batch size). In the default bf16
+    compute, counts and labels stay equal."""
+    rng = np.random.default_rng(2)
+    frames = rng.integers(0, 256, (8, 96, 128, 3), np.uint8)
+    for dtype, precision in (("float32", "highest"),
+                             ("bfloat16", "default")):
+        cfg = ExecutorConfig(model=ModelConfig(
+            input_size=(128, 128), dtype=dtype, matmul_precision=precision))
+        model = detection_params(torch.Generator().manual_seed(0),
+                                 cfg.model, device=card)
+        b8 = build_pipeline(cfg, model, frame_hw=(96, 128), batch=8)(frames)
+        b1 = build_pipeline(cfg, model, frame_hw=(96, 128), batch=1)
+        for j in range(8):
+            one = b1(frames[j:j + 1])
+            assert torch.equal(one["count"][0], b8["count"][j])
+            assert torch.equal(one["labels"][0], b8["labels"][j])
+            if dtype == "float32":
+                assert torch.equal(one["indices"][0], b8["indices"][j])
+                torch.testing.assert_close(one["boxes_xywh"][0],
+                                           b8["boxes_xywh"][j], rtol=0,
+                                           atol=1e-3)
+
+
+def test_bf16_storage_launches_no_weight_cast(card):
+    """bf16 compute: f32 storage casts every weight at every call (one
+    elementwise kernel each); bf16 storage launches none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xrseg_tpu_torch.io.weights import cast_params
+    from xrseg_tpu_torch.models import layers as L
+    cfg = ModelConfig(input_size=(128, 128))
+    f32 = detection_params(torch.Generator().manual_seed(0), cfg,
+                           device=card)
+    bf16 = cast_params(f32, "bfloat16")
+    n_weights = sum(isinstance(m, (L.Conv, L.Proto)) for m in f32.modules())
+    x = torch.rand(1, 128, 128, 3, device=card)
+    launches = []
+    for model in (f32, bf16):
+        with torch.inference_mode():
+            model(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model(x)
+                torch.cuda.synchronize()
+        launches.append(sum(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()))
+    assert launches[0] - launches[1] == n_weights, (launches, n_weights)

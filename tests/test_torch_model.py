@@ -140,7 +140,8 @@ def test_init_params_is_seeded():
 
 
 @pytest.mark.parametrize("change", [dict(arch="yolov8"), dict(task="pose"),
-                                    dict(task="classify"), dict(o2o=True)])
+                                    dict(task="classify"),
+                                    dict(task="pose", o2o=True)])
 def test_unported_options_refused(change):
     cfg = dataclasses.replace(ModelConfig(input_size=(64, 64)), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -149,13 +149,16 @@ def test_unpack_slate_round_trip(weights):
 
 
 @pytest.mark.parametrize("option", [
-    dict(tta=True), dict(input_format="yuv420"),
+    dict(), dict(input_format="yuv420"),
     dict(mask_display_hw=(480, 640)), dict(params_dtype="bfloat16")])
 def test_unported_options_refused(option):
+    """tta stays refused (ROADMAP item 9), whichever of the ported options
+    comes with it."""
     _, tcfg = _configs()
     model = tcompile.yolo11.YOLO11(tcfg.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcompile.build_pipeline(tcfg, model, device="cpu", **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        tcompile.build_pipeline(tcfg, model, device="cpu", tta=True,
+                                **option)
 
 
 def test_wbf_merge_refused():

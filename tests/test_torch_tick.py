@@ -126,6 +126,30 @@ def test_packed_equals_jax(pipes, emit):
                                    rtol=0, err_msg=k)
 
 
+def test_bf16_weight_storage_equals_jax(models):
+    """params_dtype="bfloat16" in float32 compute: both sides run float32 on
+    the same bf16-valued weights, so the tolerances above hold."""
+    jp, tp = models
+    jcfg, tcfg = _cfgs()
+    jpipe = jcompile.build_xr_tick_pipeline(
+        jcfg, jp, frame_hw=FRAME_HW, depth_hw=DEPTH_HW,
+        params_dtype="bfloat16")
+    tpipe = tcompile.build_xr_tick_pipeline(
+        tcfg, tp, frame_hw=FRAME_HW, depth_hw=DEPTH_HW,
+        params_dtype="bfloat16", device="cpu")
+    assert tpipe.params.b0.weight.dtype == torch.bfloat16
+    assert tp.b0.weight.dtype == torch.float32          # the caller's stays
+    prev = _locked_prev(tpipe, 0)
+    jpk, tpk, _, _ = _run_both(jpipe, tpipe, *_inputs(0, prev))
+    hj, ht = jpipe.unpack(jpk), tpipe.unpack(tpk)
+    assert bool(ht["matched"]) and ht["matched_index"] == hj["matched_index"]
+    for k in ("labels", "valid", "count"):
+        np.testing.assert_array_equal(ht[k], hj[k], err_msg=k)
+    L = tpipe.slate_len
+    np.testing.assert_allclose(tpk[:L], jpk[:L], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(tpk[L:], jpk[L:], atol=1e-4, rtol=0)
+
+
 def test_unmatched_tick_zeroes_mask_and_points(pipes):
     jpipe, tpipe = pipes[True]
     jp, tp, _, _ = _run_both(jpipe, tpipe,
@@ -187,8 +211,8 @@ def test_readback_on_the_cpu_is_a_plain_copy(pipes):
 def test_build_refusals(models):
     _, tp = models
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcompile.build_xr_tick_pipeline(tcfg, tp, params_dtype="bfloat16",
+    with pytest.raises(ValueError, match="params_dtype"):
+        tcompile.build_xr_tick_pipeline(tcfg, tp, params_dtype="int8",
                                         device="cpu")
     det = tconfig.ExecutorConfig(
         model=tconfig.ModelConfig(task="detect", **MODEL))

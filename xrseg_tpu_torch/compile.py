@@ -7,17 +7,21 @@ in model space, labels, scores, coefs, masks or protos, valid, count) plus
 the packed `slate`. There is no jit: PyTorch runs eagerly, and `warmup()`
 builds the CUDA kernels and runs one dummy frame instead.
 
-Ported: the segment/detect NMS path with rgb input, stretch and letterbox
-resize, crop_masks, emit_masks "all"/"none", mask_dtype, batch and
-frame_hw, the obb task (rotated NMS; the slate carries 5-wide
-boxes_xywhr), and the fused XR tick (`build_xr_tick_pipeline`: frame,
-re-lock, target mask and RGBD fusion as one program with one packed
-readback). The other options raise NotImplementedError naming their
-ROADMAP item.
+Ported: the segment/detect NMS path, stretch and letterbox resize,
+crop_masks, emit_masks "all"/"none", mask_dtype, batch and frame_hw; rgb
+or planar yuv420 input; masks upsampled to a display size
+(mask_display_hw); weight storage in bfloat16 (params_dtype, cast once
+at build); the NMS-free one-to-one head (ModelConfig.o2o); the obb task
+(rotated NMS; the slate carries 5-wide boxes_xywhr); and the fused XR
+tick (`build_xr_tick_pipeline`: frame, re-lock, target mask and RGBD
+fusion as one program with one packed readback). tta and merge="wbf"
+raise NotImplementedError naming their ROADMAP item.
 
 Every pipeline owns a `device.Readback` (one pinned host buffer, one copy
 stream) of its slate's or packed output's length; the executor starts it
-at dispatch and polls it.
+at dispatch and polls it. It holds one frame; the streaming runners,
+which keep several frames of one pipeline in flight, take a slot per
+frame from `runtime/streaming.ReadbackSlots` of their own.
 """
 from __future__ import annotations
 
@@ -30,14 +34,18 @@ import torch
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfig
 from xrseg_tpu_torch.device import Readback, resolve_device, to_device
+from xrseg_tpu_torch.io.weights import cast_params
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.ops import preprocess as pre_ops
-from xrseg_tpu_torch.ops.masks import select_row, synthesize_one_mask
+from xrseg_tpu_torch.ops.masks import (select_row, synthesize_one_mask,
+                                       upsample_masks)
 from xrseg_tpu_torch.ops.postprocess import (_check_merge,
                                              postprocess_batch_parts,
+                                             postprocess_o2o_batch,
                                              postprocess_obb_batch)
 from xrseg_tpu_torch.ops.relock import relock_match
+from xrseg_tpu_torch.ops.yuv import yuv420_to_rgb
 from xrseg_tpu_torch.precision import precision_scope
 
 
@@ -53,24 +61,42 @@ class CompiledPipeline:
     mask_dtype: torch.dtype = torch.float32
     emit_masks: str = "all"
     readback: Optional[Readback] = None     # of the [B, L] slate
+    input_format: str = "rgb"
+    mask_display_hw: Optional[Tuple[int, int]] = None
 
     def __call__(self, frames) -> Dict[str, torch.Tensor]:
-        """frames: uint8 [B,H,W,3], numpy or tensor, on any device."""
+        """frames: uint8 [B,H,W,3], or with input_format="yuv420" a tuple
+        (y [B,H,W], u [B,H/2,W/2], v [B,H/2,W/2]) of uint8 planes; numpy
+        or tensors, on any device."""
         mcfg = self.cfg.model
-        x = to_device(frames, self.device)
         with torch.inference_mode(), precision_scope(mcfg.matmul_precision):
+            if self.input_format == "yuv420":
+                x = yuv420_to_rgb(*(to_device(p, self.device)
+                                    for p in frames))
+            else:
+                x = to_device(frames, self.device)
             x = pre_ops.preprocess(x, mcfg.input_size, mode=self.resize_mode,
                                    dtype=getattr(torch, mcfg.dtype))
             out = self.params(x, concat_preds=False)
             return decode_task_outputs(
                 out, mcfg, self.cfg.post, crop_masks=self.crop_masks,
-                mask_dtype=self.mask_dtype, emit_masks=self.emit_masks)
+                mask_dtype=self.mask_dtype, emit_masks=self.emit_masks,
+                mask_display_hw=self.mask_display_hw)
+
+    def dummy_input(self):
+        """Zero frames of the pipeline's geometry and input format."""
+        B, H, W, _ = self.input_shape
+        if self.input_format == "yuv420":
+            return (np.zeros((B, H, W), np.uint8),
+                    np.zeros((B, H // 2, W // 2), np.uint8),
+                    np.zeros((B, H // 2, W // 2), np.uint8))
+        return np.zeros(self.input_shape, np.uint8)
 
     def warmup(self) -> "CompiledPipeline":
         """Build the kernels, run one dummy frame and read its slate back."""
         if self.device.type == "cuda":
             _build.build_all()
-        out = self(np.zeros(self.input_shape, np.uint8))
+        out = self(self.dummy_input())
         out["slate"].cpu()
         return self
 
@@ -90,31 +116,30 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     """Bind `params` (a YOLO11 module, moved to `device`) into a pipeline
     for frames [batch, frame_h, frame_w, 3] uint8.
 
+    input_format="yuv420" takes planar camera frames instead, a tuple
+    (y [B,H,W], u [B,H/2,W/2], v [B,H/2,W/2]) of uint8 planes, converted
+    to RGB on the device (ops/yuv.py).
+
+    params_dtype ("float32" | "bfloat16") sets the weight storage: the
+    module is copied and cast once here (io/weights.cast_params), so no
+    conv casts its weight at run time when storage and compute dtype
+    agree.
+
     emit_masks "all" materialises every survivor's [h,w] mask; "none" is
-    the coefs-only mode (the slate carries coefs and protos instead)."""
+    the coefs-only mode (the slate carries coefs and protos instead).
+    mask_display_hw (with emit_masks "all") resizes the masks to that
+    (H, W) on the device, bilinearly (ops/masks.upsample_masks)."""
     if emit_masks not in ("all", "none"):
         raise ValueError(f"emit_masks {emit_masks!r}: expected 'all'|'none'")
+    if mask_display_hw is not None and emit_masks != "all":
+        raise ValueError("mask_display_hw requires emit_masks='all'")
+    if input_format not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown input_format {input_format!r}")
     if tta:
         raise NotImplementedError("tta is not ported yet (ROADMAP queue 1, "
-                                  "accuracy modes)")
-    if input_format != "rgb":
-        raise NotImplementedError(
-            f"input_format {input_format!r} is not ported yet (ROADMAP "
-            "queue 1, yuv420 / mask_display_hw / params_dtype)")
-    if mask_display_hw is not None:
-        raise NotImplementedError("mask_display_hw is not ported yet "
-                                  "(ROADMAP queue 1, yuv420 / "
-                                  "mask_display_hw / params_dtype)")
-    if params_dtype is not None:
-        raise NotImplementedError("params_dtype is not ported yet (ROADMAP "
-                                  "queue 1, yuv420 / mask_display_hw / "
-                                  "params_dtype)")
+                                  "item 9: accuracy modes)")
     _check_merge(cfg.post)
-    if not isinstance(params, yolo11.YOLO11):
-        raise TypeError("params must be a YOLO11 module (JAX params go "
-                        "through xrseg_tpu_torch.io.bridge.params_from_jax)")
-    if params.cfg != cfg.model:
-        raise ValueError("params were built for another ModelConfig")
+    params = _bind_params(cfg, params, params_dtype)
     dev = resolve_device(device)
     B = batch or cfg.batch_size
     fh, fw = frame_hw or cfg.model.input_size
@@ -126,25 +151,52 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
                             emit_masks=emit_masks,
                             readback=Readback(
                                 B * slate_length(cfg.post.max_detections, bd),
-                                dev))
+                                dev),
+                            input_format=input_format,
+                            mask_display_hw=(None if mask_display_hw is None
+                                             else tuple(mask_display_hw)))
+
+
+def _bind_params(cfg: ExecutorConfig, params, params_dtype
+                 ) -> yolo11.YOLO11:
+    """Check that `params` is a YOLO11 built for cfg.model and apply the
+    weight-storage dtype (a cast copy; the caller's module is untouched)."""
+    if not isinstance(params, yolo11.YOLO11):
+        raise TypeError("params must be a YOLO11 module (JAX params go "
+                        "through xrseg_tpu_torch.io.bridge.params_from_jax)")
+    if params.cfg != cfg.model:
+        raise ValueError("params were built for another ModelConfig")
+    if params_dtype is not None:
+        params = cast_params(params, params_dtype)
+    return params
 
 
 def decode_task_outputs(out, mcfg: ModelConfig, pcfg: PostprocessConfig, *,
                         crop_masks: bool = False, mask_dtype=torch.float32,
-                        emit_masks: str = "all") -> Dict[str, torch.Tensor]:
+                        emit_masks: str = "all",
+                        mask_display_hw: Optional[Tuple[int, int]] = None
+                        ) -> Dict[str, torch.Tensor]:
     """Raw forward outputs (concat_preds=False) -> the detection dict with
     the packed slate. The obb branch, like the JAX one, leaves the NMS
-    backend to postprocess_obb_batch's own "auto" (K3 on CUDA tensors)."""
+    backend to postprocess_obb_batch's own "auto" (K3 on CUDA tensors);
+    outputs of the one-to-one head (ModelConfig.o2o) take the NMS-free
+    selection. mask_display_hw resizes the masks last."""
     yolo11.check_supported(mcfg)
     if mcfg.task == "obb":
         det = postprocess_obb_batch(out["boxes_xywhr"], out["cls_logits"],
                                     pcfg, scores_are_logits=True)
     else:
-        det = postprocess_batch_parts(
-            out["boxes_xywh"], out["cls_logits"], out.get("mask_coefs"),
-            out.get("protos"), pcfg, crop_masks, mcfg.input_size,
-            mask_dtype=mask_dtype, scores_are_logits=True,
+        o2o = "o2o_boxes_xywh" in out
+        decode = postprocess_o2o_batch if o2o else postprocess_batch_parts
+        det = decode(
+            out["o2o_boxes_xywh" if o2o else "boxes_xywh"],
+            out["o2o_cls_logits" if o2o else "cls_logits"],
+            out.get("mask_coefs"), out.get("protos"), pcfg, crop_masks,
+            mcfg.input_size, mask_dtype=mask_dtype, scores_are_logits=True,
             with_masks=(emit_masks == "all"))
+    if mask_display_hw is not None and "masks" in det:
+        det["masks"] = upsample_masks(det["masks"],
+                                      mask_display_hw).to(mask_dtype)
     det["slate"] = pack_slate(det, pcfg.max_detections)
     return det
 
@@ -282,7 +334,7 @@ class XRTickPipeline:
                    np.zeros(self.depth_hw, np.uint16),
                    np.zeros((self.AUX_LEN,), np.float32))
         self.readback.start(out["packed"])
-        self.readback.wait()
+        self.readback.release()
         return self
 
     @staticmethod
@@ -331,22 +383,15 @@ def build_xr_tick_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     See XRTickPipeline. Segment task only (the XR product task: the tick's
     mask and point stages are mask-defined). emit_target_mask adds the
     matched target's [mh,mw] sigmoid mask to the packed readback for UI
-    rendering; headless consumers skip it.
+    rendering; headless consumers skip it. params_dtype sets the weight
+    storage, as in build_pipeline.
     """
     mcfg = cfg.model
     if mcfg.task != "segment":
         raise ValueError(f"fused_tick requires task='segment', "
                          f"got {mcfg.task!r}")
-    if params_dtype is not None:
-        raise NotImplementedError("params_dtype is not ported yet (ROADMAP "
-                                  "queue 1 item 6, yuv420 / mask_display_hw "
-                                  "/ params_dtype)")
     _check_merge(cfg.post)
-    if not isinstance(params, yolo11.YOLO11):
-        raise TypeError("params must be a YOLO11 module (JAX params go "
-                        "through xrseg_tpu_torch.io.bridge.params_from_jax)")
-    if params.cfg != mcfg:
-        raise ValueError("params were built for another ModelConfig")
+    params = _bind_params(cfg, params, params_dtype)
     dev = resolve_device(device)
     fh, fw = frame_hw or mcfg.input_size
     mh4, mw4 = mcfg.mask_size

@@ -5,6 +5,9 @@ a card they raise instead of carrying on quietly on the CPU.
 
 `Readback` is the one device-to-host copy of a frame: a pinned host buffer
 filled on a copy stream of its own, with two events a caller can poll.
+A Readback holds one frame at a time; a runner that keeps several frames
+of one pipeline in flight takes one per frame
+(`runtime/streaming.ReadbackSlots`).
 """
 from __future__ import annotations
 
@@ -40,11 +43,16 @@ class Readback:
     a view of the buffer that the next `start` overwrites, so a caller
     copies what it keeps.
 
+    A slot holds one frame: from `start` until `host()` (or `release()`,
+    for a frame that is dropped) the copy is held, and a second `start`
+    raises instead of overwriting it.
+
     On the CPU there is no stream: `start` copies at once and both polls
     are true.
     """
 
     def __init__(self, numel: int, dev: torch.device):
+        self.held = False        # a started copy that host() has not taken
         on_card = dev.type == "cuda"
         if on_card and dev.index is None:      # "cuda" -> the current card
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -63,6 +71,11 @@ class Readback:
                 f"readback of {tuple(out.shape)} {out.dtype} on {out.device} "
                 f"into a buffer of {self.buffer.numel()} float32 for "
                 f"{self.device}")
+        if self.held:
+            raise RuntimeError(
+                "readback slot still holds a frame that host() has not "
+                "taken; a second start() would overwrite it")
+        self.held = True
         if self.stream is None:
             self.buffer.copy_(flat)
             return
@@ -86,4 +99,14 @@ class Readback:
             self._copied.synchronize()
 
     def host(self) -> np.ndarray:
+        """Wait for the copy and hand it over: the slot is free again, and
+        the view returned is overwritten by the next `start`."""
+        self.wait()
+        self.held = False
         return self.buffer.numpy()
+
+    def release(self) -> None:
+        """Free the slot without reading it (the frame was dropped)."""
+        self.wait()
+        self.held = False
+

@@ -11,6 +11,11 @@ rotated box, scores, angle] for obb. The anchor axis is P3, P4, P5,
 row-major within a level, channels last: each level's NCHW map is
 permuted to NHWC before it is flattened.
 
+With cfg.o2o (detect and segment) a second detect head, det_o2o, of the
+same structure runs beside det and adds o2o_boxes_xywh [B,A,4] and
+o2o_cls_logits [B,A,nc]: the NMS-free one-to-one head
+(ops/postprocess.postprocess_o2o_batch).
+
 This slice ports arch "yolo11" with tasks "segment", "detect" and "obb".
 """
 from __future__ import annotations
@@ -50,10 +55,9 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP queue 1, "
             "task family)")
-    if cfg.o2o:
-        raise NotImplementedError(
-            "o2o (NMS-free head) is not ported yet (ROADMAP queue 1, "
-            "remaining segment-pipeline options)")
+    if cfg.o2o and cfg.task not in ("detect", "segment"):
+        raise ValueError(
+            f"o2o (NMS-free) supports detect/segment, not {cfg.task}")
 
 
 class Spec:
@@ -208,6 +212,8 @@ class YOLO11(nn.Module):
         self.h22 = L.C3k2(s.c512 + s.c1024, s.c1024, s.n2, True, 0.5,
                           dtype=dt)
         self.det = DetectHead(s, cfg, dt)
+        if cfg.o2o:
+            self.det_o2o = DetectHead(s, cfg, dt)
         if cfg.task == "segment":
             self.proto = L.Proto(s.head_ch[0], s.proto_c, cfg.num_masks, dt)
             self.seg_cv4 = nn.ModuleList(
@@ -233,20 +239,30 @@ class YOLO11(nn.Module):
         x22 = self.h22(torch.cat([self.h20(x19), x10], 1))
         return x16, x19, x22
 
-    def head_outputs(self, feats, concat_preds: bool = True
-                     ) -> Dict[str, torch.Tensor]:
+    def _detect(self, head: DetectHead, feats):
+        """One detect head: (DFL ltrb [B,A,4], xywh [B,A,4] in input
+        pixels, class logits [B,A,nc] in the compute dtype)."""
         cfg = self.cfg
-        box_flat = _flatten([b(f) for b, f in zip(self.det.cv2, feats)],
+        box_flat = _flatten([b(f) for b, f in zip(head.cv2, feats)],
                             4 * cfg.reg_max)
-        cls_flat = _flatten([c(f) for c, f in zip(self.det.cv3, feats)],
+        cls_flat = _flatten([c(f) for c, f in zip(head.cv3, feats)],
                             cfg.num_classes)
         ltrb = dfl_decode(box_flat, cfg.reg_max)
         x1y1 = self.anchors - ltrb[..., :2]
         x2y2 = self.anchors + ltrb[..., 2:]
         xywh = torch.cat([(x1y1 + x2y2) * 0.5 * self.strides,
                           (x2y2 - x1y1) * self.strides], -1)
+        return ltrb, xywh, cls_flat
+
+    def head_outputs(self, feats, concat_preds: bool = True
+                     ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        ltrb, xywh, cls_flat = self._detect(self.det, feats)
         scores = torch.sigmoid(cls_flat.float())
         out = {"boxes_xywh": xywh, "scores": scores, "cls_logits": cls_flat}
+        if cfg.o2o:
+            _, out["o2o_boxes_xywh"], out["o2o_cls_logits"] = self._detect(
+                self.det_o2o, feats)
         if cfg.task == "segment":
             protos = self.proto(feats[0])
             mc = _flatten([m(f) for m, f in zip(self.seg_cv4, feats)],
@@ -289,10 +305,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> YOLO11:
     io/bridge.py instead)."""
     model = YOLO11(cfg)
     L.reset_parameters(model, gen)
-    nc, reg_max = cfg.num_classes, cfg.reg_max
+    nc = cfg.num_classes
+    heads = [model.det] + ([model.det_o2o] if cfg.o2o else [])
     with torch.no_grad():
-        for i, stride in enumerate((8, 16, 32)):
-            model.det.cv2[i].out.bias.fill_(1.0)
-            model.det.cv3[i].out.bias.fill_(
-                math.log(5 / nc / (640 / stride) ** 2))
+        for head in heads:
+            for i, stride in enumerate((8, 16, 32)):
+                head.cv2[i].out.bias.fill_(1.0)
+                head.cv3[i].out.bias.fill_(
+                    math.log(5 / nc / (640 / stride) ** 2))
     return model
+
+
+def count_params(model: nn.Module) -> int:
+    """Number of parameter values (the JAX package's leaf-size sum)."""
+    return sum(p.numel() for p in model.parameters())

@@ -10,6 +10,7 @@ multiplied exactly and accumulated in float32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def synthesize_masks(coefs: torch.Tensor, protos: torch.Tensor
@@ -39,6 +40,20 @@ def crop_masks(masks: torch.Tensor, boxes_xywh: torch.Tensor,
     inside = ((xs >= cx - hw) & (xs <= cx + hw)
               & (ys >= cy - hh) & (ys <= cy + hh))
     return masks * inside
+
+
+def upsample_masks(masks: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize [...,D,h,w] -> [...,D,out_h,out_w] f32
+    (display-resolution masks; jax.image.resize "bilinear"). Half-pixel
+    centres; an axis that shrinks is antialiased (a triangle filter
+    widened by the scale) as jax.image.resize does, so antialiasing is on
+    whenever any axis shrinks and off for pure upsampling."""
+    h, w = masks.shape[-2:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    x = masks.float().reshape(-1, 1, h, w)
+    y = F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=False,
+                      antialias=(oh < h or ow < w))
+    return y.reshape(*masks.shape[:-2], oh, ow)
 
 
 def threshold_masks(masks: torch.Tensor, confidence: float) -> torch.Tensor:

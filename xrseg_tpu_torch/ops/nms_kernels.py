@@ -31,7 +31,8 @@ validate what it hands them.
 A wrapper given CPU tensors runs the plain version (nms_*_torch),
 which repeats the kernel's arithmetic step by step in torch; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its own
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches`; K1 also counts them per batch size in
+`nms_select_batched_cuda.launches_by_batch`.
 """
 from __future__ import annotations
 
@@ -389,6 +390,8 @@ def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
                                         max_det)
     out = _select(corners, masked, iou_threshold, max_det, cluster)
     nms_select_batched_cuda.launches += 1
+    by_batch = nms_select_batched_cuda.launches_by_batch
+    by_batch[corners.shape[0]] = by_batch.get(corners.shape[0], 0) + 1
     return out
 
 
@@ -424,5 +427,6 @@ def nms_rotated_batched_cuda(rows: torch.Tensor, masked: torch.Tensor,
 
 
 nms_select_batched_cuda.launches = 0
+nms_select_batched_cuda.launches_by_batch = {}     # B -> launches
 nms_select_cuda.launches = 0
 nms_rotated_batched_cuda.launches = 0

@@ -9,7 +9,8 @@ their masks. The NMS backend comes from PostprocessConfig.nms_backend;
 "auto" takes the CUDA kernel for CUDA tensors (K1 for the batched path, K2
 per image) and the plain loop for CPU tensors. The OBB task
 (postprocess_obb_batch) runs rotated NMS with its own backend argument,
-as in the JAX package: "auto" takes K3 for CUDA tensors.
+as in the JAX package: "auto" takes K3 for CUDA tensors. The NMS-free
+one-to-one head (postprocess_o2o_batch) selects by score alone.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ def _check_merge(cfg: PostprocessConfig) -> None:
     if cfg.merge != "nms":
         raise NotImplementedError(
             f"merge {cfg.merge!r} is not ported yet (ROADMAP queue 1, "
-            "accuracy modes: ops/wbf.py)")
+            "item 9: accuracy modes, ops/wbf.py)")
 
 
 def _logit_threshold(cfg: PostprocessConfig, scores_are_logits: bool):
@@ -109,6 +110,43 @@ def postprocess_batch_parts(boxes, cls_scores, coefs_all, protos,
     return det
 
 
+def postprocess_o2o_batch(boxes, cls_scores, coefs_all, protos,
+                          cfg: PostprocessConfig, crop: bool = False,
+                          input_size=(640, 640), mask_dtype=torch.float32,
+                          scores_are_logits: bool = False,
+                          with_masks: bool = True
+                          ) -> Dict[str, torch.Tensor]:
+    """NMS-free batched postprocess of the one-to-one head (ModelConfig.o2o):
+    the head is trained to emit one detection per object, so the slate is a
+    score gate and a top-K gather, with no suppression loop and so no
+    kernel. boxes [B,A,4], cls_scores [B,A,nc]; the same det contract as
+    postprocess_batch_parts, `indices` being anchor ids, so the mask
+    coefficients gather as in the NMS path. Ties keep the lower anchor
+    first (a stable sort, as lax.top_k orders them); when A < max_det the
+    slate is padded with -inf scores (invalid rows at anchor 0)."""
+    scores, labels = cls_scores.max(-1)
+    scores, labels = scores.float(), labels.int()
+    thr = _logit_threshold(cfg, scores_are_logits)
+    D = cfg.max_detections
+    B, A = scores.shape
+    top_s, idx = torch.sort(scores, stable=True, dim=-1, descending=True)
+    top_s, idx = top_s[:, :D], idx[:, :D]
+    if A < D:
+        top_s = torch.cat([top_s, top_s.new_full((B, D - A), -np.inf)], -1)
+        idx = torch.cat([idx, idx.new_zeros((B, D - A))], -1)
+    det = {"indices": idx.int(),
+           "boxes_xywh": boxes.gather(1, idx[..., None].expand(B, D, 4)),
+           "labels": labels.gather(1, idx),
+           "valid": top_s > thr}
+    det["count"] = det["valid"].sum(-1).int()
+    s = torch.sigmoid(top_s) if scores_are_logits else top_s
+    det["scores"] = s * det["valid"]
+    if protos is not None and coefs_all is not None:
+        _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
+                      with_masks)
+    return det
+
+
 def postprocess_obb_batch(boxes_xywhr, cls_scores, cfg: PostprocessConfig,
                           scores_are_logits: bool = False,
                           backend: str = "auto") -> Dict[str, torch.Tensor]:
@@ -119,7 +157,7 @@ def postprocess_obb_batch(boxes_xywhr, cls_scores, cfg: PostprocessConfig,
     if cfg.merge == "wbf":
         raise NotImplementedError(
             "merge 'wbf' for rotated boxes is not ported yet (ROADMAP queue "
-            "1, accuracy modes: ops/wbf.py wbf_rotated_fixed_batched)")
+            "1, item 9: accuracy modes, ops/wbf.py wbf_rotated_fixed_batched)")
     _check_merge(cfg)
     scores, labels = cls_scores.max(-1)
     scores, labels = scores.float(), labels.int()

@@ -260,6 +260,8 @@ class Executor:
             return result
 
         if self._state in (ExecState.ERROR, ExecState.CLEANUP):
+            if self._readback is not None and self._readback.held:
+                self._readback.release()      # a frame dropped unread
             self._inflight = None
             self._readback = None
             self._host = {}
