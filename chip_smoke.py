@@ -100,10 +100,29 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    batch or a tick. The phase's numbers, and the seconds it spent on
    set-up and on its timed windows, are printed as one line
    "serve: {...}".
-7. one line {"kernels": [...]} (K1-K4; launches are counted on the path
+7. the task family and test-time augmentation, at full width on 480x640
+   frames: YOLO11n-pose (1 class, 17 keypoints) and YOLOv8n-seg at
+   640x640 and YOLO11n-cls (1000 classes) at 224x224, each at b=1 and
+   b=8, and TTA pipelines: YOLO11n-seg with 2 views, YOLO11n-obb with 2
+   views and with ULTRALYTICS_TTA_VIEWS (b=1 and b=8, K3 at 64512
+   candidates), YOLO11n-pose with 2 views and the COCO-17 flip. Launch
+   counters are zeroed just before the path and read just after: K1
+   must have launched once per pose, YOLOv8, segment-TTA and pose-TTA
+   batch, K3 once per obb-TTA batch, K2 and K4 never. Each launch's
+   inputs are recorded, and one launch of each pipeline is then held
+   against the plain version on its own inputs (idx and ok EQUAL) and
+   timed. Every slate must be full and finite; pose and YOLOv8n-seg equal
+   the plain NMS's decode of the same raw outputs; the classify b=8 rows
+   equal the b=1 ones within 1e-4; each TTA NMS ran over views x anchors
+   candidates. Then the server for pose and classify at micro-batch 1
+   and 8 against the direct b=1 pipeline. One line "tasks: {...}" gives
+   b=1 p50/p95 and b=8 frames/s per model beside the card's name and
+   power limit, the server's numbers and the phase's seconds.
+8. one line {"kernels": [...]} (K1-K4; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
-   the serve loads and the runners; no path runs K4, as in the JAX
-   package), then the last line
+   the serve loads, the runners and the task paths, K3's over the obb
+   and obb-TTA paths; no path runs K4, as in the JAX package), then the
+   last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -128,12 +147,15 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
-from xrseg_tpu_torch.compile import (build_pipeline, build_xr_tick_pipeline,
+from xrseg_tpu_torch.compile import (DEFAULT_TTA_VIEWS,
+                                     ULTRALYTICS_TTA_VIEWS, build_pipeline,
+                                     build_xr_tick_pipeline,
                                      decode_task_outputs, pack_slate,
                                      unpack_slate)
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
 from xrseg_tpu_torch.io.weights import save_npz
 from xrseg_tpu_torch.models import layers as L
+from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
                                        rotated_inputs, steps_run)
 from xrseg_tpu_torch.ops import depth_fusion as df
@@ -142,7 +164,9 @@ from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
 from xrseg_tpu_torch.ops import nms_kernels as nk
 from xrseg_tpu_torch.ops import preprocess as pre_ops
-from xrseg_tpu_torch.ops.postprocess import postprocess, postprocess_obb_batch
+from xrseg_tpu_torch.ops.postprocess import (postprocess,
+                                             postprocess_obb_batch,
+                                             postprocess_pose_batch)
 from xrseg_tpu_torch.ops.relock import relock_match
 from xrseg_tpu_torch.ops.yuv import rgb_to_yuv420_numpy
 from xrseg_tpu_torch.perception.tracking import (TargetTracker,
@@ -211,6 +235,19 @@ EXACT_MODEL = dataclasses.replace(MODEL, dtype="float32",
                                   matmul_precision="highest")
 SERVE_DIR = Path(__file__).resolve().parent / "build" / "serve"
 STREAM_B1_FRAMES, STREAM_B8_BATCHES = 64, 32
+# the task family at full width: YOLO11n-pose (ultralytics
+# yolo11n-pose.yaml: 1 class, 17 keypoints of 3 values) at 640x640,
+# YOLO11n-cls (yolo11-cls.yaml, 1000 classes) at 224x224 and YOLOv8n-seg
+# (yolov8-seg.yaml, 80 classes) at 640x640, all on 480x640 frames
+POSE_MODEL = ModelConfig(task="pose", num_classes=1)
+CLS_MODEL = ModelConfig(task="classify", num_classes=1000,
+                        input_size=(224, 224))
+V8_MODEL = ModelConfig(arch="yolov8")
+# the COCO-17 skeleton's left/right joint permutation under a mirror
+COCO17_FLIP = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15)
+# classify probabilities at another batch size (bf16 convs, TF32 product)
+CLS_PROB_TOL = 1e-4
+TASK_SERVE_PER_CLIENT = 4
 PIPE_TICKS = 60                       # PipelinedTickRunner ticks per depth
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
@@ -1397,6 +1434,336 @@ def phase_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 7. the rest of the task family and test-time augmentation
+# ---------------------------------------------------------------------------
+
+class Recorder:
+    """Stands in for a kernel wrapper in ops/nms.py's namespace during a
+    path's run and keeps each launch's inputs and outputs under the name
+    of the pipeline that made it. It calls the real wrapper, whose
+    counter alone counts the launch."""
+
+    def __init__(self, name: str):
+        self.name, self.real = name, getattr(nms_ops, name)
+        self.tag, self.calls = None, {}
+
+    def __call__(self, geo, masked, iou, max_det, **kw):
+        idx, ok = self.real(geo, masked, iou, max_det, **kw)
+        self.calls.setdefault(self.tag, []).append(
+            (geo, masked, iou, max_det, idx, ok))
+        return idx, ok
+
+    def __enter__(self) -> "Recorder":
+        setattr(nms_ops, self.name, self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(nms_ops, self.name, self.real)
+
+
+def hold_launch(kernel, plain, call, label: str, what: str, bound_fn):
+    """A launch recorded on a path, held bit for bit against the plain
+    version on its own inputs, then run again and timed (run_case)."""
+    geo, masked, iou, max_det, idx, ok = call
+    check(iou == IOU and max_det == MAX_DET,
+          f"{label}: thresholds {iou}, {max_det} differ from run_case's")
+    ref_idx, ref_ok = plain(geo, masked, iou, max_det)
+    check(torch.equal(idx, ref_idx) and torch.equal(ok, ref_ok),
+          f"{label}: the path's launch differs from the plain version")
+    return run_case(kernel, plain, (geo, masked), label, what, bound_fn,
+                    iters=20, plain_once=masked.shape[-1] > K_OBB)
+
+
+def check_task_det(det, B: int, task: str, what: str) -> None:
+    """Pose: a full slate and finite keypoints; classify: finite [B, nc]
+    probability rows that sum to one; segment and obb: check_det and
+    check_obb_det."""
+    if task == "classify":
+        nc = CLS_MODEL.num_classes
+        check(tuple(det["slate"].shape) == (B, nc)
+              and bool(det["slate"].isfinite().all())
+              and bool(((det["probs"].sum(-1) - 1).abs() < 1e-3).all()),
+              f"{what}: bad probability rows")
+        return
+    if task == "segment":
+        check_det(det, B, True, what)
+        return
+    if task == "obb":
+        check_obb_det(det, B, what)
+        return
+    check(bool((det["count"] == MAX_DET).all())
+          and det["slate"].shape == (B, MAX_DET * 7 + 1)
+          and bool(det["slate"].isfinite().all()), f"{what}: bad slate")
+    check(tuple(det["kpts"].shape) == (B, MAX_DET) + POSE_MODEL.kpt_shape
+          and bool(det["kpts"].isfinite().all()), f"{what}: bad keypoints")
+
+
+def task_reference(cfg, model, frames):
+    """The pipeline's decode on the same raw outputs with the plain NMS
+    (pose's postprocess takes its own backend argument; segment honours
+    the config's)."""
+    mcfg = cfg.model
+    x = pre_ops.preprocess(torch.from_numpy(frames).to(DEVICE),
+                           mcfg.input_size, dtype=model.dtype)
+    with torch.inference_mode():
+        out = model(x, concat_preds=False)
+        if mcfg.task == "pose":
+            ref = postprocess_pose_batch(out["boxes_xywh"], out["cls_logits"],
+                                         out["kpts"], cfg.post,
+                                         scores_are_logits=True,
+                                         backend="scan")
+            ref["slate"] = pack_slate(ref, MAX_DET)
+            return ref
+        scan = dataclasses.replace(cfg.post, nms_backend="scan")
+        return decode_task_outputs(out, mcfg, scan)
+
+
+def probs_match(results, ref, what: str, exact: bool) -> str:
+    """Classify answers against the direct b=1 pipeline's: exact (the same
+    batch size) within the 5-decimal rounding; otherwise (bf16 compute and
+    TF32 products at another batch size) within CLS_PROB_TOL, and a label
+    may differ only where the reference's top two lie within it."""
+    worst, flips = 0.0, 0
+    for i, status, body, _ in results:
+        check(status == 200, f"{what}: status {status}: {body}")
+        got, want = np.array(body["probs"]), np.array(ref[i]["probs"])
+        err = float(np.abs(got - want).max())
+        check(err <= (2e-5 if exact else CLS_PROB_TOL),
+              f"{what}: frame {i}: probs differ by {err:.2e}")
+        if body["label"] != ref[i]["label"]:
+            check(not exact and want[body["label"]] >= want.max()
+                  - CLS_PROB_TOL, f"{what}: frame {i}: label differs")
+            flips += 1
+        worst = max(worst, err)
+    return f"worst prob difference {worst:.2e}; {flips} labels of a tie"
+
+
+def serve_task(task: str, cfg, model, pipe, frames) -> tuple:
+    """The server at micro-batch 1 and 8 for pose or classify under 16
+    clients; answers against the direct b=1 pipeline's with the server's
+    own formatting. Returns its K1 launches and numbers."""
+    name = torch.cuda.get_device_name(0)
+    bodies = [npy_bytes(f) for f in frames]
+    srv = InferenceServer(cfg, params=model, frame_hw=FRAME_HW, port=0,
+                          micro_batch=8, batch_window_ms=SERVE_WINDOW_MS,
+                          max_pending=2 * SERVE_CLIENTS,
+                          device=DEVICE).start()
+    try:
+        ref = []
+        for f in frames:
+            det = pipe(f[None])
+            if task == "classify":
+                host = {"probs": det["slate"][0].cpu().numpy()}
+            else:
+                host = unpack_slate(det["slate"][0].cpu(), MAX_DET)
+                host["kpts"] = det["kpts"][0, :host["count"]].cpu().numpy()
+            ref.append(srv._format(host, 0.0))
+        warm_buckets(srv, bodies)
+        numbers, hist = {}, {}
+        zero_counters()
+        for mb in (1, 8):
+            srv.micro_batch = mb
+            srv._batch_hist.clear()
+            results, wall = flood(srv.port, bodies, SERVE_CLIENTS,
+                                  TASK_SERVE_PER_CLIENT)
+            if task == "classify":
+                found = probs_match(results, ref, f"{task} server mb={mb}",
+                                    exact=(mb == 1))
+            else:
+                found = answers_match(results, ref, f"{task} server mb={mb}",
+                                      exact=(mb == 1))
+                if mb == 1:
+                    kd = max(float(np.abs(np.array(
+                        [d["kpts"] for d in body["detections"]])
+                        - [d["kpts"] for d in ref[i]["detections"]]).max())
+                        for i, _, body, _ in results)
+                    check(kd <= SERVE_BOX_TOL, f"{task} server mb=1: "
+                          f"keypoints differ by {kd:.3f}")
+                    found += f"; worst keypoint difference {kd:.3f}"
+            numbers[mb] = serve_numbers(results, wall)
+            hist[mb] = {str(k): v for k, v in sorted(srv._batch_hist.items())}
+            print(f"tasks: {task} server micro_batch {mb}: {len(results)} "
+                  f"requests, {numbers[mb]['requests_per_s']:.1f} "
+                  f"requests/s, p50 {numbers[mb]['p50_ms']:.3f} ms, p95 "
+                  f"{numbers[mb]['p95_ms']:.3f} ms on {name}; batches "
+                  f"{hist[mb]}; answers against the b=1 pipeline: {found}",
+                  flush=True)
+        launches = read_counters()
+        check(any(int(n) > 1 for n in hist[8]),
+              f"the {task} micro-batch server never batched: {hist[8]}")
+        n_batches = sum(hist[1].values()) + sum(hist[8].values())
+        want = n_batches if task == "pose" else 0
+        check(launches[K1["name"]] == want, f"{task} server: K1 launched "
+              f"{launches[K1['name']]} times over {n_batches} batches")
+    finally:
+        srv.close()
+    return launches, numbers
+
+
+def phase_tasks(smi: str) -> dict:
+    """YOLO11n-pose, YOLO11n-cls and YOLOv8n-seg at full width, b=1 and
+    b=8, and test-time augmentation on the segment, obb and pose models;
+    then the server for pose and classify."""
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    frames = np.random.default_rng(5).integers(
+        0, 256, (8,) + FRAME_HW + (3,), np.uint8)
+    obb_frames = np.random.default_rng(6).integers(
+        0, 256, (8,) + OBB_FRAME_HW + (3,), np.uint8)
+    gen = torch.Generator
+    models = {
+        "pose": detection_params(gen().manual_seed(0), POSE_MODEL,
+                                 device=DEVICE),
+        "classify": yolo11.init_params(gen().manual_seed(0),
+                                       CLS_MODEL).to(DEVICE),
+        "v8seg": detection_params(gen().manual_seed(0), V8_MODEL,
+                                  device=DEVICE),
+        "seg": detection_params(gen().manual_seed(0), MODEL, device=DEVICE),
+        "obb": detection_params(gen().manual_seed(0), OBB_MODEL,
+                                device=DEVICE),
+    }
+    cfgs = {"pose": POSE_MODEL, "classify": CLS_MODEL, "v8seg": V8_MODEL,
+            "seg": MODEL, "obb": OBB_MODEL}
+    cfgs = {k: ExecutorConfig(model=m) for k, m in cfgs.items()}
+    # (name, model, batch, build_pipeline's TTA arguments)
+    specs = [(f"{m}_b{b}", m, b, {}) for m in ("pose", "classify", "v8seg")
+             for b in (1, 8)] + [
+        ("tta_seg_b1", "seg", 1, dict(tta=True)),
+        ("tta_obb_b1", "obb", 1, dict(tta=True)),
+        ("tta_obb_ultralytics_b1", "obb", 1,
+         dict(tta=True, tta_views=ULTRALYTICS_TTA_VIEWS)),
+        ("tta_obb_ultralytics_b8", "obb", 8,
+         dict(tta=True, tta_views=ULTRALYTICS_TTA_VIEWS)),
+        ("tta_pose_b1", "pose", 1,
+         dict(tta=True, tta_kpt_flip_idx=COCO17_FLIP))]
+    pipes = {n: build_pipeline(cfgs[m], models[m], batch=b, device=DEVICE,
+                               frame_hw=OBB_FRAME_HW if m == "obb"
+                               else FRAME_HW, **kw).warmup()
+             for n, m, b, kw in specs}
+    built_s = time.perf_counter() - t0
+
+    def inputs(n, b, f=0):
+        src = obb_frames if n.startswith("tta_obb") else frames
+        return src[f:f + b] if b == 1 else src
+
+    # --- the main path, with the launch counters zeroed around it; the
+    # NMS launches' inputs are recorded to be held against the plain
+    # versions afterwards
+    zero_counters()
+    runs = {}
+    with Recorder("nms_select_batched_cuda") as k1, \
+            Recorder("nms_rotated_batched_cuda") as k3:
+        for n, m, b, _ in specs:
+            k1.tag = k3.tag = n
+            for f in range(2):
+                runs[n] = pipes[n](inputs(n, b, f))
+        torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"tasks: launches on the path {launches}", flush=True)
+    k1_batches = sum(2 for n, m, _, _ in specs
+                     if m in ("pose", "v8seg", "seg"))
+    k3_batches = sum(2 for n, m, _, _ in specs if m == "obb")
+    check(launches[K1["name"]] == k1_batches,
+          f"K1 launched {launches[K1['name']]} times over {k1_batches} "
+          "batches of the pose, YOLOv8 and TTA pipelines")
+    check(launches[K3["name"]] == k3_batches,
+          f"K3 launched {launches[K3['name']]} times over {k3_batches} "
+          "obb TTA batches")
+    check(launches[K2["name"]] == launches[K4["name"]] == 0,
+          "K2 or K4 launched on the task paths")
+
+    # --- every output checked: full slates, each pipeline's second run
+    # equal to its decode with the plain NMS on the same raw outputs
+    views = {}
+    for n, m, b, kw in specs:
+        task = cfgs[m].model.task
+        check_task_det(runs[n], b, task, n)
+        if kw:
+            # the views' candidates meet in one NMS launch of width V*A
+            A = cfgs[m].model.num_anchors
+            V = len(kw.get("tta_views", DEFAULT_TTA_VIEWS))
+            rec = (k3 if m == "obb" else k1).calls[n][-1]
+            check(rec[1].shape[-1] == V * A,
+                  f"{n}: NMS ran over {rec[1].shape[-1]} candidates, not "
+                  f"{V} views x {A}")
+            views[n] = torch.bincount(
+                (runs[n]["indices"] // A).flatten().long(),
+                minlength=V).tolist()
+            continue                 # held launch by launch below
+        if task == "classify":
+            continue
+        ref = task_reference(cfgs[m], models[m], inputs(n, b, 1))
+        check(torch.equal(runs[n]["slate"], ref["slate"])
+              and torch.equal(runs[n]["indices"], ref["indices"]),
+              f"{n}: slate differs from the plain NMS on the same outputs")
+        if task == "pose":
+            check(torch.equal(runs[n]["kpts"], ref["kpts"]),
+                  f"{n}: keypoints differ from the plain NMS's")
+    p1 = runs["classify_b1"]["probs"][0]
+    p8 = runs["classify_b8"]["probs"][1]      # frame 1 in both runs
+    err = float((p1 - p8).abs().max())
+    check(err <= CLS_PROB_TOL, f"classify: b=8 row differs from b=1 by {err}")
+    print(f"tasks: every slate full and finite; pose and YOLOv8n-seg equal "
+          f"to the plain NMS on the same raw outputs; classify b=8 against "
+          f"b=1 within {err:.2e}; TTA survivors by view {views}", flush=True)
+
+    # --- the NMS launches of the paths, each held bit for bit
+    k1_cases, k3_cases = [], []
+    for n in ("pose_b8", "tta_seg_b1", "tta_pose_b1"):
+        call = k1.calls[n][-1]
+        K = call[1].shape[-1]
+        k1_cases.append(hold_launch(
+            nk.nms_select_batched_cuda, nk.nms_select_batched_torch, call,
+            f"K1 {n} B={call[1].shape[0]} K={K}", "nms_select",
+            lambda ok, K=K: nms_bound(ok, K)))
+    for n in ("tta_obb_b1", "tta_obb_ultralytics_b1",
+              "tta_obb_ultralytics_b8"):
+        call = k3.calls[n][-1]
+        k3_cases.append(hold_launch(
+            nk.nms_rotated_batched_cuda, nk.nms_rotated_batched_torch, call,
+            f"K3 {n} B={call[1].shape[0]} K={call[1].shape[-1]}",
+            "nms_rotated",
+            lambda ok, rows=call[0], m=call[1]: rotated_bound(rows, m)))
+    check(k3.calls["tta_obb_ultralytics_b1"][-1][1].shape[-1] == 3 * K_OBB,
+          "ULTRALYTICS_TTA_VIEWS did not reach K3 at 3 x 21504")
+    checked_s = time.perf_counter() - t0 - built_s
+
+    # --- timing, host frames in, host slate out
+    numbers = {}
+    for n, m, b, kw in specs:
+        ms = host_ms(pipes[n], inputs(n, b), 20 if b == 1 else 8)
+        row = numbers.setdefault(n.rsplit("_b", 1)[0], {})
+        if b == 1:
+            row["b1_p50_ms"] = statistics.median(ms)
+            row["b1_p95_ms"] = float(np.percentile(ms, 95))
+        else:
+            row["b8_frames_per_s"] = 8 * 1e3 / statistics.mean(ms)
+    timed_s = time.perf_counter() - t0 - built_s - checked_s
+
+    # --- the server: pose and classify at micro-batch 1 and 8
+    serve_launches, serve = {}, {}
+    for task in ("pose", "classify"):
+        counts, serve[task] = serve_task(
+            task, cfgs[task], models[task], pipes[f"{task}_b1"],
+            frames[:SERVE_FRAMES // 2])
+        add_counts(serve_launches, counts)
+    seconds = {"build": built_s, "path and checks": checked_s,
+               "timing": timed_s,
+               "server": time.perf_counter() - t0 - built_s - checked_s
+               - timed_s}
+    seconds["whole phase"] = time.perf_counter() - t0
+    print("tasks: " + json.dumps({
+        "card": smi, "models": {k: {q: round(v, 3) for q, v in d.items()}
+                                for k, d in numbers.items()},
+        "server": {t: {str(mb): {q: round(v, 3) for q, v in d.items()}
+                       for mb, d in v.items()} for t, v in serve.items()},
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}}),
+        flush=True)
+    return {"launches": launches, "serve": serve_launches,
+            "k1_cases": k1_cases, "k3_cases": k3_cases}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -1447,7 +1814,7 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = {}                              # wall seconds per phase
     try:
-        phase_device()
+        smi = phase_device()
         kernels = phase_nms_kernels() + [phase_k4_seeded()]
         seconds["device, kernels"] = time.perf_counter() - t0
         det, seg = phase_segment()
@@ -1474,6 +1841,16 @@ def main() -> int:
             kernels[0]["launches_by_path"][path] = serve[path][K1["name"]]
             kernels[-1]["launches"] += serve[path][K4["name"]]
         print("serve: " + json.dumps(serve["numbers"]), flush=True)
+        tasks = phase_tasks(smi)
+        seconds["tasks"] = time.perf_counter() - t0 - sum(seconds.values())
+        for k, path in ((kernels[0], "tasks"), (kernels[0], "tasks serve"),
+                        (kernels[2], "tasks")):
+            counts = tasks["serve" if path == "tasks serve" else "launches"]
+            k["launches"] += counts[k["name"]]
+            k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
+        kernels[2]["launches_by_path"]["obb"] = obb[K3["name"]]
+        kernels[0]["cases"] += tasks["k1_cases"]
+        kernels[2]["cases"] += tasks["k3_cases"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

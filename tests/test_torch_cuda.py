@@ -25,7 +25,9 @@ from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
 from xrseg_tpu_torch.ops.postprocess import postprocess_obb_batch
 from xrseg_tpu_torch.ops.preprocess import preprocess
-from xrseg_tpu_torch.testing import detection_params
+from xrseg_tpu_torch.testing import detection_params, limit_cpu_threads
+
+limit_cpu_threads()
 
 pytestmark = pytest.mark.cuda
 
@@ -235,6 +237,69 @@ def test_k3_equals_plain(card, case, B, K, cluster):
     _check_nms("nms_rotated", tk.nms_rotated_batched_cuda,
                tk.nms_rotated_batched_torch, (rows, m), B, K, cluster, card,
                0.45)
+
+
+# test-time augmentation concatenates the views' candidates: K1 at
+# 2 x 8400 (640x640, 2 views), K3 at 2 x 21504 and 3 x 21504 (1024x1024,
+# 2 views and ULTRALYTICS_TTA_VIEWS), the last just under K3's limit
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("B", [1, 8])
+def test_k1_at_the_tta_width_equals_plain(card, case, B):
+    K = 16800
+    c, m = (t.to(card) for t in _inputs(B * K + 2, B, K, **CASES[case]))
+    _check_nms("nms_select", tk.nms_select_batched_cuda,
+               tk.nms_select_batched_torch, (c, m), B, K, None, card, 0.45)
+
+
+@pytest.mark.parametrize("case", sorted(ROTATED_CASES))
+@pytest.mark.parametrize("B,K", [(1, 43008), (2, 43008), (1, 64512),
+                                 (2, 64512)])
+def test_k3_at_the_tta_width_equals_plain(card, case, B, K):
+    assert K <= tk.max_candidates("nms_rotated", card)
+    rows, m = (t.to(card) for t in _rotated_inputs(
+        B * K + 3, B, K, **ROTATED_CASES[case]))
+    _check_nms("nms_rotated", tk.nms_rotated_batched_cuda,
+               tk.nms_rotated_batched_torch, (rows, m), B, K, None, card,
+               0.45)
+
+
+FLIP17 = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15)
+
+
+@pytest.mark.parametrize("task,tta", [("pose", False), ("pose", True),
+                                      ("segment", True), ("obb", True)])
+def test_task_and_tta_pipelines_go_through_the_kernels(card, task, tta,
+                                                       monkeypatch):
+    """The pose pipeline launches K1 once a batch, and so do segment and
+    pose with 2-view TTA (K = 2A); obb TTA launches K3 once. Each slate
+    equals the plain NMS's on the same pipeline."""
+    model_cfg = ModelConfig(task=task, input_size=(128, 128),
+                            num_classes=15 if task == "obb" else 80)
+    cfg = ExecutorConfig(model=model_cfg)
+    model = detection_params(torch.Generator().manual_seed(0), model_cfg,
+                             device=card)
+    kw = dict(frame_hw=(96, 128), batch=2, tta=tta,
+              tta_kpt_flip_idx=FLIP17 if task == "pose" and tta else None)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
+                                               np.uint8)
+    kernel = (tk.nms_rotated_batched_cuda if task == "obb"
+              else tk.nms_select_batched_cuda)
+    before = kernel.launches
+    got = build_pipeline(cfg, model, **kw)(frames)
+    assert kernel.launches == before + 1
+    # the plain NMS: pose and obb postprocess take their own backend
+    # argument ("auto"), so the reference forces "scan" underneath
+    for name in ("nms_fixed_batched", "nms_fixed_rotated_batched"):
+        real = getattr(tnms, name)
+        monkeypatch.setattr(tnms, name, lambda *a, _f=real, **k: _f(
+            *a, **dict(k, backend="scan")))
+    ref = build_pipeline(cfg, model, **kw)(frames)
+    assert kernel.launches == before + 1
+    assert torch.equal(got["slate"], ref["slate"])
+    assert torch.equal(got["indices"], ref["indices"])
+    assert int(got["count"].min()) == 50
+    if tta:
+        assert bool((got["indices"] >= model_cfg.num_anchors).any())
 
 
 def _mask_inputs(seed, B, D, hw, input_size):

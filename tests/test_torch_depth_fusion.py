@@ -15,6 +15,9 @@ import torch
 
 from xrseg_tpu.ops import depth_fusion as jdf
 from xrseg_tpu_torch.ops import depth_fusion as tdf
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 ATOL = 1e-5
 FOCAL = np.array([440.0, 440.0], np.float32)

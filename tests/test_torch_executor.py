@@ -32,6 +32,9 @@ from xrseg_tpu_torch.runtime.executor import ExecState, Executor, FrameResult
 from xrseg_tpu_torch.runtime.frame_source import FrameData
 from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 MODEL = dict(scale="n", input_size=(64, 64), dtype="float32")
 POST = dict(pre_nms_topk=64, max_detections=10, score_threshold=1e-7)

@@ -10,6 +10,9 @@ import sys
 from pathlib import Path
 
 import pytest
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "xrseg_tpu_torch"

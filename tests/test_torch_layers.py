@@ -16,6 +16,9 @@ from xrseg_tpu.models import layers as JL
 from xrseg_tpu_torch.io.bridge import state_dict_from_jax
 from xrseg_tpu_torch.models import layers as TL
 from xrseg_tpu_torch.models import yolo11 as TY
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 F32 = torch.float32
 

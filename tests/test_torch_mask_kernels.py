@@ -15,6 +15,9 @@ import torch
 
 from xrseg_tpu.ops import pallas_kernels as pk
 from xrseg_tpu_torch.ops import mask_kernels as mk
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 
 def _inputs(seed, B, D, hw, input_size, nm=32):

@@ -12,6 +12,9 @@ import torch
 
 from xrseg_tpu.ops import masks as jm
 from xrseg_tpu_torch.ops import masks as tm
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 
 def _inputs(seed=0, B=2, D=6, H=12, W=16, nm=8):

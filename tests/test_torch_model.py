@@ -28,6 +28,9 @@ from xrseg_tpu.models import yolo11 as jy
 from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.models import yolo11 as ty
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 SIZE = (64, 96)
 _jax_forward = jax.jit(jy.forward, static_argnames=("cfg", "concat_preds"))
@@ -143,9 +146,22 @@ def test_init_params_is_seeded():
                                     dict(task="classify"),
                                     dict(task="pose", o2o=True)])
 def test_unported_options_refused(change):
+    """These options were refused until the task family was ported. Now
+    yolov8, pose and classify build and load the JAX init's structure
+    strictly, and pose with the one-to-one head is a ValueError, as JAX
+    raises it."""
     cfg = dataclasses.replace(ModelConfig(input_size=(64, 64)), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ty.YOLO11(cfg)
+    jcfg = dataclasses.replace(JModelConfig(input_size=(64, 64)), **change)
+    if change.get("o2o"):
+        with pytest.raises(ValueError) as jerr:
+            jax.eval_shape(lambda k: jy.init_params(k, jcfg),
+                           jax.random.key(0))
+        with pytest.raises(ValueError) as terr:
+            ty.YOLO11(cfg)
+        assert str(terr.value) == str(jerr.value)
+        return
+    model = params_from_jax(_jax_params(jcfg), cfg)     # strict load
+    assert model.cfg == cfg
 
 
 def test_forward_rejects_wrong_input_size():

@@ -17,6 +17,9 @@ from xrseg_tpu.ops import nms as jnms
 from xrseg_tpu.ops import pallas_kernels as pk
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 
 def _scene(seed, B, K, *, ties=False, zero_area=False, empty_rows=(),

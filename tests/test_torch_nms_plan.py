@@ -12,14 +12,18 @@ versions' results is tests/test_torch_cuda.py's part, on the card.
 import pytest
 
 from xrseg_tpu_torch.ops import nms_kernels as tk
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 SM_COUNT, SMEM_OPTIN = 132, 232448
 ROOM = {1: 132, 2: 66, 4: 30, 8: 15}
 BUDGET = SMEM_OPTIN - tk.STATIC_SMEM_RESERVE
 KERNELS = sorted(tk.BYTES_PER_CANDIDATE)
 BATCHES = [1, 8, 16, 17, 32, 128, 133]
-# "max": the largest K the kernel takes on this card
-WIDTHS = [1, 33, 257, 1024, 8399, 8400, 21504, "max"]
+# "max": the largest K the kernel takes on this card; 16800, 43008 and
+# 64512 are test-time augmentation's 2 x 8400, 2 x 21504 and 3 x 21504
+WIDTHS = [1, 33, 257, 1024, 8399, 8400, 16800, 21504, 43008, 64512, "max"]
 
 
 def _k(what, K):
@@ -75,7 +79,13 @@ def test_plan(what, B, K):
     ("nms_select", 1, 1025, 8), ("nms_select", 128, 21504, 2),
     ("nms_rotated", 1, 21504, 8), ("nms_rotated", 16, 21504, 8),
     ("nms_rotated", 32, 21504, 4), ("nms_rotated", 128, 21504, 4),
-    ("nms_rotated", 128, 8400, 2), ("nms_rotated", 133, 1024, 1)])
+    ("nms_rotated", 128, 8400, 2), ("nms_rotated", 133, 1024, 1),
+    # test-time augmentation: K1 at 2 x 8400, K3 at 2 and 3 x 21504 (the
+    # last needs all 8 blocks of a cluster at any batch)
+    ("nms_select", 1, 16800, 8), ("nms_select", 8, 16800, 8),
+    ("nms_rotated", 1, 43008, 8), ("nms_rotated", 8, 43008, 8),
+    ("nms_rotated", 1, 64512, 8), ("nms_rotated", 8, 64512, 8),
+    ("nms_rotated", 32, 64512, 8)])
 def test_plan_at_the_main_shapes(what, B, K, cluster):
     assert tk.launch_plan(what, B, K, SM_COUNT, SMEM_OPTIN,
                           ROOM)[0] == cluster

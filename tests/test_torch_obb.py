@@ -33,7 +33,9 @@ from xrseg_tpu_torch.models import yolo11 as ty
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
 from xrseg_tpu_torch.ops import postprocess as tpost
-from xrseg_tpu_torch.testing import detection_params
+from xrseg_tpu_torch.testing import detection_params, limit_cpu_threads
+
+limit_cpu_threads()
 
 SIZE = (64, 96)
 MODEL = dict(task="obb", num_classes=15, input_size=SIZE, dtype="float32")

@@ -33,6 +33,9 @@ from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11 as ty
 from xrseg_tpu_torch.ops import masks as tmasks
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 MODEL = dict(input_size=(64, 64), dtype="float32")
 POST = dict(iou_threshold=0.6, score_threshold=0.3)

@@ -26,6 +26,9 @@ from xrseg_tpu_torch import compile as tcompile
 from xrseg_tpu_torch import config as tconfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.ops import postprocess as tpost
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 MODEL = dict(input_size=(64, 64), dtype="float32")
 POST = dict(iou_threshold=0.6, score_threshold=0.3)
@@ -150,15 +153,27 @@ def test_unpack_slate_round_trip(weights):
 
 @pytest.mark.parametrize("option", [
     dict(), dict(input_format="yuv420"),
-    dict(mask_display_hw=(480, 640)), dict(params_dtype="bfloat16")])
-def test_unported_options_refused(option):
-    """tta stays refused (ROADMAP item 9), whichever of the ported options
-    comes with it."""
-    _, tcfg = _configs()
-    model = tcompile.yolo11.YOLO11(tcfg.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tcompile.build_pipeline(tcfg, model, device="cpu", tta=True,
-                                **option)
+    dict(mask_display_hw=(48, 64)), dict(params_dtype="bfloat16")])
+def test_unported_options_refused(option, weights):
+    """tta was refused until it was ported; now tta with each of the
+    ported options matches the JAX pipeline (2 views, masks from each
+    survivor's own view)."""
+    jcfg, tcfg = _configs()
+    frames = _frames(2, seed=3)
+    if option.get("input_format") == "yuv420":
+        from xrseg_tpu_torch.ops.yuv import rgb_to_yuv420_numpy
+        planes = rgb_to_yuv420_numpy(frames)
+        jin, tin = tuple(jnp.asarray(p) for p in planes), planes
+    else:
+        jin, tin = jnp.asarray(frames), frames
+    j = jcompile.build_pipeline(jcfg, weights, frame_hw=(48, 64), batch=2,
+                                tta=True, **option)(jin)
+    t = tcompile.build_pipeline(tcfg, params_from_jax(weights, tcfg.model),
+                                frame_hw=(48, 64), batch=2, device="cpu",
+                                tta=True, **option)(tin)
+    assert int(t["count"].min()) == 50
+    assert set(t) == set(jax.device_get(j))
+    _assert_det_close(t, j, ["coefs", "masks"])
 
 
 def test_wbf_merge_refused():

@@ -13,6 +13,9 @@ import torch
 
 from xrseg_tpu.ops import preprocess as jpre
 from xrseg_tpu_torch.ops import preprocess as tpre
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 
 def _frames(shape, seed=0):

@@ -12,6 +12,9 @@ import torch
 from xrseg_tpu.ops.relock import relock_match as j_relock
 from xrseg_tpu_torch.ops.relock import relock_match as t_relock
 from xrseg_tpu_torch.perception.tracking import TargetTracker, parse_boxes
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 NAMES = [f"c{i}" for i in range(6)]
 MODEL = (64.0, 64.0)

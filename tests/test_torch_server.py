@@ -33,6 +33,11 @@ from xrseg_tpu_torch.compile import build_pipeline
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.runtime.server import (InferenceServer, rle_decode,
                                             rle_encode)
+from xrseg_tpu_torch.testing import limit_cpu_threads
+from xrseg_tpu_torch.viz.labels import COCO_LABELS
+from torch_parity import detecting_tree
+
+limit_cpu_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = dict(scale="n", input_size=(64, 64), dtype="float32")
@@ -320,11 +325,85 @@ def test_overload_sheds_unbatched_path(weights):
 
 
 def test_mesh_and_unported_tasks_refused(weights):
+    """The mesh is still refused (ROADMAP item 10); pose and classify,
+    refused until the task family was ported, now serve."""
     with pytest.raises(NotImplementedError, match="item 10"):
         InferenceServer(_cfg(), params=weights[1], port=0,
                         mesh_shape={"data": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceServer(_cfg(task="pose"), port=0, device="cpu")
+    for task in ("pose", "classify"):
+        srv = InferenceServer(_cfg(task=task), port=0, device="cpu").start()
+        try:
+            out = _post(srv, _npy(_img(40)))
+            assert _get(srv, "/healthz")["task"] == task
+        finally:
+            srv.close()
+        if task == "pose":
+            assert all(len(d["kpts"]) == 17 for d in out["detections"])
+        else:
+            assert len(out["probs"]) == 80
+            assert out["class_name"] == COCO_LABELS[out["label"]]
+
+
+@pytest.mark.parametrize("task", ["pose", "classify"])
+def test_task_answers_equal_the_jax_server(task):
+    """Pose and classify answers against the JAX server's on the same
+    weights and frames (frame_hw 48x80, so the keypoints are scaled by
+    the stretch's two factors), from a micro-batch-4 server under four
+    concurrent clients: the keypoints of a batch come back in one copy.
+    Pose: count, labels equal, scores 2e-4, boxes and keypoint xy 2e-2
+    px, visibility 2e-3 (rounded to 4, 2 and 3 decimals). Classify: the
+    label and class name equal, every prob within 2e-5 (5 decimals)."""
+    tree = detecting_tree(jconfig.ModelConfig(**dict(MODEL, task=task)),
+                          label=3)
+    jsrv = jserver.InferenceServer(_cfg(jconfig, task=task), params=tree,
+                                   frame_hw=(48, 80), port=0).start()
+    tsrv = InferenceServer(_cfg(task=task),
+                           params=params_from_jax(
+                               tree, tconfig.ModelConfig(
+                                   **dict(MODEL, task=task))),
+                           frame_hw=(48, 80), port=0, micro_batch=4,
+                           batch_window_ms=150.0, device="cpu").start()
+    try:
+        imgs = [_npy(np.random.default_rng(50 + i).integers(
+            0, 255, (48, 80, 3), np.uint8)) for i in range(4)]
+        want = [_post(jsrv, im) for im in imgs]
+        got = [None] * len(imgs)
+
+        def worker(i):
+            got[i] = _post(tsrv, imgs[i])
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(imgs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=DEADLINE_S)
+        assert not any(t.is_alive() for t in threads)
+        assert any(int(k) > 1 for k in _get(tsrv, "/stats")["batch_hist"])
+        for t, j in zip(got, want):
+            assert set(t) == set(j)
+            if task == "classify":
+                assert (t["label"], t["class_name"]) == (j["label"],
+                                                         j["class_name"])
+                np.testing.assert_allclose(t["probs"], j["probs"],
+                                           atol=2e-5, rtol=0)
+                continue
+            assert t["count"] == j["count"] == 10
+            for a, b in zip(t["detections"], j["detections"]):
+                assert set(a) == set(b)
+                assert (a["label"], a["class_name"]) == (b["label"],
+                                                         b["class_name"])
+                assert abs(a["score"] - b["score"]) <= 2e-4
+                np.testing.assert_allclose(a["box_xywh"], b["box_xywh"],
+                                           atol=2e-2, rtol=0)
+                ka, kb = np.asarray(a["kpts"]), np.asarray(b["kpts"])
+                np.testing.assert_allclose(ka[:, :2], kb[:, :2], atol=2e-2,
+                                           rtol=0)
+                np.testing.assert_allclose(ka[:, 2], kb[:, 2], atol=2e-3,
+                                           rtol=0)
+    finally:
+        jsrv.close()
+        tsrv.close()
 
 
 def test_rle_matches_jax():
@@ -373,6 +452,33 @@ def test_answer_equals_the_jax_server(weights):
     finally:
         jsrv.close()
         tsrv.close()
+
+
+def test_cli_arch_flag_serves_yolov8_classify():
+    """--arch yolov8 --task classify: the CLI builds v8-cls (no SPPF) and
+    answers with a prob row."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "xrseg_tpu_torch.runtime.server",
+         "--device", "cpu", "--port", "0", "--frame-hw", "64", "64",
+         "--arch", "yolov8", "--task", "classify", "--classes", "10"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://"), (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        url = line.split()[2]
+        with urllib.request.urlopen(url + "/healthz",
+                                    timeout=DEADLINE_S) as r:
+            assert json.loads(r.read())["task"] == "classify"
+        req = urllib.request.Request(url + "/infer", data=_npy(_img(41)),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=DEADLINE_S) as r:
+            out = json.loads(r.read())
+        assert len(out["probs"]) == 10 and 0 <= out["label"] < 10
+        assert abs(sum(out["probs"]) - 1.0) < 1e-3
+    finally:
+        proc.terminate()
+        proc.wait(timeout=DEADLINE_S)
 
 
 def test_cli_serves_healthz_on_the_cpu():

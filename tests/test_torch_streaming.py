@@ -37,6 +37,10 @@ from xrseg_tpu_torch.runtime.executor import Executor
 from xrseg_tpu_torch.runtime.frame_source import FrameData
 from xrseg_tpu_torch.runtime.streaming import (PipelinedTickRunner,
                                                ReadbackSlots, StreamingRunner)
+from xrseg_tpu_torch.testing import limit_cpu_threads
+from torch_parity import detecting_tree
+
+limit_cpu_threads()
 
 MODEL = dict(scale="n", input_size=(64, 64), dtype="float32")
 POST = dict(pre_nms_topk=64, max_detections=10, score_threshold=1e-7)
@@ -149,6 +153,43 @@ def test_streaming_equals_direct_calls_in_order(weights, depth, B):
         assert r.latency_s >= 0 and "slate" in r.device_out
     s = runner.tracer.summary()
     assert s["dispatch"]["count"] == s["readback"]["count"] == len(batches)
+
+
+@pytest.mark.parametrize("task", ["pose", "classify"])
+def test_streaming_task_slates_match_jax_runner(task):
+    """StreamingRunner over pose and classify pipelines against the JAX
+    package's runner on the same weights and frames, depth 2, b=2: the
+    same results in the same order (classify yields {"probs": row});
+    labels, valid and count equal, boxes 1e-3 px, scores and probs
+    1e-5."""
+    tree = detecting_tree(jconfig.ModelConfig(**dict(MODEL, task=task)))
+    jcfg = jconfig.ExecutorConfig(
+        model=jconfig.ModelConfig(**dict(MODEL, task=task)),
+        post=jconfig.PostprocessConfig(**POST))
+    tcfg = tconfig.ExecutorConfig(
+        model=tconfig.ModelConfig(**dict(MODEL, task=task)),
+        post=tconfig.PostprocessConfig(**POST))
+    from xrseg_tpu.compile import build_pipeline as jbuild
+    batches = [np.random.default_rng(60 + i).integers(
+        0, 255, (2, 64, 64, 3), np.uint8) for i in range(3)]
+    want = list(jstreaming.StreamingRunner(
+        jbuild(jcfg, tree, batch=2), depth=2).run(iter(batches)))
+    got = list(StreamingRunner(build_pipeline(
+        tcfg, params_from_jax(tree, tcfg.model), batch=2, device="cpu"),
+        depth=2).run(iter(batches)))
+    assert [r.frame_id for r in got] == [r.frame_id for r in want]
+    for t, j in zip(got, want):
+        assert set(t.slate) == set(j.slate)
+        for k in t.slate:
+            a, b = np.asarray(t.slate[k]), np.asarray(j.slate[k])
+            if k in ("labels", "valid", "count"):
+                np.testing.assert_array_equal(a, b, err_msg=k)
+            else:
+                np.testing.assert_allclose(a, b, atol=1e-3 if "box" in k
+                                           else 1e-5, rtol=0, err_msg=k)
+    if task == "pose":
+        assert min(np.asarray(r.slate["count"]).min() for r in got) == 10
+        assert tuple(got[0].device_out["kpts"].shape) == (2, 10, 17, 3)
 
 
 def test_streaming_run_and_guards(weights):

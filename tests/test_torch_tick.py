@@ -26,6 +26,9 @@ from xrseg_tpu_torch import compile as tcompile
 from xrseg_tpu_torch import config as tconfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.models import yolo11 as ty
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 MODEL = dict(input_size=(64, 64), dtype="float32")
 POST = dict(pre_nms_topk=64, max_detections=10, score_threshold=1e-7)

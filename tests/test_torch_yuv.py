@@ -26,6 +26,9 @@ from xrseg_tpu_torch import config as tconfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.ops import preprocess as tpre
 from xrseg_tpu_torch.ops import yuv as tyuv
+from xrseg_tpu_torch.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 MODEL = dict(input_size=(64, 64), dtype="float32")
 POST = dict(iou_threshold=0.6, score_threshold=0.3)

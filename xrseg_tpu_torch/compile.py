@@ -12,10 +12,15 @@ crop_masks, emit_masks "all"/"none", mask_dtype, batch and frame_hw; rgb
 or planar yuv420 input; masks upsampled to a display size
 (mask_display_hw); weight storage in bfloat16 (params_dtype, cast once
 at build); the NMS-free one-to-one head (ModelConfig.o2o); the obb task
-(rotated NMS; the slate carries 5-wide boxes_xywhr); and the fused XR
-tick (`build_xr_tick_pipeline`: frame, re-lock, target mask and RGBD
-fusion as one program with one packed readback). tta and merge="wbf"
-raise NotImplementedError naming their ROADMAP item.
+(rotated NMS; the slate carries 5-wide boxes_xywhr); the pose task (its
+slate is the box slate, the survivors' keypoints ride beside it as
+det["kpts"]); the classify task (its slate IS the [B, nc] prob row);
+both archs; test-time augmentation (tta, tta_views, tta_kpt_flip_idx:
+every view in ONE batched forward, the candidates of all views in ONE
+NMS call); and the fused XR tick (`build_xr_tick_pipeline`: frame,
+re-lock, target mask and RGBD fusion as one program with one packed
+readback). merge="wbf" and the ensemble pipeline raise
+NotImplementedError naming ROADMAP item 9.
 
 Every pipeline owns a `device.Readback` (one pinned host buffer, one copy
 stream) of its slate's or packed output's length; the executor starts it
@@ -26,7 +31,8 @@ frame from `runtime/streaming.ReadbackSlots` of their own.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,12 +44,14 @@ from xrseg_tpu_torch.io.weights import cast_params
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.ops import preprocess as pre_ops
+from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops.masks import (select_row, synthesize_one_mask,
                                        upsample_masks)
 from xrseg_tpu_torch.ops.postprocess import (_check_merge,
                                              postprocess_batch_parts,
                                              postprocess_o2o_batch,
-                                             postprocess_obb_batch)
+                                             postprocess_obb_batch,
+                                             postprocess_pose_batch)
 from xrseg_tpu_torch.ops.relock import relock_match
 from xrseg_tpu_torch.ops.yuv import yuv420_to_rgb
 from xrseg_tpu_torch.precision import precision_scope
@@ -63,6 +71,8 @@ class CompiledPipeline:
     readback: Optional[Readback] = None     # of the [B, L] slate
     input_format: str = "rgb"
     mask_display_hw: Optional[Tuple[int, int]] = None
+    tta_views: Optional[Tuple[Tuple[float, bool], ...]] = None  # None: off
+    tta_kpt_flip_idx: Optional[Tuple[int, ...]] = None
 
     def __call__(self, frames) -> Dict[str, torch.Tensor]:
         """frames: uint8 [B,H,W,3], or with input_format="yuv420" a tuple
@@ -77,6 +87,12 @@ class CompiledPipeline:
                 x = to_device(frames, self.device)
             x = pre_ops.preprocess(x, mcfg.input_size, mode=self.resize_mode,
                                    dtype=getattr(torch, mcfg.dtype))
+            if self.tta_views is not None:
+                return _decode_tta(
+                    self.params, x, mcfg, self.cfg.post,
+                    crop_masks=self.crop_masks, mask_dtype=self.mask_dtype,
+                    mask_display_hw=self.mask_display_hw,
+                    kpt_flip_idx=self.tta_kpt_flip_idx, views=self.tta_views)
             out = self.params(x, concat_preds=False)
             return decode_task_outputs(
                 out, mcfg, self.cfg.post, crop_masks=self.crop_masks,
@@ -112,6 +128,8 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
                    emit_masks: str = "all",
                    mask_display_hw: Optional[Tuple[int, int]] = None,
                    tta: bool = False,
+                   tta_kpt_flip_idx: Optional[Sequence[int]] = None,
+                   tta_views: Optional[Sequence[Tuple[float, bool]]] = None,
                    device="cuda") -> CompiledPipeline:
     """Bind `params` (a YOLO11 module, moved to `device`) into a pipeline
     for frames [batch, frame_h, frame_w, 3] uint8.
@@ -128,7 +146,18 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     emit_masks "all" materialises every survivor's [h,w] mask; "none" is
     the coefs-only mode (the slate carries coefs and protos instead).
     mask_display_hw (with emit_masks "all") resizes the masks to that
-    (H, W) on the device, bilinearly (ops/masks.upsample_masks)."""
+    (H, W) on the device, bilinearly (ops/masks.upsample_masks).
+
+    tta=True: test-time augmentation, by default 2 views (identity and
+    horizontal flip; `tta_views` gives (scale, flip) pairs instead,
+    ULTRALYTICS_TTA_VIEWS upstream's three). Every view rides ONE
+    [V*B, ...] forward; flipped views are mirrored back (obb: angle
+    negated; pose: keypoints mirrored, then permuted by tta_kpt_flip_idx,
+    the skeleton's left/right joint permutation), scaled views divided by
+    their scale, and the candidates of all views concatenate along the
+    anchor axis (A -> V*A) before one NMS call. Segment survivors
+    synthesize their masks against the protos of their own view (flipped
+    protos flipped back). The validations are the JAX package's."""
     if emit_masks not in ("all", "none"):
         raise ValueError(f"emit_masks {emit_masks!r}: expected 'all'|'none'")
     if mask_display_hw is not None and emit_masks != "all":
@@ -136,25 +165,179 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     if input_format not in ("rgb", "yuv420"):
         raise ValueError(f"unknown input_format {input_format!r}")
     if tta:
-        raise NotImplementedError("tta is not ported yet (ROADMAP queue 1, "
-                                  "item 9: accuracy modes)")
+        _check_tta(cfg.model, emit_masks, tta_kpt_flip_idx, tta_views)
     _check_merge(cfg.post)
     params = _bind_params(cfg, params, params_dtype)
     dev = resolve_device(device)
     B = batch or cfg.batch_size
     fh, fw = frame_hw or cfg.model.input_size
-    bd = 5 if cfg.model.task == "obb" else 4
     return CompiledPipeline(cfg=cfg, params=params.to(dev).eval(),
                             input_shape=(B, fh, fw, 3), device=dev,
                             resize_mode=resize_mode, crop_masks=crop_masks,
                             mask_dtype=getattr(torch, mask_dtype),
                             emit_masks=emit_masks,
                             readback=Readback(
-                                B * slate_length(cfg.post.max_detections, bd),
-                                dev),
+                                B * task_slate_length(
+                                    cfg.model, cfg.post.max_detections), dev),
                             input_format=input_format,
                             mask_display_hw=(None if mask_display_hw is None
-                                             else tuple(mask_display_hw)))
+                                             else tuple(mask_display_hw)),
+                            tta_views=((tuple(tta_views) if tta_views
+                                        else DEFAULT_TTA_VIEWS)
+                                       if tta else None),
+                            tta_kpt_flip_idx=(
+                                None if tta_kpt_flip_idx is None
+                                else tuple(int(i) for i in tta_kpt_flip_idx)))
+
+
+def _check_tta(mcfg: ModelConfig, emit_masks: str, kpt_flip_idx,
+               views) -> None:
+    """build_pipeline(tta=True)'s checks, word for word the JAX
+    package's."""
+    if mcfg.task == "classify":
+        raise ValueError("tta unsupported for task 'classify'"
+                         " (nothing to merge pre-NMS)")
+    if mcfg.o2o:
+        raise ValueError(
+            "tta is incompatible with o2o (NMS-free) serving: "
+            "multi-view candidates NEED a merge step (NMS/WBF). "
+            "Serve the same checkpoint's classic path instead: "
+            "replace(cfg.model, o2o=False)")
+    if mcfg.task == "pose" and kpt_flip_idx is None:
+        raise ValueError("pose tta needs tta_kpt_flip_idx: the"
+                         " skeleton's left/right joint permutation"
+                         " under a mirror is model-specific (COCO-17:"
+                         " TrainConfig's kpt_flip_idx values)")
+    if kpt_flip_idx is not None and \
+            sorted(kpt_flip_idx) != list(range(mcfg.kpt_shape[0])):
+        raise ValueError("tta_kpt_flip_idx must be a permutation of"
+                         f" range({mcfg.kpt_shape[0]})")
+    if mcfg.task == "segment" and emit_masks != "all":
+        raise ValueError("tta segment requires emit_masks='all' (the"
+                         " coefs-only contract has one protos tensor;"
+                         " TTA candidates pair with per-view protos)")
+    if views is not None:
+        if not views or any(not (0.0 < s <= 1.0) for s, _ in views):
+            raise ValueError("tta_views scales must lie in (0, 1]")
+        if mcfg.task in ("segment", "pose") and any(
+                s != 1.0 for s, _ in views):
+            raise ValueError(f"scaled tta views are detect/obb-only"
+                             f" ({mcfg.task} protos/keypoints"
+                             " don't unscale exactly)")
+
+
+DEFAULT_TTA_VIEWS: Tuple[Tuple[float, bool], ...] = ((1.0, False),
+                                                     (1.0, True))
+# ultralytics augment=True runs scales (1, 0.83-flipped, 0.67); detect and
+# obb take these through tta_views (each scaled view is letterboxed top
+# left into the same canvas, gray fill, so all views keep one shape)
+ULTRALYTICS_TTA_VIEWS: Tuple[Tuple[float, bool], ...] = (
+    (1.0, False), (0.83, True), (0.67, False))
+
+
+@functools.lru_cache(maxsize=8)
+def _flip_index_on(idx: Tuple[int, ...], device: torch.device
+                   ) -> torch.Tensor:
+    """The keypoint flip permutation on `device`, uploaded once."""
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+def _decode_tta(model: yolo11.YOLO11, x: torch.Tensor, mcfg: ModelConfig,
+                pcfg: PostprocessConfig, *, crop_masks: bool, mask_dtype,
+                mask_display_hw, kpt_flip_idx, views
+                ) -> Dict[str, torch.Tensor]:
+    """The multi-view forward, merge and decode of build_pipeline(tta=True).
+    x: preprocessed [B,H,W,3] in the compute dtype."""
+    H, W = mcfg.input_size
+    B = x.shape[0]
+
+    def make_view(scale, flip):
+        xv = x
+        if scale != 1.0:
+            sh, sw = int(round(H * scale)), int(round(W * scale))
+            xv = torch.full_like(x, 114.0 / 255.0)
+            xv[:, :sh, :sw] = pre_ops.resize_bilinear(x, (sh, sw))
+        return xv.flip(2) if flip else xv
+
+    out = model(torch.cat([make_view(s, f) for s, f in views]),
+                concat_preds=False)
+
+    def per_view(v):
+        return v.split(B)
+
+    cls_parts = per_view(out["cls_logits"])
+    cls_logits = torch.cat(cls_parts, 1)                  # [B,VA,nc]
+    A = cls_parts[0].shape[1]
+
+    if mcfg.task == "pose":
+        flip_idx = _flip_index_on(kpt_flip_idx, x.device)  # checked at build
+        bs, ks = [], []
+        for (scale, flip), b, k in zip(views, per_view(out["boxes_xywh"]),
+                                       per_view(out["kpts"])):
+            if flip:
+                b = torch.cat([W - b[..., 0:1], b[..., 1:]], -1)
+                k = torch.cat([W - k[..., 0:1], k[..., 1:]], -1)
+                k = k.index_select(2, flip_idx)
+            bs.append(b / scale)
+            ks.append(torch.cat([k[..., :2] / scale, k[..., 2:]], -1))
+        det = postprocess_pose_batch(torch.cat(bs, 1), cls_logits,
+                                     torch.cat(ks, 1), pcfg,
+                                     scores_are_logits=True)
+        det["slate"] = pack_slate(det, pcfg.max_detections)
+        return det
+
+    if mcfg.task == "obb":
+        bs = []
+        for (scale, flip), b in zip(views, per_view(out["boxes_xywhr"])):
+            if flip:
+                b = torch.cat([W - b[..., 0:1], b[..., 1:4], -b[..., 4:5]],
+                              -1)
+            bs.append(torch.cat([b[..., :4] / scale, b[..., 4:]], -1))
+        det = postprocess_obb_batch(torch.cat(bs, 1), cls_logits, pcfg,
+                                    scores_are_logits=True)
+        det["slate"] = pack_slate(det, pcfg.max_detections)
+        return det
+
+    bs = []
+    for (scale, flip), b in zip(views, per_view(out["boxes_xywh"])):
+        if flip:
+            b = torch.cat([W - b[..., 0:1], b[..., 1:]], -1)
+        bs.append(b / scale)
+    coefs_all = view_protos = None
+    if mcfg.task == "segment":
+        coefs_all = torch.cat(per_view(out["mask_coefs"]), 1)
+        view_protos = [p.flip(2) if flip else p
+                       for (_, flip), p in zip(views,
+                                               per_view(out["protos"]))]
+    det = postprocess_batch_parts(
+        torch.cat(bs, 1), cls_logits, coefs_all,
+        view_protos[0] if view_protos else None, pcfg, False,
+        mcfg.input_size, mask_dtype=mask_dtype, scores_are_logits=True,
+        with_masks=False)
+    if view_protos is not None:
+        det.pop("protos", None)
+        coefs = det["coefs"].to(mask_dtype)
+        view_idx = (det["indices"] // A)[..., None, None]   # [B,D,1,1]
+        m = mask_ops.synthesize_masks(coefs, view_protos[0].to(mask_dtype))
+        for vi in range(1, len(views)):
+            mv = mask_ops.synthesize_masks(coefs,
+                                           view_protos[vi].to(mask_dtype))
+            m = torch.where(view_idx == vi, mv, m)
+        if crop_masks:
+            m = mask_ops.crop_masks(m, det["boxes_xywh"], mcfg.input_size)
+        if mask_display_hw is not None:
+            m = upsample_masks(m, mask_display_hw)
+        det["masks"] = m.to(mask_dtype)
+    det["slate"] = pack_slate(det, pcfg.max_detections)
+    return det
+
+
+def build_ensemble_pipeline(*args, **kwargs):
+    """The JAX package's model ensemble (every checkpoint's candidates in
+    one merge, normally WBF) is not ported yet."""
+    raise NotImplementedError(
+        "the ensemble pipeline is not ported yet (ROADMAP queue 1, item 9: "
+        "accuracy modes, ops/wbf.py)")
 
 
 def _bind_params(cfg: ExecutorConfig, params, params_dtype
@@ -177,12 +360,21 @@ def decode_task_outputs(out, mcfg: ModelConfig, pcfg: PostprocessConfig, *,
                         mask_display_hw: Optional[Tuple[int, int]] = None
                         ) -> Dict[str, torch.Tensor]:
     """Raw forward outputs (concat_preds=False) -> the detection dict with
-    the packed slate. The obb branch, like the JAX one, leaves the NMS
-    backend to postprocess_obb_batch's own "auto" (K3 on CUDA tensors);
+    the packed slate. The obb and pose branches, like the JAX ones, leave
+    the NMS backend to their postprocess's own "auto" (K3 and K1 on CUDA
+    tensors); classify returns logits and probs, its slate the prob row;
     outputs of the one-to-one head (ModelConfig.o2o) take the NMS-free
     selection. mask_display_hw resizes the masks last."""
     yolo11.check_supported(mcfg)
-    if mcfg.task == "obb":
+    if mcfg.task == "classify":
+        # the classify slate IS the prob row
+        return {"logits": out["logits"], "probs": out["probs"],
+                "slate": out["probs"]}
+    if mcfg.task == "pose":
+        det = postprocess_pose_batch(out["boxes_xywh"], out["cls_logits"],
+                                     out["kpts"], pcfg,
+                                     scores_are_logits=True)
+    elif mcfg.task == "obb":
         det = postprocess_obb_batch(out["boxes_xywhr"], out["cls_logits"],
                                     pcfg, scores_are_logits=True)
     else:
@@ -220,6 +412,14 @@ def slate_length(max_det: int, box_dim: int = 4) -> int:
     """Floats in one image's slate row: boxes | scores | labels | valid |
     count."""
     return max_det * (box_dim + 3) + 1
+
+
+def task_slate_length(mcfg: ModelConfig, max_det: int) -> int:
+    """Floats in one image's slate row for mcfg's task: the prob row's nc
+    for classify, else slate_length with 5-wide boxes for obb."""
+    if mcfg.task == "classify":
+        return mcfg.num_classes
+    return slate_length(max_det, 5 if mcfg.task == "obb" else 4)
 
 
 def unpack_slate(slate_row, max_det: int, box_dim: int = 4

@@ -19,16 +19,15 @@ class ModelConfig:
     prototypes at 160x160.
     """
     scale: str = "n"                 # one of n / s / m / l / x
-    # "yolo11" is ported; "yolov8" is refused (ROADMAP queue 1, task family)
-    arch: str = "yolo11"
+    arch: str = "yolo11"             # "yolo11" | "yolov8"
     num_classes: int = 80
     num_masks: int = 32              # mask coefficients (segmentation only)
     reg_max: int = 16                # DFL bins per box side
     input_size: Tuple[int, int] = (640, 640)   # (H, W)
-    # "segment" | "detect" | "obb" are ported; pose / classify are refused
+    # "segment" | "detect" | "obb" | "pose" | "classify"
     task: str = "segment"
     kpt_shape: Tuple[int, int] = (17, 3)   # pose: (num_kpts, dims)
-    # NMS-free one-to-one head: refused (ROADMAP queue 1, segment options)
+    # NMS-free one-to-one head beside the detect head (detect / segment)
     o2o: bool = False
     dtype: str = "bfloat16"          # compute dtype of the network
     param_dtype: str = "float32"

@@ -12,6 +12,8 @@ key by joining its parts with dots; only the leaves change layout:
   "b"                       -> "bias"
   "up_w" [kH,kW,I,O]        -> "up_w" [I,O,kH,kW]          (2, 3, 0, 1)
   "up_b"                    -> "up_b"
+  "lin_w" [1280, nc], "lin_b" (the classify head's linear layer) keep
+  their names and layout
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.models.yolo11 import YOLO11
 
 _LEAVES = {"w": ("weight", (3, 2, 0, 1)), "b": ("bias", None),
-           "up_w": ("up_w", (2, 3, 0, 1)), "up_b": ("up_b", None)}
+           "up_w": ("up_w", (2, 3, 0, 1)), "up_b": ("up_b", None),
+           "lin_w": ("lin_w", None), "lin_b": ("lin_b", None)}
 
 
 def state_dict_from_jax(tree: Any) -> Dict[str, torch.Tensor]:

@@ -33,7 +33,8 @@ _SEP = "/"
 # state-dict leaf -> (pytree leaf, permutation into the JAX layout): the
 # inverse of io/bridge.py's table
 _TO_JAX = {"weight": ("w", (2, 3, 1, 0)), "bias": ("b", None),
-           "up_w": ("up_w", (2, 3, 0, 1)), "up_b": ("up_b", None)}
+           "up_w": ("up_w", (2, 3, 0, 1)), "up_b": ("up_b", None),
+           "lin_w": ("lin_w", None), "lin_b": ("lin_b", None)}
 
 
 def params_to_tree(model: YOLO11) -> Tree:
@@ -113,7 +114,8 @@ def load_npz(path: str, cfg: ModelConfig) -> YOLO11:
 
 def quantize_int8(params: Tree) -> Tree:
     """Per-output-channel symmetric int8 for every 4-d "w"/"up_w" leaf of
-    a pytree (a YOLO11 module is converted first). Biases stay float32.
+    a pytree (a YOLO11 module is converted first). Biases and the classify
+    head's 2-d lin_w stay float32.
     Returns a pytree with {q: int8, scale: f32} nodes in their place."""
     if isinstance(params, YOLO11):
         params = params_to_tree(params)
@@ -171,11 +173,12 @@ def cast_params(model: YOLO11, dtype) -> YOLO11:
     """A copy of `model` with its weights stored in `dtype` ("float32" or
     "bfloat16"): the cast happens once here, not at every call.
 
-    Biases are rounded to `dtype` as the JAX package's cast rounds every
-    float leaf, but kept in float32 storage: the layers add them in
-    float32, so the numbers are the JAX ones and the add needs no cast at
-    run time. A weight already in the compute dtype is used as it is
-    (`Tensor.to` of the same dtype launches nothing)."""
+    Every other float parameter (the biases, the classify head's lin_w and
+    lin_b) is rounded to `dtype` as the JAX package's cast rounds every
+    float leaf, but kept in float32 storage: the layers use them in
+    float32, so the numbers are the JAX ones and need no cast at run time.
+    A weight already in the compute dtype is used as it is (`Tensor.to`
+    of the same dtype launches nothing)."""
     dt = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"params_dtype {dtype!r}: expected 'float32' or "
@@ -183,16 +186,12 @@ def cast_params(model: YOLO11, dtype) -> YOLO11:
     out = copy.deepcopy(model)
     with torch.no_grad():
         for m in out.modules():
-            if isinstance(m, L.Conv):
-                pairs = (("weight", "bias"),)
-            elif isinstance(m, L.Proto):
-                pairs = (("up_w", "up_b"),)
-            else:
-                continue
-            for w, b in pairs:
-                setattr(m, w, torch.nn.Parameter(getattr(m, w).to(dt)))
-                bias = getattr(m, b)
-                bias.copy_(bias.to(dt).float())
+            for name, p in list(m.named_parameters(recurse=False)):
+                if (isinstance(m, L.Conv) and name == "weight") or (
+                        isinstance(m, L.Proto) and name == "up_w"):
+                    setattr(m, name, torch.nn.Parameter(p.to(dt)))
+                else:
+                    p.copy_(p.to(dt).float())
     return out
 
 

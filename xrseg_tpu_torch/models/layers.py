@@ -111,10 +111,13 @@ class C3k(nn.Module):
 class C3k2(nn.Module):
     """C2f whose inner blocks are C3k (c3k=True) or Bottleneck(e=0.5).
 
-    YOLO11 runs every C3k2 with shortcut=True, the neck's included."""
+    YOLO11 runs every C3k2 with shortcut=True, the neck's included.
+    `inner_e` is the plain Bottleneck's hidden ratio: 0.5 in YOLO11's
+    C3k2, 1.0 in YOLOv8's C2f (class C2f)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
-                 e: float = 0.5, shortcut: bool = True, dtype=torch.bfloat16):
+                 e: float = 0.5, shortcut: bool = True, dtype=torch.bfloat16,
+                 inner_e: float = 0.5):
         super().__init__()
         c = int(c2 * e)
         self.cv1 = Conv(c1, 2 * c, 1, dtype=dtype)
@@ -123,7 +126,7 @@ class C3k2(nn.Module):
             blocks = (C3k(c, c, 2, shortcut=shortcut, dtype=dtype)
                       for _ in range(n))
         else:
-            blocks = (Bottleneck(c, c, (3, 3), 0.5, shortcut, dtype)
+            blocks = (Bottleneck(c, c, (3, 3), inner_e, shortcut, dtype)
                       for _ in range(n))
         self.m = nn.ModuleList(blocks)
 
@@ -134,6 +137,17 @@ class C3k2(nn.Module):
             b = blk(b)
             outs.append(b)
         return self.cv2(torch.cat(outs, 1))
+
+
+class C2f(C3k2):
+    """YOLOv8's C2f block: C3k2's split/append/concat topology (the JAX
+    package runs it through c3k2_apply) with plain Bottlenecks of e=1.0,
+    hidden width c rather than c/2. v8 runs its backbone C2f blocks with
+    the shortcut and its neck blocks without."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5,
+                 shortcut: bool = True, dtype=torch.bfloat16):
+        super().__init__(c1, c2, n, False, e, shortcut, dtype, inner_e=1.0)
 
 
 class SPPF(nn.Module):

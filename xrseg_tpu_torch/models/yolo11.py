@@ -1,4 +1,4 @@
-"""YOLO11 detect/segment network as a torch module (counterpart of
+"""YOLO11 and YOLOv8 networks as torch modules (counterpart of
 xrseg_tpu/models/yolo11.py).
 
 `YOLO11(cfg)(x)` takes NHWC input [B, H, W, 3] and returns the JAX
@@ -6,17 +6,21 @@ package's raw-head dict: boxes_xywh [B,A,4] f32 (input pixels), scores
 [B,A,nc] f32, cls_logits [B,A,nc] in the compute dtype; for the segment
 task mask_coefs [B,A,nm] f32 and protos [B,H/4,W/4,nm] f32; for the obb
 task angle [B,A] f32 (radians) and boxes_xywhr [B,A,5] f32 (the rotated
-boxes). With concat_preds also preds: [B,A,4+nc(+nm)], or [xywh of the
-rotated box, scores, angle] for obb. The anchor axis is P3, P4, P5,
-row-major within a level, channels last: each level's NCHW map is
-permuted to NHWC before it is flattened.
+boxes); for the pose task kpts [B,A,K,D] f32 (decoded keypoints, input
+pixels, visibility as a probability when D == 3). With concat_preds also
+preds: [B,A,4+nc(+nm)], [B,A,4+nc+K*D] for pose, or [xywh of the rotated
+box, scores, angle] for obb. The anchor axis is P3, P4, P5, row-major
+within a level, channels last: each level's NCHW map is permuted to NHWC
+before it is flattened. The classify task returns logits [B,nc] and probs
+[B,nc] (softmax), both f32.
 
 With cfg.o2o (detect and segment) a second detect head, det_o2o, of the
 same structure runs beside det and adds o2o_boxes_xywh [B,A,4] and
 o2o_cls_logits [B,A,nc]: the NMS-free one-to-one head
 (ops/postprocess.postprocess_o2o_batch).
 
-This slice ports arch "yolo11" with tasks "segment", "detect" and "obb".
+Both archs ("yolo11", "yolov8") and every task of the JAX package
+("segment", "detect", "obb", "pose", "classify") are ported.
 """
 from __future__ import annotations
 
@@ -41,21 +45,34 @@ YOLO11_SCALES: Dict[str, Tuple[float, float, int]] = {
 }
 
 
+# The published YOLOv8 ladder (cfg.arch == "yolov8"): C2f blocks (inner
+# Bottleneck e=1.0), no C2PSA, 3/6/6/3 backbone repeats, a plain-conv class
+# branch, shortcut-free neck blocks.
+YOLOV8_SCALES: Dict[str, Tuple[float, float, int]] = {
+    "n": (0.33, 0.25, 1024),
+    "s": (0.33, 0.50, 1024),
+    "m": (0.67, 0.75, 768),
+    "l": (1.00, 1.00, 512),
+    "x": (1.00, 1.25, 512),
+}
+
+
 def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(x + divisor / 2) // divisor * divisor)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what this slice of the port does not run yet."""
-    if cfg.arch != "yolo11":
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP queue 1, "
-            "task family: the YOLOv8 arch)")
-    if cfg.task not in ("segment", "detect", "obb"):
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (ROADMAP queue 1, "
-            "task family)")
-    if cfg.o2o and cfg.task not in ("detect", "segment"):
+    """Refuse what the JAX package refuses: an unknown arch or scale, and
+    the one-to-one head (o2o) with a task that has no detect head to pair
+    it with (the classify init ignores o2o, as JAX's does)."""
+    if cfg.arch not in ("yolo11", "yolov8"):
+        raise ValueError(
+            f"Unknown arch {cfg.arch!r}; expected 'yolo11' or 'yolov8'")
+    table = YOLO11_SCALES if cfg.arch == "yolo11" else YOLOV8_SCALES
+    if cfg.scale not in table:
+        raise ValueError(f"Unknown {cfg.arch} scale {cfg.scale!r}; expected "
+                         f"one of {sorted(table)}")
+    if cfg.o2o and cfg.task not in ("detect", "segment", "classify"):
         raise ValueError(
             f"o2o (NMS-free) supports detect/segment, not {cfg.task}")
 
@@ -65,14 +82,14 @@ class Spec:
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
-        if cfg.scale not in YOLO11_SCALES:
-            raise ValueError(f"Unknown yolo11 scale {cfg.scale!r}; expected "
-                             f"one of {sorted(YOLO11_SCALES)}")
         if cfg.input_size[0] % 32 or cfg.input_size[1] % 32:
             raise ValueError(f"input_size {cfg.input_size} must be a "
                              "multiple of 32 (the P5 stride)")
-        depth, width, max_ch = YOLO11_SCALES[cfg.scale]
-        self.force_c3k = cfg.scale in ("m", "l", "x")
+        self.arch = cfg.arch
+        table = YOLO11_SCALES if cfg.arch == "yolo11" else YOLOV8_SCALES
+        depth, width, max_ch = table[cfg.scale]
+        # the wide scales force C3k blocks (YOLO11 only: v8 has none)
+        self.force_c3k = cfg.arch == "yolo11" and cfg.scale in ("m", "l", "x")
 
         def ch(c: int) -> int:
             return make_divisible(min(c, max_ch) * width, 8)
@@ -80,12 +97,17 @@ class Spec:
         self.c64, self.c128, self.c256 = ch(64), ch(128), ch(256)
         self.c512, self.c1024 = ch(512), ch(1024)
         self.n2 = max(round(2 * depth), 1)
+        self.n3 = max(round(3 * depth), 1)      # v8 backbone/neck repeats
+        self.n6 = max(round(6 * depth), 1)
         nc, reg_max = cfg.num_classes, cfg.reg_max
         self.head_ch = (self.c256, self.c512, self.c1024)   # P3, P4, P5
         self.c2 = max(16, self.head_ch[0] // 4, reg_max * 4)
         self.c3 = max(self.head_ch[0], min(nc, 100))
         self.c4 = max(self.head_ch[0] // 4, cfg.num_masks)
         self.c4_obb = max(self.head_ch[0] // 4, 1)         # angle branch
+        self.nk = cfg.kpt_shape[0] * cfg.kpt_shape[1]
+        self.c4_pose = max(self.head_ch[0] // 4, self.nk)  # keypoints
+        self.cls_hidden = 1280                             # classify head
         self.proto_c = ch(256)
         self.strides = (8, 16, 32)
 
@@ -95,7 +117,8 @@ class Spec:
 
 class Branch3(nn.Module):
     """Per-level (conv3x3, conv3x3, 1x1 out) branch: the box branch of the
-    detect head, the mask-coefficient branch and the obb angle branch."""
+    detect head, the mask-coefficient, keypoint and obb angle branches,
+    and YOLOv8's ("legacy") class branch."""
 
     def __init__(self, c1: int, c_hidden: int, c_out: int, dtype):
         super().__init__()
@@ -103,8 +126,11 @@ class Branch3(nn.Module):
         self.conv1 = L.Conv(c_hidden, c_hidden, 3, dtype=dtype)
         self.out = L.HeadConv(c_hidden, c_out, dtype=dtype)
 
+    def hidden(self, x):
+        return self.conv1(self.conv0(x))
+
     def forward(self, x):
-        return self.out(self.conv1(self.conv0(x)))
+        return self.out(self.hidden(x))
 
 
 class ClsBranch(nn.Module):
@@ -126,12 +152,34 @@ class ClsBranch(nn.Module):
 
 
 class DetectHead(nn.Module):
+    """Box (cv2) and class (cv3) branches per level. The class branch is
+    YOLO11's depthwise-separable one, or for v8 two plain 3x3 convs (the
+    JAX package tells them apart by whether "dw0" is present)."""
+
     def __init__(self, s: Spec, cfg: ModelConfig, dtype):
         super().__init__()
+        cls = Branch3 if s.arch == "yolov8" else ClsBranch
         self.cv2 = nn.ModuleList(Branch3(ci, s.c2, 4 * cfg.reg_max, dtype)
                                  for ci in s.head_ch)
-        self.cv3 = nn.ModuleList(ClsBranch(ci, s.c3, cfg.num_classes, dtype)
+        self.cv3 = nn.ModuleList(cls(ci, s.c3, cfg.num_classes, dtype)
                                  for ci in s.head_ch)
+
+
+class ClassifyHead(nn.Module):
+    """ultralytics Classify: Conv(c1, 1280, 1), a float32 mean over H and
+    W, then `y @ lin_w + lin_b` in float32 (lin_w [1280, nc], the JAX
+    layout)."""
+
+    def __init__(self, c1: int, hidden: int, nc: int, dtype):
+        super().__init__()
+        self.conv = L.Conv(c1, hidden, 1, dtype=dtype)
+        self.lin_w = nn.Parameter(torch.zeros(hidden, nc))
+        self.lin_b = nn.Parameter(torch.zeros(nc))
+
+    def forward(self, x) -> Dict[str, torch.Tensor]:
+        y = self.conv(x).float().mean((2, 3))
+        logits = y @ self.lin_w.float() + self.lin_b.float()
+        return {"logits": logits, "probs": logits.softmax(-1)}
 
 
 def make_anchors(input_size: Tuple[int, int], strides=(8, 16, 32)
@@ -159,6 +207,21 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     return (probs * bins).sum(-1)
 
 
+def decode_kpts(kpt_flat: torch.Tensor, anchors: torch.Tensor,
+                strides: torch.Tensor, kpt_shape) -> torch.Tensor:
+    """Raw keypoint maps [B,A,K*D] -> decoded [B,A,K,D]: per keypoint
+    xy = (raw*2 + anchor - 0.5) * stride (input pixels), visibility =
+    sigmoid(raw) when D == 3 (ultralytics Pose.kpts_decode)."""
+    B, A, _ = kpt_flat.shape
+    K, D = kpt_shape
+    y = kpt_flat.reshape(B, A, K, D)
+    xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) \
+        * strides[None, :, None, :]
+    if D == 3:
+        return torch.cat([xy, torch.sigmoid(y[..., 2:3])], -1)
+    return xy
+
+
 def decode_rbox(ltrb: torch.Tensor, angle: torch.Tensor,
                 anchors: torch.Tensor, strides: torch.Tensor) -> torch.Tensor:
     """DFL ltrb distances [B,A,4] + angle [B,A] -> rotated boxes [B,A,5]
@@ -183,13 +246,45 @@ def _flatten(maps, c: int) -> torch.Tensor:
 
 
 class YOLO11(nn.Module):
-    """The YOLO11 detect/segment/obb network at one scale."""
+    """A YOLO11 or YOLOv8 network (cfg.arch) for one task at one scale."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         s = Spec(cfg)
         dt = getattr(torch, cfg.dtype)
         self.cfg, self.dtype = cfg, dt
+        if s.arch == "yolov8":
+            self._init_backbone_v8(s, dt, with_sppf=cfg.task != "classify")
+        else:
+            self._init_backbone(s, dt)
+        if cfg.task == "classify":
+            self.cls_head = ClassifyHead(s.c1024, s.cls_hidden,
+                                         cfg.num_classes, dt)
+            return
+        if s.arch == "yolov8":
+            self._init_neck_v8(s, dt)
+        else:
+            self._init_neck(s, dt)
+        self.det = DetectHead(s, cfg, dt)
+        if cfg.o2o:
+            self.det_o2o = DetectHead(s, cfg, dt)
+        if cfg.task == "segment":
+            self.proto = L.Proto(s.head_ch[0], s.proto_c, cfg.num_masks, dt)
+            self.seg_cv4 = nn.ModuleList(
+                Branch3(ci, s.c4, cfg.num_masks, dt) for ci in s.head_ch)
+        elif cfg.task == "pose":
+            self.pose_cv4 = nn.ModuleList(
+                Branch3(ci, s.c4_pose, s.nk, dt) for ci in s.head_ch)
+        elif cfg.task == "obb":
+            self.obb_cv4 = nn.ModuleList(
+                Branch3(ci, s.c4_obb, 1, dt) for ci in s.head_ch)
+        anchors, strides = make_anchors(cfg.input_size, s.strides)
+        self.register_buffer("anchors", torch.from_numpy(anchors),
+                             persistent=False)
+        self.register_buffer("strides", torch.from_numpy(strides),
+                             persistent=False)
+
+    def _init_backbone(self, s: Spec, dt) -> None:
         self.b0 = L.Conv(3, s.c64, 3, 2, dtype=dt)
         self.b1 = L.Conv(s.c64, s.c128, 3, 2, dtype=dt)
         self.b2 = L.C3k2(s.c128, s.c256, s.n2, s.c3k(False), 0.25, dtype=dt)
@@ -201,6 +296,24 @@ class YOLO11(nn.Module):
         self.b8 = L.C3k2(s.c1024, s.c1024, s.n2, True, 0.5, dtype=dt)
         self.b9 = L.SPPF(s.c1024, s.c1024, dtype=dt)
         self.b10 = L.C2PSA(s.c1024, s.n2, 0.5, dtype=dt)
+
+    def _init_backbone_v8(self, s: Spec, dt, with_sppf: bool) -> None:
+        """ultralytics yolov8.yaml layers 0-9: C2f blocks with 3/6/6/3
+        repeats, channel-preserving (the downsampling convs widen), SPPF
+        last and no C2PSA. v8-cls ends at the C2f(1024), with no SPPF."""
+        self.b0 = L.Conv(3, s.c64, 3, 2, dtype=dt)
+        self.b1 = L.Conv(s.c64, s.c128, 3, 2, dtype=dt)
+        self.b2 = L.C2f(s.c128, s.c128, s.n3, dtype=dt)
+        self.b3 = L.Conv(s.c128, s.c256, 3, 2, dtype=dt)
+        self.b4 = L.C2f(s.c256, s.c256, s.n6, dtype=dt)
+        self.b5 = L.Conv(s.c256, s.c512, 3, 2, dtype=dt)
+        self.b6 = L.C2f(s.c512, s.c512, s.n6, dtype=dt)
+        self.b7 = L.Conv(s.c512, s.c1024, 3, 2, dtype=dt)
+        self.b8 = L.C2f(s.c1024, s.c1024, s.n3, dtype=dt)
+        if with_sppf:
+            self.b9 = L.SPPF(s.c1024, s.c1024, dtype=dt)
+
+    def _init_neck(self, s: Spec, dt) -> None:
         self.h13 = L.C3k2(s.c1024 + s.c512, s.c512, s.n2, s.c3k(False), 0.5,
                           dtype=dt)
         self.h16 = L.C3k2(s.c512 + s.c512, s.c256, s.n2, s.c3k(False), 0.5,
@@ -211,28 +324,37 @@ class YOLO11(nn.Module):
         self.h20 = L.Conv(s.c512, s.c512, 3, 2, dtype=dt)
         self.h22 = L.C3k2(s.c512 + s.c1024, s.c1024, s.n2, True, 0.5,
                           dtype=dt)
-        self.det = DetectHead(s, cfg, dt)
-        if cfg.o2o:
-            self.det_o2o = DetectHead(s, cfg, dt)
-        if cfg.task == "segment":
-            self.proto = L.Proto(s.head_ch[0], s.proto_c, cfg.num_masks, dt)
-            self.seg_cv4 = nn.ModuleList(
-                Branch3(ci, s.c4, cfg.num_masks, dt) for ci in s.head_ch)
-        elif cfg.task == "obb":
-            self.obb_cv4 = nn.ModuleList(
-                Branch3(ci, s.c4_obb, 1, dt) for ci in s.head_ch)
-        anchors, strides = make_anchors(cfg.input_size, s.strides)
-        self.register_buffer("anchors", torch.from_numpy(anchors),
-                             persistent=False)
-        self.register_buffer("strides", torch.from_numpy(strides),
-                             persistent=False)
 
-    def backbone_neck(self, x: torch.Tensor):
-        """NCHW input -> (P3, P4, P5) features."""
+    def _init_neck_v8(self, s: Spec, dt) -> None:
+        """The v8 neck: shortcut-free C2f blocks; its h16 takes c512+c256
+        (the backbone's P3 is c256 wide), YOLO11's c512+c512."""
+        self.h13 = L.C2f(s.c1024 + s.c512, s.c512, s.n3, shortcut=False,
+                         dtype=dt)
+        self.h16 = L.C2f(s.c512 + s.c256, s.c256, s.n3, shortcut=False,
+                         dtype=dt)
+        self.h17 = L.Conv(s.c256, s.c256, 3, 2, dtype=dt)
+        self.h19 = L.C2f(s.c256 + s.c512, s.c512, s.n3, shortcut=False,
+                         dtype=dt)
+        self.h20 = L.Conv(s.c512, s.c512, 3, 2, dtype=dt)
+        self.h22 = L.C2f(s.c512 + s.c1024, s.c1024, s.n3, shortcut=False,
+                         dtype=dt)
+
+    def backbone(self, x: torch.Tensor):
+        """NCHW input -> the (x4, x6, x10) skip features: x10 is C2PSA's
+        output for yolo11, SPPF's (or for v8-cls the last C2f's) for v8."""
         x = self.b2(self.b1(self.b0(x)))
         x4 = self.b4(self.b3(x))
         x6 = self.b6(self.b5(x4))
-        x10 = self.b10(self.b9(self.b8(self.b7(x6))))
+        x = self.b8(self.b7(x6))
+        if hasattr(self, "b9"):
+            x = self.b9(x)
+        if hasattr(self, "b10"):
+            x = self.b10(x)
+        return x4, x6, x
+
+    def backbone_neck(self, x: torch.Tensor):
+        """NCHW input -> (P3, P4, P5) features."""
+        x4, x6, x10 = self.backbone(x)
         x13 = self.h13(torch.cat([L.upsample2x_nearest(x10), x6], 1))
         x16 = self.h16(torch.cat([L.upsample2x_nearest(x13), x4], 1))
         x19 = self.h19(torch.cat([self.h17(x16), x13], 1))
@@ -271,6 +393,15 @@ class YOLO11(nn.Module):
             out["protos"] = protos.permute(0, 2, 3, 1).float().contiguous()
             if concat_preds:
                 out["preds"] = torch.cat([xywh, scores, out["mask_coefs"]], -1)
+        elif cfg.task == "pose":
+            nk = cfg.kpt_shape[0] * cfg.kpt_shape[1]
+            kf = _flatten([m(f) for m, f in zip(self.pose_cv4, feats)], nk)
+            out["kpts"] = decode_kpts(kf.float(), self.anchors, self.strides,
+                                      cfg.kpt_shape)
+            if concat_preds:
+                out["preds"] = torch.cat(
+                    [xywh, scores, out["kpts"].reshape(*xywh.shape[:2], nk)],
+                    -1)
         elif cfg.task == "obb":
             raw = _flatten([m(f) for m, f in zip(self.obb_cv4, feats)], 1)
             # ultralytics OBB: angle = (sigmoid(raw) - 0.25) * pi, decoded
@@ -294,8 +425,10 @@ class YOLO11(nn.Module):
                              f"cfg.input_size {self.cfg.input_size} "
                              "(NHWC expected)")
         with precision_scope(self.cfg.matmul_precision):
-            feats = self.backbone_neck(x.permute(0, 3, 1, 2).to(self.dtype))
-            return self.head_outputs(feats, concat_preds)
+            x = x.permute(0, 3, 1, 2).to(self.dtype)
+            if self.cfg.task == "classify":
+                return self.cls_head(self.backbone(x)[2])
+            return self.head_outputs(self.backbone_neck(x), concat_preds)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> YOLO11:
@@ -306,6 +439,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> YOLO11:
     model = YOLO11(cfg)
     L.reset_parameters(model, gen)
     nc = cfg.num_classes
+    if cfg.task == "classify":
+        bound = math.sqrt(3.0 / model.cls_head.lin_w.shape[0])
+        with torch.no_grad():
+            model.cls_head.lin_w.uniform_(-bound, bound, generator=gen)
+        return model
     heads = [model.det] + ([model.det_o2o] if cfg.o2o else [])
     with torch.no_grad():
         for head in heads:

@@ -9,7 +9,8 @@ their masks. The NMS backend comes from PostprocessConfig.nms_backend;
 "auto" takes the CUDA kernel for CUDA tensors (K1 for the batched path, K2
 per image) and the plain loop for CPU tensors. The OBB task
 (postprocess_obb_batch) runs rotated NMS with its own backend argument,
-as in the JAX package: "auto" takes K3 for CUDA tensors. The NMS-free
+as in the JAX package: "auto" takes K3 for CUDA tensors; the pose task
+(postprocess_pose_batch) likewise, taking K1 for CUDA tensors. The NMS-free
 one-to-one head (postprocess_o2o_batch) selects by score alone.
 """
 from __future__ import annotations
@@ -144,6 +145,30 @@ def postprocess_o2o_batch(boxes, cls_scores, coefs_all, protos,
     if protos is not None and coefs_all is not None:
         _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
                       with_masks)
+    return det
+
+
+def postprocess_pose_batch(boxes, cls_scores, kpts, cfg: PostprocessConfig,
+                           scores_are_logits: bool = False,
+                           backend: str = "auto") -> Dict[str, torch.Tensor]:
+    """Pose task: axis-aligned NMS on boxes [B,A,4] and cls_scores
+    [B,A,nc] (ONE call for the batch: K1 on the card under "auto"), then
+    each survivor's decoded keypoints kpts [B,A,K,D] -> det["kpts"]
+    [B,max_det,K,D], zero on invalid rows."""
+    _check_merge(cfg)
+    scores, labels = cls_scores.max(-1)
+    scores, labels = scores.float(), labels.int()
+    det = nms_ops.nms_fixed_batched(
+        boxes, scores, labels, iou_threshold=cfg.iou_threshold,
+        score_threshold=_logit_threshold(cfg, scores_are_logits),
+        max_det=cfg.max_detections, class_aware=cfg.class_aware,
+        backend=backend)
+    if scores_are_logits:
+        det["scores"] = torch.sigmoid(det["scores"]) * det["valid"]
+    B, D = det["indices"].shape
+    idx = det["indices"].long()[:, :, None, None].expand(
+        B, D, *kpts.shape[2:])
+    det["kpts"] = kpts.gather(1, idx) * det["valid"][..., None, None]
     return det
 
 

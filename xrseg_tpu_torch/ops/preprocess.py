@@ -22,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from xrseg_tpu_torch.precision import precision_scope
+
 
 def _tap_indices(src: int, dst: int):
     """2-tap bilinear gather plan: (idx0, idx1, w1) per output coordinate
@@ -90,6 +92,56 @@ def preprocess(frames: torch.Tensor, out_hw: Tuple[int, int] = (640, 640),
             frames, (nh, nw), dtype)
         return out
     raise ValueError(f"unknown preprocess mode {mode!r}")
+
+
+def _triangle_weights(src: int, dst: int) -> np.ndarray:
+    """jax.image.resize's "bilinear" weight matrix [src, dst] in float32
+    (its compute_weight_mat with the triangle kernel, antialiased): half-
+    pixel centres, the kernel widened by src/dst on an axis that shrinks,
+    columns normalised to sum 1, and zero where a sample falls outside
+    the input."""
+    inv = np.float32(src / dst)
+    sample = ((np.arange(dst, dtype=np.float32) + np.float32(0.5)) * inv
+              - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(src, dtype=np.float32)[:, None]) \
+        / np.maximum(inv, np.float32(1.0))
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1.0)),
+                 np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _triangle_on(src: int, dst: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """_triangle_weights rounded to `dtype` (as JAX casts them to the
+    image's), held in float32 on `device`."""
+    w = torch.as_tensor(_triangle_weights(src, dst), device=device)
+    return w.to(dtype).float()
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """jax.image.resize(x, (B, oh, ow, C), "bilinear") of an NHWC float
+    tensor: separable triangle-filter products, antialiased on an axis
+    that shrinks (jax's default), accumulated in float32 and rounded to
+    x's dtype after each axis; full float32 products (no TF32), as jax
+    runs them at Precision.HIGHEST. The test-time augmentation's scaled
+    views use it; it is not the frame resize above."""
+    _, H, W, _ = x.shape
+    oh, ow = out_hw
+    y = x
+    with precision_scope("highest"):
+        if H != oh:
+            wh = _triangle_on(H, oh, x.dtype, x.device)
+            y = torch.einsum("bhwc,hk->bkwc", y.float(), wh).to(x.dtype)
+        if W != ow:
+            ww = _triangle_on(W, ow, x.dtype, x.device)
+            y = torch.einsum("bhwc,wk->bhkc", y.float(), ww).to(x.dtype)
+    return y
 
 
 def letterbox_params(in_hw: Tuple[int, int], out_hw: Tuple[int, int]):

@@ -2,12 +2,17 @@
 breakdown of a model at full width with detection_params weights, per
 batch size. --model seg (the default) is YOLO11n-seg (640x640 on 480x640
 uint8 frames, stretch); --model obb is YOLO11n-obb (1024x1024, 15 classes,
-on 1024x1024 frames); --model tick is the fused XR tick on the seg model
+on 1024x1024 frames); --model pose is YOLO11n-pose (640x640, 1 class, 17
+keypoints), --model cls YOLO11n-cls (224x224, 1000 classes, random init
+weights: it has no detect head to patch) and --model v8seg YOLOv8n-seg
+(640x640), all on 480x640 frames; --model tick is the fused XR tick on
+the seg model
 (build_xr_tick_pipeline: frame, re-lock, target mask, RGBD fusion on a
 128x128 depth frame, one packed readback through the pipeline's pinned
 buffer and copy stream; batch 1 only, with a locked target).
 
-    python -m xrseg_tpu_torch.profile [--model seg|obb|tick] [--batch 1 8]
+    python -m xrseg_tpu_torch.profile [--model seg|obb|pose|cls|v8seg|tick]
+        [--batch 1 8]
         [--iters 20] [--json PATH]
 
 For each batch size it prints, per frame batch: the host wall time (host
@@ -29,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from xrseg_tpu_torch.compile import build_pipeline, build_xr_tick_pipeline
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
+from xrseg_tpu_torch.models.yolo11 import init_params
 from xrseg_tpu_torch.testing import detection_params, xr_frames
 
 
@@ -37,6 +43,10 @@ MODELS = {
     "seg": (ModelConfig(), (480, 640)),
     "obb": (ModelConfig(task="obb", num_classes=15, input_size=(1024, 1024)),
             (1024, 1024)),
+    "pose": (ModelConfig(task="pose", num_classes=1), (480, 640)),
+    "cls": (ModelConfig(task="classify", num_classes=1000,
+                        input_size=(224, 224)), (480, 640)),
+    "v8seg": (ModelConfig(arch="yolov8"), (480, 640)),
     "tick": (ModelConfig(), (480, 640)),
 }
 DEPTH_HW = (128, 128)
@@ -116,7 +126,9 @@ def main() -> int:
     args = ap.parse_args()
     mcfg, frame_hw = MODELS[args.model]
     cfg = ExecutorConfig(model=mcfg)
-    model = detection_params(torch.Generator().manual_seed(0), cfg.model)
+    gen = torch.Generator().manual_seed(0)
+    model = (init_params(gen, cfg.model).cuda() if mcfg.task == "classify"
+             else detection_params(gen, cfg.model))
     rng = np.random.default_rng(1)
     rows = []
     for B in ([1] if args.model == "tick" else args.batch):

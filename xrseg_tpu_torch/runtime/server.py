@@ -8,8 +8,10 @@ deployment needs:
                  [H,W,3] uint8 array) -> JSON detections:
                  {"detections": [{"label", "class_name", "score",
                   "box_xywh" (frame px; obb: "box_xywhr" in model px),
+                  "kpts"? (pose: [[x, y, visibility]...] in frame px),
                   "mask_rle"? (COCO RLE, with --serve-masks)}...],
                   "count", "latency_ms"}
+                 classify: {"probs", "label", "class_name", "latency_ms"}
   GET  /healthz  {"ok": true, ...model and geometry...}
   GET  /stats    per-stage latency percentiles and request counters
   GET  /metrics  the same counters in Prometheus text format (xrseg_*)
@@ -32,14 +34,17 @@ up to `batch_window_ms` and run as ONE batched pipeline call. Batch sizes
 are bucketed to powers of two, one pipeline per size built at its first
 use; requests pad the bucket and the padding rows are discarded. Every
 bucket runs the batched NMS kernel (K1) at its size. With micro_batch=1
-every request is a batch of one.
+every request is a batch of one. A batch's slates come back in one copy
+through the pipeline's pinned readback; the pose keypoints and the served
+masks of the batch's survivors in one more copy each.
 
 Overload: pending work is bounded (max_pending); excess requests get an
 immediate 503 with Retry-After instead of waiting in the queue. Bodies
 larger than max_request_mb get a 413 before they are read.
 
 CLI: python -m xrseg_tpu_torch.runtime.server --port 8000 \\
-        [--weights w.npz] [--scale n] [--frame-hw 480 640] \\
+        [--weights w.npz] [--arch yolo11|yolov8] [--scale n] \\
+        [--task segment|detect|obb|pose|classify] [--frame-hw 480 640] \\
         [--micro-batch 8 --batch-window-ms 3] [--device cuda|cpu]
 """
 from __future__ import annotations
@@ -276,21 +281,37 @@ class InferenceServer:
     def _run(self, pipe, frames: np.ndarray, n: int) -> List[dict]:
         """One pipeline call (device lock held) -> the host results of its
         first n images. The slates come back in one copy through the
-        pipeline's pinned readback."""
+        pipeline's pinned readback; the pose keypoints and the served
+        masks of the batch's survivors in one more copy each, never one a
+        request."""
         det = pipe(frames)
         pipe.readback.start(det["slate"])
         slates = pipe.readback.host().reshape(det["slate"].shape)
-        out = []
-        for j in range(n):
-            host = unpack_slate(slates[j], self.cfg.post.max_detections,
-                                box_dim=self._box_dim)
-            if self.serve_masks and "masks" in det:
-                host["masks"] = det["masks"][j, :host["count"]].float() \
-                    .cpu().numpy()
-            out.append(host)
+        if self._task == "classify":
+            # the slate IS the prob row; copied, as the buffer is reused
+            return [{"probs": np.array(slates[j])} for j in range(n)]
+        out = [unpack_slate(slates[j], self.cfg.post.max_detections,
+                            box_dim=self._box_dim) for j in range(n)]
+        top = max(h["count"] for h in out)
+        extras = ["kpts"] if "kpts" in det else []
+        if self.serve_masks and "masks" in det:
+            extras.append("masks")
+        for k in extras:
+            rows = det[k][:n, :top].float().cpu().numpy()
+            for j, host in enumerate(out):
+                host[k] = rows[j, :host["count"]]
         return out
 
     def _format(self, host: dict, latency_ms: float) -> dict:
+        if self._task == "classify":
+            probs = host["probs"]
+            lab = int(probs.argmax())
+            return {"probs": [round(float(p), 5) for p in probs],
+                    "label": lab,
+                    "class_name": (self.labels[lab]
+                                   if 0 <= lab < len(self.labels)
+                                   else str(lab)),
+                    "latency_ms": round(latency_ms, 2)}
         n = int(host["count"])
         if self._task == "obb":
             boxes = np.asarray(host["boxes_xywhr"][:n])  # model space
@@ -299,6 +320,9 @@ class InferenceServer:
                                          self.frame_hw,
                                          self.cfg.model.input_size,
                                          "stretch")
+        # keypoints scale exactly under the stretch (pointwise)
+        ky = self.frame_hw[0] / self.cfg.model.input_size[0]
+        kx = self.frame_hw[1] / self.cfg.model.input_size[1]
         dets = []
         for i in range(n):
             lab = int(host["labels"][i])
@@ -314,6 +338,12 @@ class InferenceServer:
                 d["box_xywh"] = [round(float(v), 2) for v in boxes[i]]
             if "masks" in host and i < len(host["masks"]):
                 d["mask_rle"] = rle_encode(host["masks"][i] > 0.5)
+            if "kpts" in host and i < len(host["kpts"]):
+                k = host["kpts"][i].copy()
+                k[:, 0] *= kx
+                k[:, 1] *= ky
+                d["kpts"] = [[round(float(x), 2), round(float(y), 2),
+                              round(float(v), 3)] for x, y, v in k]
             dets.append(d)
         return {"detections": dets, "count": n,
                 "latency_ms": round(latency_ms, 2)}
@@ -520,6 +550,8 @@ def _main() -> int:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--weights", help=".npz weights (either package's)")
     ap.add_argument("--scale", default="n", choices=list("nsmlx"))
+    ap.add_argument("--arch", default="yolo11",
+                    choices=["yolo11", "yolov8"])
     ap.add_argument("--task", default="segment",
                     choices=["segment", "detect", "obb", "pose",
                              "classify"])
@@ -557,7 +589,7 @@ def _main() -> int:
         ap.error("--mesh: multi-device serving is not ported yet (ROADMAP "
                  "queue 1, item 10: parallel/)")
 
-    mcfg = ModelConfig(scale=args.scale, task=args.task,
+    mcfg = ModelConfig(arch=args.arch, scale=args.scale, task=args.task,
                        num_classes=args.classes)
     params = None
     if args.weights:

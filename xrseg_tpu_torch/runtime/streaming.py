@@ -25,6 +25,8 @@ import dataclasses
 import time
 from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
+
 from xrseg_tpu_torch.compile import CompiledPipeline, unpack_slate
 from xrseg_tpu_torch.device import Readback
 from xrseg_tpu_torch.runtime.tracing import Tracer
@@ -104,10 +106,13 @@ class StreamingRunner:
         with self.tracer.section("readback"):
             rows = slot.host().reshape(out["slate"].shape)
             boxes = out.get("boxes_xywhr", out.get("boxes_xywh"))
-            max_det, box_dim = boxes.shape[1], boxes.shape[2]
-            # unpack_slate copies, so the slot may take the next frame
-            slates = [unpack_slate(row, max_det, box_dim=box_dim)
-                      for row in rows]
+            # both branches copy, so the slot may take the next frame
+            if boxes is None:        # classify: the slate IS the prob row
+                slates = [{"probs": np.array(row)} for row in rows]
+            else:
+                max_det, box_dim = boxes.shape[1], boxes.shape[2]
+                slates = [unpack_slate(row, max_det, box_dim=box_dim)
+                          for row in rows]
         slate = slates[0] if len(slates) == 1 else {
             k: [s[k] for s in slates] for k in slates[0]}
         return StreamResult(frame_id=fid, slate=slate,

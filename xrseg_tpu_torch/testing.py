@@ -18,6 +18,7 @@ port's own generator and differ from the JAX package's.
 """
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -33,6 +34,18 @@ from xrseg_tpu_torch.runtime.frame_source import FrameData
 _CALIBRATION_SEED = 20260817
 
 
+def limit_cpu_threads() -> int:
+    """Cap torch's intra-op CPU threads at this process's share of the
+    cores: os.cpu_count() // W, where W is the number of pytest-xdist
+    workers (PYTEST_XDIST_WORKER_COUNT; 1 outside xdist), at least 1. The
+    port's test modules call it at import; the library itself changes no
+    thread setting. Returns the thread count set."""
+    workers = max(1, int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 1))
+    n = max(1, (os.cpu_count() or 1) // workers)
+    torch.set_num_threads(n)
+    return n
+
+
 def detection_params(gen: torch.Generator, cfg: ModelConfig, *,
                      label: int = 0, score_logit: float = 2.0,
                      dist_bin: int = 1, cls_spread: float = 0.3,
@@ -41,6 +54,9 @@ def detection_params(gen: torch.Generator, cfg: ModelConfig, *,
     detects: every anchor predicts class `label` at sigmoid(score_logit
     +- ~cls_spread) with a (2*dist_bin*stride)-px box centred on itself."""
     nc, reg_max = cfg.num_classes, cfg.reg_max
+    if cfg.task == "classify":
+        raise ValueError("detection_params patches the detect head; the "
+                         "classify task has none (use init_params)")
     if not 0 <= label < nc:
         raise ValueError(f"label {label} out of range [0, {nc})")
     if not 0 < dist_bin < reg_max:
