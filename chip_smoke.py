@@ -118,10 +118,42 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    and 8 against the direct b=1 pipeline. One line "tasks: {...}" gives
    b=1 p50/p95 and b=8 frames/s per model beside the card's name and
    power limit, the server's numbers and the phase's seconds.
-8. one line {"kernels": [...]} (K1-K4; launches are counted on the path
+8. accuracy modes and model I/O, at full width (lines starting
+   `accuracy:`):
+   - K5 (wbf_scan_cuda) at K = 8400 (B = 1, 8) and 16800 (B = 1), K6
+     (wbf_rotated_scan_cuda) at K = 21504 (B = 1, 8), on seeded clustered
+     candidate streams (bf16-tied scores, about one in six above the gate,
+     more clusters than max_det, for B > 1 an image with nothing above the
+     gate): every output EQUAL to the plain scan's, timed beside the plain
+     scan (run once) and the bound, with the microseconds per step of the
+     live chain;
+   - merge="wbf" on YOLO11n-seg at b=1 and b=8 (K5) and on YOLO11n-obb at
+     1024x1024, b=1 (K6); the 2-member ensemble of YOLO11n-seg and
+     YOLO11s-seg (640x640, 80 classes, detection_params from seeds 0 and
+     1) merged by WBF (K5 at 16800) and by NMS (K1 at 16800). Launch
+     counters are zeroed just before these runs and read just after: K5
+     three times, K6 and K1 once each, at the paths' anchor widths. Every
+     slate full, finite and equal to the plain merge on the same frames
+     (the same pipeline with nms_backend="scan"; for obb,
+     postprocess_obb_batch(backend="scan") on the same raw outputs); b=1
+     p50/p95 and b=8 frames/s; K5 and K6 timed again on the paths' own
+     candidate streams (every anchor live);
+   - model I/O: a .pt of YOLO11n-seg written by the script's own inversion
+     (the fused ultralytics form) and an .onnx from export_onnx each load
+     back into a pipeline with the source slate; run_onnx on the card
+     against the float32 forward (within ONNX_TOL); export_compiled and
+     load_compiled on the card give the source slate through K1; the
+     seconds of each;
+   - Executor(depth_backend="native") on the phase-5 scene tracks the box
+     of the torch backend with its points, held as phase 5 holds classic
+     against fused.
+   One line "accuracy: {...}" gives the pipelines' numbers beside the
+   card's name and power limit, and the phase's seconds.
+9. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
-   the serve loads, the runners and the task paths, K3's over the obb
-   and obb-TTA paths; no path runs K4, as in the JAX package), then the
+   the serve loads, the runners, the task paths and the NMS ensemble,
+   K3's over the obb and obb-TTA paths, K5's and K6's over phase 8's WBF
+   paths; no path runs K4, as in the JAX package), then the
    last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -148,12 +180,18 @@ import torch
 
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.compile import (DEFAULT_TTA_VIEWS,
-                                     ULTRALYTICS_TTA_VIEWS, build_pipeline,
+                                     ULTRALYTICS_TTA_VIEWS,
+                                     build_ensemble_pipeline, build_pipeline,
                                      build_xr_tick_pipeline,
-                                     decode_task_outputs, pack_slate,
+                                     decode_task_outputs, export_compiled,
+                                     load_compiled, pack_slate,
                                      unpack_slate)
-from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
-from xrseg_tpu_torch.io.weights import save_npz
+from xrseg_tpu_torch.config import (ExecutorConfig, ModelConfig,
+                                    PostprocessConfig)
+from xrseg_tpu_torch.io import torch_pt
+from xrseg_tpu_torch.io.onnx_exec import run_onnx
+from xrseg_tpu_torch.io.onnx_export import export_onnx
+from xrseg_tpu_torch.io.weights import load_params_auto, save_npz
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
@@ -164,6 +202,7 @@ from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
 from xrseg_tpu_torch.ops import nms_kernels as nk
 from xrseg_tpu_torch.ops import preprocess as pre_ops
+from xrseg_tpu_torch.ops import wbf
 from xrseg_tpu_torch.ops.postprocess import (postprocess,
                                              postprocess_obb_batch,
                                              postprocess_pose_batch)
@@ -249,6 +288,29 @@ COCO17_FLIP = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15)
 CLS_PROB_TOL = 1e-4
 TASK_SERVE_PER_CLIENT = 4
 PIPE_TICKS = 60                       # PipelinedTickRunner ticks per depth
+# phase 8: the WBF kernels at the main paths' widths (the segment path's
+# 8400 anchors at one image and eight, a 2-member ensemble's 16800; the obb
+# path's 21504), the score gate of PostprocessConfig's default
+WBF_CASES = (("K5", 1, 8400), ("K5", 8, 8400), ("K5", 1, 16800),
+             ("K6", 1, 21504), ("K6", 8, 21504))
+WBF_GATE = 0.23
+# operations: (per overlap of a candidate with an open cluster of its
+# label, per live candidate). K5's overlap: 2 min, 2 max, 2 sub, 2 clamp
+# and a mul for the intersection, add, sub, clamp, div for the ratio, the
+# threshold and label tests, the argmax compare; its step: the candidate's
+# corners and area (11) and a merge with the fused box's refresh (25). K6's
+# overlap: K3's probIoU (43), clamp, the two tests; its step: the
+# candidate's cos/sin of 2a and Gaussian terms (28) and a merge with the
+# refresh (atan2, 4 div, Gaussian terms: 45)
+WBF_OPS = {False: (15, 36), True: (46, 73)}
+# the 2-member ensemble: YOLO11n-seg and YOLO11s-seg (yolo11-seg.yaml at
+# scales n and s, 640x640, 80 classes)
+S_MODEL = dataclasses.replace(MODEL, scale="s")
+IO_DIR = Path(__file__).resolve().parent / "build" / "io"
+# run_onnx against the float32 forward: boxes are pixels up to 640, summed
+# in float32 in another order
+ONNX_TOL = 2e-3
+NATIVE_TICKS = 10
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
           replaces="xrseg_tpu/ops/pallas_kernels.py:218")
@@ -263,6 +325,14 @@ K4 = dict(name="mask_synth_crop_cuda", route="cuda",
           launches_note="no path of build_pipeline runs K4: as in the JAX "
                         "package, the pipeline keeps the unfused "
                         "synthesize_masks + crop_masks formulation")
+WBF_NOTE = ("the port's own kernel: no TPU kernel computes WBF; it stands for "
+            "the JAX package's lax.scan, one sequential step a candidate")
+K5 = dict(name="wbf_scan_cuda", route="cuda",
+          source="xrseg_tpu_torch/csrc/wbf.cu",
+          replaces="xrseg_tpu/ops/wbf.py:90", replaces_note=WBF_NOTE)
+K6 = dict(name="wbf_rotated_scan_cuda", route="cuda",
+          source="xrseg_tpu_torch/csrc/wbf.cu",
+          replaces="xrseg_tpu/ops/wbf.py:188", replaces_note=WBF_NOTE)
 
 
 class SmokeFailure(Exception):
@@ -1764,11 +1834,421 @@ def phase_tasks(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8. accuracy modes and model I/O
+# ---------------------------------------------------------------------------
+
+class StreamRecorder:
+    """Stands in for ops/wbf._topk_candidates during a path's run and keeps
+    the shape of each candidate stream it hands a WBF scan (the kernel's
+    chain is the stream's live prefix)."""
+
+    def __init__(self):
+        self.real, self.widths, self.streams = wbf._topk_candidates, [], []
+
+    def __call__(self, *args):
+        stream = self.real(*args)
+        self.widths.append(("K6" if stream[0].shape[-1] == 5 else "K5",
+                            tuple(stream[1].shape)))
+        self.streams.append(stream)
+        return stream
+
+    def __enter__(self) -> "StreamRecorder":
+        wbf._topk_candidates = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        wbf._topk_candidates = self.real
+
+
+def wbf_stream(rng, B: int, K: int, rotated: bool):
+    """A score-sorted candidate stream on the card, as
+    wbf._topk_candidates hands it to the scan: jittered clusters (K // 8
+    centres, each with a label, one candidate in ten relabelled),
+    bf16-quantised (tied) scores drawn from Beta(0.5, 4) (about one in
+    six above the gate), and, for B > 1, a last image with nothing above
+    the gate."""
+    extent, n_labels = (1024.0, 15) if rotated else (640.0, 80)
+    nc = K // 8
+    pick = rng.integers(0, nc, (B, K))
+    take = pick[..., None].repeat(2, -1)
+    xy = np.take_along_axis(rng.uniform(0, extent, (B, nc, 2)), take, 1) \
+        + rng.normal(0, 2, (B, K, 2))
+    wh = np.take_along_axis(rng.uniform(8, 96, (B, nc, 2)), take, 1) \
+        * rng.uniform(0.9, 1.1, (B, K, 2))
+    boxes = np.concatenate([xy, wh], -1)
+    if rotated:
+        ang = np.take_along_axis(rng.uniform(-np.pi / 2, np.pi / 2, (B, nc)),
+                                 pick, 1) + rng.normal(0, 0.05, (B, K))
+        boxes = np.concatenate([boxes, ang[..., None]], -1)
+    labels = np.take_along_axis(rng.integers(0, n_labels, (B, nc)), pick, 1)
+    relabel = rng.random((B, K)) < 0.1
+    labels[relabel] = rng.integers(0, n_labels, int(relabel.sum()))
+    scores = torch.from_numpy(rng.beta(0.5, 4.0, (B, K)).astype(
+        np.float32)).bfloat16().float()
+    if B > 1:
+        scores[-1] = scores[-1].clamp_max(WBF_GATE * 0.9)
+    stream = wbf._topk_candidates(
+        torch.from_numpy(boxes.astype(np.float32)), scores,
+        torch.from_numpy(labels.astype(np.int32)), 0)
+    return tuple(t.to(DEVICE) for t in stream)
+
+
+def wbf_bound(stream, out, rotated: bool):
+    """Least time for the work a scan does on these inputs: the live
+    candidates' rows read once and the clusters written once; per live
+    candidate the step's fixed work, and one overlap for every open cluster
+    of its label (a cluster opens at its top member's place in the
+    stream)."""
+    boxes, scores, labels, order = (t.cpu().numpy() for t in stream)
+    top_i, lab, active = (t.cpu().numpy() for t in out[-4:-1])
+    B, K = scores.shape
+    live = (scores > np.float32(WBF_GATE)).sum(-1)
+    overlaps = 0
+    for b in range(B):
+        pos = np.empty(K, np.int64)
+        pos[order[b]] = np.arange(K)
+        L = labels[b, :live[b]]
+        for d in np.nonzero(active[b])[0]:
+            overlaps += int(np.count_nonzero(L[pos[top_i[b, d]] + 1:]
+                                             == lab[b, d]))
+    per_overlap, per_step = WBF_OPS[rotated]
+    n_bytes = int(live.sum()) * (boxes.shape[-1] + 3) * 4 + sum(
+        t.numel() * t.element_size() for t in out)
+    return bound(n_bytes, overlaps * per_overlap + int(live.sum()) * per_step)
+
+
+def wbf_case(rng, name: str, B: int, K: int) -> dict:
+    """K5 or K6 against its plain version on a seeded stream: every output
+    EQUAL; timed beside the plain version (run once) and its bound."""
+    rotated = name == "K6"
+    kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
+    plain = wbf.wbf_rotated_scan_plain if rotated else wbf.wbf_scan_plain
+    stream = wbf_stream(rng, B, K, rotated)
+    args = (*stream, IOU, WBF_GATE, MAX_DET)
+    return hold_wbf(kernel, plain, args, f"{name} B={B} K={K}", rotated)
+
+
+def hold_wbf(kernel, plain, args, label: str, rotated: bool,
+             iters: int = 10) -> dict:
+    got = kernel(*args)
+    ref, plain_ms = event_ms(lambda: plain(*args))
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+          f"{label}: kernel outputs differ from the plain version")
+    err = max(float((g.double() - r.double()).abs().max())
+              for g, r in zip(got, ref))
+    ms = cuda_ms(lambda: kernel(*args), iters)
+    bound_ms, bound_by = wbf_bound(args[:4], got, rotated)
+    steps = int((args[1] > np.float32(WBF_GATE)).sum(-1).max())
+    case = dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, steps=steps,
+                us_per_step=1e3 * ms / max(steps, 1),
+                n_open=got[-1].tolist())
+    print(f"accuracy: {label}: equal, {ms:.4f} ms, "
+          f"{case['us_per_step']:.3f} us a step over {steps} live "
+          f"candidates (plain {plain_ms:.1f} ms, bound {bound_ms:.6f} ms by "
+          f"{bound_by}), clusters per image {case['n_open']}", flush=True)
+    return case
+
+
+def pt_state_dict(model: yolo11.YOLO11, cfg: ModelConfig) -> dict:
+    """The ultralytics fused-form state dict of `model` (conv.weight and
+    conv.bias per Conv, as after ultralytics' model.fuse()): the inverse of
+    io/torch_pt's name map."""
+    sd, own = {}, model.state_dict()
+    for path, ul, kind in torch_pt.ultralytics_slots(cfg):
+        pre = ".".join(map(str, path))
+        if kind == "conv":
+            sd[f"{ul}.conv.weight"] = own[f"{pre}.weight"].cpu()
+            sd[f"{ul}.conv.bias"] = own[f"{pre}.bias"].cpu()
+        elif kind == "plain":
+            sd[f"{ul}.weight"] = own[f"{pre}.weight"].cpu()
+            sd[f"{ul}.bias"] = own[f"{pre}.bias"].cpu()
+        elif kind == "convt":
+            sd[f"{ul}.weight"] = own[f"{pre}.up_w"].cpu()
+            sd[f"{ul}.bias"] = own[f"{pre}.up_b"].cpu()
+        elif kind == "dfl":
+            sd[f"{ul}.weight"] = torch.arange(
+                cfg.reg_max, dtype=torch.float32).reshape(1, -1, 1, 1)
+    return sd
+
+
+def model_io(model, frames) -> dict:
+    """A .pt (the script's own inversion) and an .onnx (export_onnx) of
+    YOLO11n-seg each load back into a pipeline with the source slate;
+    run_onnx on the card against the forward; export_compiled and
+    load_compiled on the card. Returns the seconds each step took."""
+    IO_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = ExecutorConfig(model=MODEL)
+    src = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=1,
+                         device=DEVICE).warmup()
+    want = src(frames[:1])
+    seconds = {}
+
+    def same_slate(pipe_params, what):
+        got = build_pipeline(cfg, pipe_params, frame_hw=FRAME_HW, batch=1,
+                             device=DEVICE)(frames[:1])
+        check(torch.equal(got["slate"], want["slate"])
+              and torch.equal(got["masks"], want["masks"]),
+              f"{what}: the slate differs from the source pipeline's")
+
+    t = time.perf_counter()
+    pt = IO_DIR / "yolo11n-seg.pt"
+    torch.save(pt_state_dict(model, MODEL), pt)
+    inferred = torch_pt.infer_pt_config(torch_pt.normalize_state_dict(
+        torch.load(pt, weights_only=True)), MODEL)
+    check(inferred == MODEL, f".pt: inferred {inferred}, not {MODEL}")
+    loaded, _ = load_params_auto(str(pt), MODEL)
+    same_slate(loaded, ".pt")
+    seconds[".pt write and load"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    onnx = IO_DIR / "yolo11n-seg.onnx"
+    export_onnx(model, MODEL, str(onnx))
+    loaded, _ = load_params_auto(str(onnx), MODEL)
+    same_slate(loaded, ".onnx")
+    seconds[".onnx export and load"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    exact = yolo11.YOLO11(EXACT_MODEL)
+    exact.load_state_dict(model.state_dict())
+    exact = exact.to(DEVICE).eval()
+    x = pre_ops.preprocess(torch.from_numpy(frames[:1]).to(DEVICE),
+                           MODEL.input_size, dtype=torch.float32)
+    with torch.inference_mode(), precision_scope("highest"):
+        out = exact(x)
+        ran = run_onnx(str(onnx), {"images": x.permute(0, 3, 1, 2)},
+                       device=DEVICE)
+    err = {k: float((a - b).abs().max()) for k, a, b in (
+        ("output0", ran["output0"].permute(0, 2, 1), out["preds"]),
+        ("output1", ran["output1"].permute(0, 2, 3, 1), out["protos"]))}
+    check(max(err.values()) <= ONNX_TOL,
+          f"run_onnx differs from the forward by {err} > {ONNX_TOL}")
+    seconds["run_onnx"] = time.perf_counter() - t
+    print(f"accuracy: run_onnx on the card against the float32 forward: max "
+          f"|err| {err} (tolerance {ONNX_TOL}: boxes in pixels, float32 "
+          "sums in another order)", flush=True)
+
+    t = time.perf_counter()
+    art = IO_DIR / "yolo11n-seg.xrseg"
+    export_compiled(src, str(art))
+    seconds["export_compiled"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run = load_compiled(str(art))
+    seconds["load_compiled"] = time.perf_counter() - t
+    before = nk.nms_select_batched_cuda.launches
+    got = run(frames[:1])
+    torch.cuda.synchronize()
+    check(nk.nms_select_batched_cuda.launches == before + 1,
+          "the compiled artifact did not launch K1")
+    check(torch.equal(got["slate"], want["slate"]),
+          "load_compiled: the slate differs from the source pipeline's")
+    print("accuracy: .pt, .onnx and the compiled artifact each give the "
+          "source slate (the artifact through K1); seconds "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }", flush=True)
+    return seconds
+
+
+def native_depth(model) -> dict:
+    """Classic executors with the torch and the native depth backend on
+    the phase-5 scene: the same target on every tick, points as phase 5's
+    classic check holds them."""
+    frames = xr_frames(NATIVE_TICKS + 2, FRAME_HW, DEPTH_HW, seed=3)
+    loops = {}
+    for backend in ("torch", "native"):
+        cfg = ExecutorConfig(model=MODEL, emit_masks="none")
+        loops[backend] = XRLoop(Executor(cfg, params=model,
+                                         frame_hw=FRAME_HW,
+                                         depth_backend=backend,
+                                         device=DEVICE))
+        start_tracking(loops[backend], frames)
+    worst, far, total = 0.0, 0, 0
+    for i, frame in enumerate(frames[2:]):
+        rt, _ = tick_until_result(loops["torch"], frame)
+        rn, _ = tick_until_result(loops["native"], frame)
+        check(rt.tracked is not None and rn.tracked is not None
+              and rt.tracked.index == rn.tracked.index,
+              f"native tick {i}: the backends track different boxes")
+        pt, pn = rt.point_cloud.positions, rn.point_cloud.positions
+        check(pt.shape == pn.shape and len(pt) > 0,
+              f"native tick {i}: {len(pn)} native points, {len(pt)} torch")
+        d = np.abs(pt - pn).max(-1)
+        worst, far, total = max(worst, float(d.max())), \
+            far + int((d > 1e-4).sum()), total + len(d)
+    check(worst <= 2e-2 and far <= 0.01 * total,
+          f"native points differ from torch: max {worst:.3e} m, {far} of "
+          f"{total} beyond 1e-4 m")
+    print(f"accuracy: depth_backend='native' tracks the torch backend's box "
+          f"with its points over {NATIVE_TICKS} ticks (max |diff| "
+          f"{worst:.2e} m, {far} of {total} points beyond 1e-4 m)",
+          flush=True)
+    return {"worst_m": worst, "beyond_1e-4": far, "points": total}
+
+
+def phase_accuracy(smi: str) -> dict:
+    """WBF (K5, K6) against the plain scan, merge="wbf" and the ensemble
+    on the main paths at full width, model I/O and the native depth
+    backend."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    cases = {"K5": [], "K6": []}
+    for name, B, K in WBF_CASES:
+        cases[name].append(wbf_case(rng, name, B, K))
+    seconds = {"kernels": time.perf_counter() - t0}
+
+    gen = torch.Generator
+    seg = detection_params(gen().manual_seed(0), MODEL, device=DEVICE)
+    seg_s = detection_params(gen().manual_seed(1), S_MODEL, device=DEVICE)
+    obb = detection_params(gen().manual_seed(0), OBB_MODEL, device=DEVICE)
+    frames = np.random.default_rng(9).integers(
+        0, 256, (8,) + FRAME_HW + (3,), np.uint8)
+    obb_frames = np.random.default_rng(10).integers(
+        0, 256, (1,) + OBB_FRAME_HW + (3,), np.uint8)
+
+    def post(merge, backend="auto"):
+        return PostprocessConfig(merge=merge, nms_backend=backend)
+
+    def pipes(backend):
+        wbf_cfg = ExecutorConfig(model=MODEL, post=post("wbf", backend))
+        members = dict(params_list=[seg, seg_s], model_cfgs=[MODEL, S_MODEL],
+                       frame_hw=FRAME_HW, batch=1, device=DEVICE)
+        return {
+            "seg_wbf_b1": build_pipeline(wbf_cfg, seg, frame_hw=FRAME_HW,
+                                         batch=1, device=DEVICE),
+            "seg_wbf_b8": build_pipeline(wbf_cfg, seg, frame_hw=FRAME_HW,
+                                         batch=8, device=DEVICE),
+            "obb_wbf_b1": build_pipeline(
+                ExecutorConfig(model=OBB_MODEL, post=post("wbf", backend)),
+                obb, frame_hw=OBB_FRAME_HW, batch=1, device=DEVICE),
+            "ensemble_wbf_b1": build_ensemble_pipeline(wbf_cfg, **members),
+            "ensemble_nms_b1": build_ensemble_pipeline(
+                ExecutorConfig(model=MODEL, post=post("nms", backend)),
+                **members)}
+
+    kern = {n: p.warmup() for n, p in pipes("auto").items()}
+
+    def inputs(n):
+        if n.startswith("obb"):
+            return obb_frames
+        return frames if n.endswith("b8") else frames[:1]
+
+    # --- the paths, with the launch counters zeroed around them
+    zero_counters()
+    with StreamRecorder() as streams:
+        runs = {n: p(inputs(n)) for n, p in kern.items()}
+        torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"accuracy: launches on the path {launches}; WBF streams "
+          f"{streams.widths}", flush=True)
+    check(launches[K5["name"]] == 3 and launches[K6["name"]] == 1
+          and launches[K1["name"]] == 1 and launches[K2["name"]] == 0
+          and launches[K3["name"]] == 0,
+          "the WBF and ensemble paths: expected K5 x3 (segment b=1, b=8, "
+          "the WBF ensemble), K6 x1 (obb), K1 x1 (the NMS ensemble)")
+    A = MODEL.num_anchors
+    check(streams.widths == [("K5", (1, A)), ("K5", (8, A)), ("K6", (1, K_OBB)),
+                             ("K5", (1, 2 * A))],
+          "the WBF scans did not run at the anchors of their paths")
+
+    # --- every path's slate full, finite and equal to the plain merge on
+    # the same frames (the same raw outputs: the forward is deterministic)
+    for n, plain in pipes("scan").items():
+        det = runs[n]
+        B = det["count"].shape[0]
+        if n.startswith("obb"):
+            check_obb_det(det, B, n)
+            # the obb decode leaves the merge to postprocess_obb_batch's own
+            # "auto", as in JAX: the plain scan is asked for there
+            x = pre_ops.preprocess(torch.from_numpy(inputs(n)).to(DEVICE),
+                                   OBB_MODEL.input_size, dtype=obb.dtype)
+            with torch.inference_mode():
+                out = obb(x, concat_preds=False)
+                ref = postprocess_obb_batch(
+                    out["boxes_xywhr"], out["cls_logits"], post("wbf"),
+                    scores_are_logits=True, backend="scan")
+            ref["slate"] = pack_slate(ref, MAX_DET)
+        else:
+            check_det(det, B, True, n)
+            ref = plain(inputs(n))
+        for k in ("slate", "indices"):
+            check(torch.equal(det[k], ref[k]),
+                  f"{n}: {k} differs from the plain merge's")
+        if "masks" in det:
+            check(torch.equal(det["masks"], ref["masks"]),
+                  f"{n}: masks differ from the plain merge's")
+    members = torch.bincount((runs["ensemble_nms_b1"]["indices"][0]
+                              // MODEL.num_anchors).long(), minlength=2)
+    print(f"accuracy: every WBF and ensemble slate 50/50 and finite, equal "
+          f"to the plain merge on the same frames; NMS ensemble survivors "
+          f"by member {members.tolist()}", flush=True)
+    # --- the kernels on the paths' own streams (every anchor live), timed
+    on_paths = {"K5": [], "K6": []}
+    for (name, shape), stream, n in zip(
+            streams.widths, streams.streams,
+            ("seg_wbf_b1", "seg_wbf_b8", "obb_wbf_b1", "ensemble_wbf_b1")):
+        rotated = name == "K6"
+        kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
+        args = (*stream, IOU, WBF_GATE, MAX_DET)
+        ms = cuda_ms(lambda: kernel(*args), 5)
+        bound_ms, bound_by = wbf_bound(stream, kernel(*args), rotated)
+        steps = int((stream[1] > np.float32(WBF_GATE)).sum(-1).max())
+        on_paths[name].append(dict(
+            case=f"{name} {n} B={shape[0]} K={shape[1]}", ms=ms,
+            bound_ms=bound_ms, bound_by=bound_by, steps=steps,
+            us_per_step=1e3 * ms / steps))
+        print(f"accuracy: {name} on the {n} path's stream: {ms:.4f} ms, "
+              f"{1e3 * ms / steps:.3f} us a step over {steps} live "
+              "candidates (equal to the plain scan through the slate check)",
+              flush=True)
+    seconds["paths and checks"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # --- timing, host frames in, host slate out
+    numbers = {}
+    for n, pipe in kern.items():
+        if n.endswith("b8"):
+            ms = host_ms(pipe, inputs(n), 8)
+            numbers[n] = {"frames_per_s": 8e3 / statistics.mean(ms)}
+        else:
+            ms = host_ms(pipe, inputs(n), 20)
+            numbers[n] = {"p50_ms": statistics.median(ms),
+                          "p95_ms": float(np.percentile(ms, 95))}
+    seconds["timing"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    io_s = model_io(seg, frames)
+    seconds["model I/O"] = time.perf_counter() - t0 - sum(seconds.values())
+    native = native_depth(seg)
+    seconds["native depth"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["whole phase"] = time.perf_counter() - t0
+    print("accuracy: " + json.dumps({
+        "card": smi,
+        "pipelines": {n: {k: round(v, 3) for k, v in d.items()}
+                      for n, d in numbers.items()},
+        "model_io_seconds": {k: round(v, 2) for k, v in io_s.items()},
+        "native_depth": native,
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}}),
+        flush=True)
+    return {"launches": launches, "cases": cases, "on_paths": on_paths}
+
+
+def wbf_kernels(acc: dict) -> list:
+    """K5's and K6's entries of the kernel line from phase 8's result: the
+    seeded cases held against the plain scan, their launches on phase 8's
+    paths, and their times on those paths' own streams."""
+    return [dict(k, main=acc["cases"][name][0], cases=acc["cases"][name],
+                 on_paths=acc["on_paths"][name],
+                 launches=acc["launches"][k["name"]],
+                 launches_by_path={"accuracy": acc["launches"][k["name"]]})
+            for k, name in ((K5, "K5"), (K6, "K6"))]
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
 WRAPPERS = (nk.nms_select_batched_cuda, nk.nms_select_cuda,
-            nk.nms_rotated_batched_cuda, mk.mask_synth_crop_cuda)
+            nk.nms_rotated_batched_cuda, mk.mask_synth_crop_cuda,
+            wbf.wbf_scan_cuda, wbf.wbf_rotated_scan_cuda)
 
 
 def zero_counters() -> None:
@@ -1798,11 +2278,14 @@ def kernel_line(kernels) -> dict:
             shape=m["case"],
             check=("crop equal to the plain version, values within 1e-5"
                    if k["name"] == K4["name"] else
+                   "every output equal to the plain scan in every case"
+                   if k["name"] in (K5["name"], K6["name"]) else
                    "idx/ok equal to the plain version in every case"),
-            **{key: k[key] for key in ("launches_note", "launches_by_path")
-               if key in k},
+            **{key: k[key] for key in ("launches_note", "launches_by_path",
+                                       "replaces_note") if key in k},
             cases=[{key: c[key] for key in CASE_KEYS if key in c}
-                   for c in k["cases"]]))
+                   for c in k["cases"]],
+            **({"on_paths": k["on_paths"]} if "on_paths" in k else {})))
     return {"kernels": rows}
 
 
@@ -1851,6 +2334,12 @@ def main() -> int:
         kernels[2]["launches_by_path"]["obb"] = obb[K3["name"]]
         kernels[0]["cases"] += tasks["k1_cases"]
         kernels[2]["cases"] += tasks["k3_cases"]
+        acc = phase_accuracy(smi)
+        seconds["accuracy"] = time.perf_counter() - t0 - sum(seconds.values())
+        kernels[0]["launches"] += acc["launches"][K1["name"]]
+        kernels[0]["launches_by_path"]["ensemble"] = \
+            acc["launches"][K1["name"]]
+        kernels += wbf_kernels(acc)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

@@ -12,7 +12,9 @@ The NMS kernels (K1-K3) must give the plain versions' idx/ok exactly, under
 the launch plan's own cluster size and under every forced one (1, 2, 4, 8
 blocks per image; a size whose blocks cannot hold K must be refused). K4
 must zero exactly the pixels its plain version zeroes, with values within
-1e-5 (the dot products are summed in another order than cuBLAS's).
+1e-5 (the dot products are summed in another order than cuBLAS's). The
+WBF scans (K5, K6) must give every output of their plain versions exactly,
+at max_det up to the 1024 a block holds.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfi
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
+from xrseg_tpu_torch.ops import wbf
 from xrseg_tpu_torch.ops.postprocess import postprocess_obb_batch
 from xrseg_tpu_torch.ops.preprocess import preprocess
 from xrseg_tpu_torch.testing import detection_params, limit_cpu_threads
@@ -562,3 +565,163 @@ def test_bf16_storage_launches_no_weight_cast(card):
             e.device_type == torch.autograd.DeviceType.CUDA
             for e in prof.events()))
     assert launches[0] - launches[1] == n_weights, (launches, n_weights)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: the WBF scan (ops/wbf.py, csrc/wbf.cu)
+# ---------------------------------------------------------------------------
+
+def _wbf_stream(seed, B, K, rotated=False, n_labels=3, gate=0.3,
+                empty_last=False, device="cpu"):
+    """A score-sorted stream of jittered clusters (K // 8 centres) with
+    bf16-tied scores and mixed labels, as ops/wbf._topk_candidates gives
+    it to the scan."""
+    rng = np.random.default_rng(seed)
+    nc = max(K // 8, 1)
+    pick = rng.integers(0, nc, (B, K))
+    take = pick[..., None].repeat(2, -1)
+    xy = np.take_along_axis(rng.uniform(20, 600, (B, nc, 2)), take, 1) \
+        + rng.normal(0, 2, (B, K, 2))
+    wh = np.take_along_axis(rng.uniform(8, 80, (B, nc, 2)), take, 1) \
+        * rng.uniform(0.9, 1.1, (B, K, 2))
+    boxes = np.concatenate([xy, wh], -1)
+    if rotated:
+        ang = np.take_along_axis(rng.uniform(-np.pi / 2, np.pi / 2, (B, nc)),
+                                 pick, 1) + rng.normal(0, 0.05, (B, K))
+        boxes = np.concatenate([boxes, ang[..., None]], -1)
+    scores = torch.from_numpy(rng.uniform(0, 1, (B, K)).astype(
+        np.float32)).bfloat16().float()
+    if empty_last:
+        scores[-1] = scores[-1].clamp_max(gate * 0.9)
+    labels = torch.from_numpy(rng.integers(0, n_labels, (B, K)).astype(
+        np.int32))
+    stream = wbf._topk_candidates(torch.from_numpy(boxes.astype(np.float32)),
+                                  scores, labels, 0)
+    return tuple(t.to(device) for t in stream)
+
+
+WBF_CASES = [(1, 8400, 50, True), (3, 2000, 50, True), (3, 2000, 50, False),
+             (2, 2000, 1024, True), (4, 600, 7, True), (1, 1, 50, True)]
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["K5", "K6"])
+@pytest.mark.parametrize("B,K,D,class_aware", WBF_CASES)
+def test_wbf_scan_equals_plain(card, rotated, B, K, D, class_aware):
+    """Every output of the kernel EQUAL to the plain scan's on the card:
+    the clusters' sums, counts, top members, labels, the open slots and
+    n_open; with a forced D = 1024 (a full block), a D that the clusters
+    overflow, and an image whose every score is below the gate."""
+    if rotated and K == 8400:
+        K = 21504
+    stream = _wbf_stream(K + D, B, K, rotated, empty_last=B > 1,
+                         device=card)
+    kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
+    plain = wbf.wbf_rotated_scan_plain if rotated else wbf.wbf_scan_plain
+    before = kernel.launches
+    got = kernel(*stream, 0.55, 0.3, D, class_aware)
+    ref = plain(*stream, 0.55, 0.3, D, class_aware)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), i
+    if B > 1:
+        assert int(got[-1][-1]) == 0               # all below the gate
+
+
+def test_wbf_wrapper_refuses_what_the_kernel_does_not_take(card):
+    stream = _wbf_stream(0, 1, 64, device=card)
+    before = wbf.wbf_scan_cuda.launches
+    with pytest.raises(ValueError, match="1 to 1024 clusters"):
+        wbf.wbf_scan_cuda(*stream, 0.55, 0.3, 1025)
+    with pytest.raises(TypeError, match="int32"):
+        wbf.wbf_scan_cuda(stream[0], stream[1], stream[2].long(), stream[3],
+                          0.55, 0.3, 50)
+    with pytest.raises(ValueError, match=r"boxes \[B,K,5\]"):
+        wbf.wbf_rotated_scan_cuda(*stream, 0.55, 0.3, 50)
+    assert wbf.wbf_scan_cuda.launches == before
+
+
+@pytest.mark.parametrize("task", ["segment", "obb"])
+def test_wbf_pipeline_goes_through_the_kernels(card, task):
+    """merge="wbf": one K5 (K6 for obb) launch per batch, and the slate of
+    the same pipeline with the plain scan (nms_backend="scan")."""
+    cfg = ExecutorConfig(model=ModelConfig(task=task, num_classes=3,
+                                           input_size=(128, 128)),
+                         post=PostprocessConfig(merge="wbf"))
+    scan = ExecutorConfig(model=cfg.model, post=PostprocessConfig(
+        merge="wbf", nms_backend="scan"))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
+                                               np.uint8)
+    kernel = wbf.wbf_rotated_scan_cuda if task == "obb" else \
+        wbf.wbf_scan_cuda
+    before = kernel.launches
+    got = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)(frames)
+    assert kernel.launches == before + 1
+    if task == "obb":
+        # decode_task_outputs leaves the obb backend to its own "auto"
+        x = preprocess(torch.from_numpy(frames).to(card), (128, 128),
+                       dtype=model.dtype)
+        with torch.inference_mode():
+            out = model(x, concat_preds=False)
+            ref = postprocess_obb_batch(out["boxes_xywhr"],
+                                        out["cls_logits"], cfg.post,
+                                        scores_are_logits=True,
+                                        backend="scan")
+        assert torch.equal(got["slate"], pack_slate(ref, 50))
+    else:
+        ref = build_pipeline(scan, model, frame_hw=(96, 128),
+                             batch=2)(frames)
+        assert torch.equal(got["slate"], ref["slate"])
+        assert torch.equal(got["masks"], ref["masks"])
+    assert int(got["count"].min()) > 0
+
+
+@pytest.mark.parametrize("merge", ["wbf", "nms"])
+def test_ensemble_goes_through_k5_or_k1(card, merge):
+    from xrseg_tpu_torch.compile import build_ensemble_pipeline
+    cfgs = [ModelConfig(scale=s, num_classes=3, input_size=(128, 128))
+            for s in ("n", "s")]
+    cfg = ExecutorConfig(model=cfgs[0], post=PostprocessConfig(merge=merge))
+    scan = ExecutorConfig(model=cfgs[0], post=PostprocessConfig(
+        merge=merge, nms_backend="scan"))
+    models = [detection_params(torch.Generator().manual_seed(i), c,
+                               device=card) for i, c in enumerate(cfgs)]
+    frames = np.random.default_rng(1).integers(0, 256, (1, 96, 128, 3),
+                                               np.uint8)
+    kernel = wbf.wbf_scan_cuda if merge == "wbf" else \
+        tk.nms_select_batched_cuda
+    before = kernel.launches
+    got = build_ensemble_pipeline(cfg, models, cfgs, frame_hw=(96, 128),
+                                  batch=1)(frames)
+    assert kernel.launches == before + 1
+    ref = build_ensemble_pipeline(scan, models, cfgs, frame_hw=(96, 128),
+                                  batch=1)(frames)
+    for k in ("slate", "indices", "masks"):
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_compiled_artifact_holds_the_kernels(card, tmp_path):
+    """export_compiled on the card: the program calls the custom ops, whose
+    CUDA implementation is the kernel (each launch counted), and gives the
+    pipeline's slate."""
+    from xrseg_tpu_torch.compile import export_compiled, load_compiled
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    frames = np.random.default_rng(2).integers(0, 256, (1, 96, 128, 3),
+                                               np.uint8)
+    for merge, kernel in (("nms", tk.nms_select_batched_cuda),
+                          ("wbf", wbf.wbf_scan_cuda)):
+        c = ExecutorConfig(model=cfg.model,
+                           post=PostprocessConfig(merge=merge))
+        pipe = build_pipeline(c, model, frame_hw=(96, 128), batch=1)
+        path = str(tmp_path / f"{merge}.xrseg")
+        export_compiled(pipe, path)
+        run = load_compiled(path)
+        before = kernel.launches
+        got = run(frames)
+        assert kernel.launches == before + 1
+        want = pipe(frames)
+        assert torch.equal(got["slate"], want["slate"])

@@ -272,8 +272,23 @@ def test_between_frame_extraction_and_detect_task(weights):
 
 
 def test_defaults_to_the_card_and_refuses_native(weights):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PointCloudExtractor(backend="native", device="cpu")
+    """The native backend, once refused (the name is kept), now runs the
+    C++ fusion on the host mask: the same target's points as the torch
+    backend (valid equal, positions within 2e-4 m, the C++ and torch
+    fusions' agreement with the JAX package's numpy oracle). An unknown
+    backend ("jax", the JAX package's own name) stays refused."""
+    clouds = {}
+    for backend in ("torch", "native"):
+        ex = Executor(_cfg(emit_masks="none"), params=weights[1],
+                      frame_hw=(64, 64), depth_backend=backend, device="cpu")
+        assert ex.points.backend == backend
+        b = ex.run_sync(_frame(5)).boxes[0]
+        clouds[backend] = ex.extract_point_cloud_at_screen_pos(
+            (b.center_x + 32, b.center_y + 32))
+    t, n = clouds["torch"], clouds["native"]
+    assert len(n.positions) == len(t.positions) > 0
+    np.testing.assert_allclose(n.positions, t.positions, atol=2e-4, rtol=0)
+    np.testing.assert_allclose(n.depths, t.depths, atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="unknown"):
         PointCloudExtractor(backend="jax", device="cpu")
     if torch.cuda.is_available():

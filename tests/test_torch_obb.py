@@ -340,10 +340,23 @@ def test_postprocess_obb_batch_matches_jax():
 
 
 def test_postprocess_obb_wbf_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpost.postprocess_obb_batch(
-            torch.zeros(1, 8, 5), torch.zeros(1, 8, 15),
-            tconfig.PostprocessConfig(merge="wbf"))
+    """Once refused (the name is kept): merge="wbf" runs rotated WBF on the
+    probabilities, as JAX's postprocess_obb_batch does."""
+    rng = np.random.default_rng(5)
+    boxes = _rboxes(rng, 2, 400)
+    logits = rng.normal(0, 2, (2, 400, 15)).astype(np.float32)
+    pcfg = dict(iou_threshold=0.5, score_threshold=0.4, max_detections=30,
+                merge="wbf")
+    j = jpost.postprocess_obb_batch(jnp.asarray(boxes), jnp.asarray(logits),
+                                    jconfig.PostprocessConfig(**pcfg),
+                                    scores_are_logits=True)
+    t = tpost.postprocess_obb_batch(torch.from_numpy(boxes),
+                                    torch.from_numpy(logits),
+                                    tconfig.PostprocessConfig(**pcfg),
+                                    scores_are_logits=True)
+    assert int(t["count"].min()) > 0
+    _assert_det_close(dict(t, slate=tcompile.pack_slate(t, 30)),
+                      dict(j, slate=jcompile.pack_slate(j, 30)))
 
 
 @pytest.fixture(scope="module")

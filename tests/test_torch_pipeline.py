@@ -176,11 +176,18 @@ def test_unported_options_refused(option, weights):
     _assert_det_close(t, j, ["coefs", "masks"])
 
 
-def test_wbf_merge_refused():
-    _, tcfg = _configs(merge="wbf")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcompile.build_pipeline(tcfg, tcompile.yolo11.YOLO11(tcfg.model),
-                                device="cpu")
+def test_wbf_merge_refused(weights):
+    """Once refused (the name is kept): merge="wbf" fuses the candidates
+    as the JAX pipeline does, masks from each cluster's top member."""
+    jcfg, tcfg = _configs(merge="wbf")
+    frames = _frames(2)
+    j = jcompile.build_pipeline(jcfg, weights, frame_hw=(48, 64),
+                                batch=2)(jnp.asarray(frames))
+    t = tcompile.build_pipeline(tcfg, params_from_jax(weights, tcfg.model),
+                                frame_hw=(48, 64), batch=2,
+                                device="cpu")(frames)
+    assert int(t["count"].min()) > 0
+    _assert_det_close(t, j, ["coefs", "masks"])
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu():

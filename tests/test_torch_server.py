@@ -249,6 +249,38 @@ def test_reload_from_a_jax_npz(weights, tmp_path):
         srv.close()
 
 
+def test_reload_takes_pt_and_onnx(weights, tmp_path):
+    """/reload reads .pt (an ultralytics fused-form state dict) and .onnx
+    (the JAX package's export) through load_params_auto: the answers are
+    those of a fresh server on the same weights."""
+    from xrseg_tpu.io.onnx_export import export_onnx
+    from test_pt_loader import make_state_dict
+    import torch
+    new = jax.tree.map(np.copy, weights[0])
+    for branch in new["det"]["cv3"]:
+        b = branch["out"]["b"]
+        b[1], b[3] = b[3], b[1]
+    jcfg = jconfig.ModelConfig(**MODEL)
+    pt, onnx = str(tmp_path / "new.pt"), str(tmp_path / "new.onnx")
+    torch.save(make_state_dict(new, jcfg, None, fused=True), pt)
+    export_onnx(new, jcfg, onnx)
+    srv = InferenceServer(_cfg(), params=weights[1], port=0, device="cpu")
+    fresh = InferenceServer(_cfg(), params=params_from_jax(
+        new, tconfig.ModelConfig(**MODEL)), port=0, device="cpu")
+    try:
+        srv.start()
+        img = _npy(_img(21))
+        want = _boxes(fresh._format(fresh._run(
+            fresh.pipeline, np.load(io.BytesIO(img))[None], 1)[0], 0.0))
+        assert _boxes(_post(srv, img)) != want
+        for path in (pt, onnx):
+            assert _reload(srv, path)["ok"]
+            assert _boxes(_post(srv, img)) == want
+    finally:
+        srv.close()
+        fresh.close()
+
+
 def test_overload_sheds_503_and_recovers(weights):
     """Micro-batch path: with the device lock held, the dispatcher stalls,
     the queue (cap 2) fills and the rest get 503 + Retry-After at once;

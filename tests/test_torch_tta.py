@@ -161,11 +161,23 @@ def test_tta_validation_matches_jax(case):
 
 
 def test_wbf_and_the_ensemble_stay_refused():
-    _, tcfg = _configs("detect")
-    wbf = tconfig.ExecutorConfig(model=tcfg.model, post=tconfig.
-                                 PostprocessConfig(merge="wbf"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tcompile.build_pipeline(wbf, tcompile.yolo11.YOLO11(tcfg.model),
-                                device="cpu", tta=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tcompile.build_ensemble_pipeline(tcfg, [])
+    """Once refused (the name is kept): TTA under merge="wbf" fuses the
+    views' candidates as the JAX package's does, and the ensemble builds
+    and keeps JAX's validation."""
+    frames = np.random.default_rng(4).integers(0, 256, (1, 48, 64, 3),
+                                               np.uint8)
+    jcfg, tcfg = _configs("detect")
+    jcfg = jconfig.ExecutorConfig(model=jcfg.model, post=jconfig.
+                                  PostprocessConfig(merge="wbf", **POST))
+    tcfg = tconfig.ExecutorConfig(model=tcfg.model, post=tconfig.
+                                  PostprocessConfig(merge="wbf", **POST))
+    p = detecting_tree(jcfg.model)
+    kw = dict(frame_hw=(48, 64), batch=1, tta=True)
+    j = jax.device_get(jcompile.build_pipeline(jcfg, p, **kw)(
+        jnp.asarray(frames)))
+    t = tcompile.build_pipeline(tcfg, params_from_jax(p, tcfg.model),
+                                device="cpu", **kw)(frames)
+    assert int(t["count"][0]) > 0
+    assert_tta_close(t, j)
+    with pytest.raises(ValueError, match="non-empty"):
+        tcompile.build_ensemble_pipeline(tcfg, [], device="cpu")

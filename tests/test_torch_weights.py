@@ -153,10 +153,28 @@ def test_dequantized_pipeline_matches_jax(weights, frames, tmp_path):
 
 @pytest.mark.parametrize("name", ["w.sentis", "w.onnx", "w.pt", "w.pth",
                                   "orbax_dir"])
-def test_load_params_auto_refuses_other_formats(name, tmp_path):
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tw.load_params_auto(str(tmp_path / name), tcfg.model)
+def test_load_params_auto_refuses_other_formats(name, tmp_path, weights,
+                                                frames):
+    """.sentis and orbax directories stay refused, naming the npz route;
+    .onnx (a JAX export), .pt and .pth (an ultralytics-style fused state
+    dict) now load, and the pipeline on what was read gives the JAX
+    pipeline's slate on the same params (the name is kept)."""
+    jcfg, tcfg = _configs()
+    path = str(tmp_path / name)
+    if name in ("w.sentis", "orbax_dir"):
+        with pytest.raises(NotImplementedError, match="item 13.*npz"):
+            tw.load_params_auto(path, tcfg.model)
+        return
+    if name == "w.onnx":
+        from xrseg_tpu.io.onnx_export import export_onnx
+        export_onnx(weights, jcfg.model, path)
+    else:
+        from test_pt_loader import make_state_dict
+        torch.save(make_state_dict(weights, jcfg.model, None, fused=True),
+                   path)
+    model, cfg = tw.load_params_auto(path, tcfg.model)
+    assert cfg == tcfg.model
+    _assert_slate_close(_torch_det(model, frames), _jax_det(weights, frames))
 
 
 def test_load_npz_is_strict(weights, tmp_path):

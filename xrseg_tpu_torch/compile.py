@@ -15,12 +15,20 @@ at build); the NMS-free one-to-one head (ModelConfig.o2o); the obb task
 (rotated NMS; the slate carries 5-wide boxes_xywhr); the pose task (its
 slate is the box slate, the survivors' keypoints ride beside it as
 det["kpts"]); the classify task (its slate IS the [B, nc] prob row);
-both archs; test-time augmentation (tta, tta_views, tta_kpt_flip_idx:
-every view in ONE batched forward, the candidates of all views in ONE
-NMS call); and the fused XR tick (`build_xr_tick_pipeline`: frame,
-re-lock, target mask and RGBD fusion as one program with one packed
-readback). merge="wbf" and the ensemble pipeline raise
-NotImplementedError naming ROADMAP item 9.
+both archs; weighted box fusion (PostprocessConfig.merge="wbf": K5, K6
+for obb; pose keeps NMS, as in JAX); test-time augmentation (tta,
+tta_views, tta_kpt_flip_idx: every view in ONE batched forward, the
+candidates of all views in ONE merge); the model ensemble
+(`build_ensemble_pipeline`: every member's candidates in one merge); the
+fused XR tick (`build_xr_tick_pipeline`: frame, re-lock, target mask and
+RGBD fusion as one program with one packed readback); and the compiled
+artifact (`export_compiled`/`load_compiled`: a torch.export program, the
+kernels inside as custom ops) with its converter CLI,
+
+    python -m xrseg_tpu_torch.compile weights.{pt|onnx|npz} --out model.xrseg
+        [--device cuda]
+
+which writes an ultralytics-contract .onnx instead for an .onnx --out.
 
 Every pipeline owns a `device.Readback` (one pinned host buffer, one copy
 stream) of its slate's or packed output's length; the executor starts it
@@ -32,6 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +50,8 @@ import torch
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfig
 from xrseg_tpu_torch.device import Readback, resolve_device, to_device
-from xrseg_tpu_torch.io.weights import cast_params
+from xrseg_tpu_torch.io.onnx_export import export_onnx
+from xrseg_tpu_torch.io.weights import cast_params, load_params_auto
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.ops import preprocess as pre_ops
@@ -78,26 +89,32 @@ class CompiledPipeline:
         """frames: uint8 [B,H,W,3], or with input_format="yuv420" a tuple
         (y [B,H,W], u [B,H/2,W/2], v [B,H/2,W/2]) of uint8 planes; numpy
         or tensors, on any device."""
-        mcfg = self.cfg.model
-        with torch.inference_mode(), precision_scope(mcfg.matmul_precision):
+        with torch.inference_mode(), \
+                precision_scope(self.cfg.model.matmul_precision):
             if self.input_format == "yuv420":
-                x = yuv420_to_rgb(*(to_device(p, self.device)
-                                    for p in frames))
-            else:
-                x = to_device(frames, self.device)
-            x = pre_ops.preprocess(x, mcfg.input_size, mode=self.resize_mode,
-                                   dtype=getattr(torch, mcfg.dtype))
-            if self.tta_views is not None:
-                return _decode_tta(
-                    self.params, x, mcfg, self.cfg.post,
-                    crop_masks=self.crop_masks, mask_dtype=self.mask_dtype,
-                    mask_display_hw=self.mask_display_hw,
-                    kpt_flip_idx=self.tta_kpt_flip_idx, views=self.tta_views)
-            out = self.params(x, concat_preds=False)
-            return decode_task_outputs(
-                out, mcfg, self.cfg.post, crop_masks=self.crop_masks,
-                mask_dtype=self.mask_dtype, emit_masks=self.emit_masks,
-                mask_display_hw=self.mask_display_hw)
+                return self.run(*(to_device(p, self.device) for p in frames))
+            return self.run(to_device(frames, self.device))
+
+    def run(self, *frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The program on frames that already lie on the device (one uint8
+        tensor, or the three yuv420 planes): what export_compiled traces.
+        The caller sets the grad mode and the matmul precision."""
+        mcfg = self.cfg.model
+        x = yuv420_to_rgb(*frames) if self.input_format == "yuv420" \
+            else frames[0]
+        x = pre_ops.preprocess(x, mcfg.input_size, mode=self.resize_mode,
+                               dtype=getattr(torch, mcfg.dtype))
+        if self.tta_views is not None:
+            return _decode_tta(
+                self.params, x, mcfg, self.cfg.post,
+                crop_masks=self.crop_masks, mask_dtype=self.mask_dtype,
+                mask_display_hw=self.mask_display_hw,
+                kpt_flip_idx=self.tta_kpt_flip_idx, views=self.tta_views)
+        out = self.params(x, concat_preds=False)
+        return decode_task_outputs(
+            out, mcfg, self.cfg.post, crop_masks=self.crop_masks,
+            mask_dtype=self.mask_dtype, emit_masks=self.emit_masks,
+            mask_display_hw=self.mask_display_hw)
 
     def dummy_input(self):
         """Zero frames of the pipeline's geometry and input format."""
@@ -315,29 +332,110 @@ def _decode_tta(model: yolo11.YOLO11, x: torch.Tensor, mcfg: ModelConfig,
         mcfg.input_size, mask_dtype=mask_dtype, scores_are_logits=True,
         with_masks=False)
     if view_protos is not None:
-        det.pop("protos", None)
-        coefs = det["coefs"].to(mask_dtype)
-        view_idx = (det["indices"] // A)[..., None, None]   # [B,D,1,1]
-        m = mask_ops.synthesize_masks(coefs, view_protos[0].to(mask_dtype))
-        for vi in range(1, len(views)):
-            mv = mask_ops.synthesize_masks(coefs,
-                                           view_protos[vi].to(mask_dtype))
-            m = torch.where(view_idx == vi, mv, m)
-        if crop_masks:
-            m = mask_ops.crop_masks(m, det["boxes_xywh"], mcfg.input_size)
-        if mask_display_hw is not None:
-            m = upsample_masks(m, mask_display_hw)
-        det["masks"] = m.to(mask_dtype)
+        _masks_by_source(det, view_protos, A, mcfg, crop_masks, mask_dtype,
+                         mask_display_hw)
     det["slate"] = pack_slate(det, pcfg.max_detections)
     return det
 
 
-def build_ensemble_pipeline(*args, **kwargs):
-    """The JAX package's model ensemble (every checkpoint's candidates in
-    one merge, normally WBF) is not ported yet."""
-    raise NotImplementedError(
-        "the ensemble pipeline is not ported yet (ROADMAP queue 1, item 9: "
-        "accuracy modes, ops/wbf.py)")
+def _masks_by_source(det, protos_list, A: int, mcfg: ModelConfig,
+                     crop_masks: bool, mask_dtype, mask_display_hw) -> None:
+    """Each survivor's mask against the protos of its own source (a TTA
+    view or an ensemble member: indices // A), from a coefs-only det; the
+    protos entry is replaced by det["masks"]."""
+    det.pop("protos", None)
+    coefs = det["coefs"].to(mask_dtype)
+    source = (det["indices"] // A)[..., None, None]        # [B,D,1,1]
+    m = mask_ops.synthesize_masks(coefs, protos_list[0].to(mask_dtype))
+    for i in range(1, len(protos_list)):
+        mi = mask_ops.synthesize_masks(coefs, protos_list[i].to(mask_dtype))
+        m = torch.where(source == i, mi, m)
+    if crop_masks:
+        m = mask_ops.crop_masks(m, det["boxes_xywh"], mcfg.input_size)
+    if mask_display_hw is not None:
+        m = upsample_masks(m, mask_display_hw)
+    det["masks"] = m.to(mask_dtype)
+
+
+@dataclasses.dataclass
+class EnsemblePipeline(CompiledPipeline):
+    """A model ensemble as one frame -> detections program: `params` is the
+    tuple of member modules and `model_cfgs` their configs
+    (build_ensemble_pipeline)."""
+    model_cfgs: Tuple[ModelConfig, ...] = ()
+
+    def run(self, *frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        mcfg, pcfg = self.cfg.model, self.cfg.post
+        x = pre_ops.preprocess(frames[0], mcfg.input_size,
+                               mode=self.resize_mode,
+                               dtype=getattr(torch, mcfg.dtype))
+        outs = [m(x, concat_preds=False) for m in self.params]
+        A = outs[0]["cls_logits"].shape[1]
+        coefs_all = protos_list = None
+        if mcfg.task == "segment":
+            coefs_all = torch.cat([o["mask_coefs"] for o in outs], 1)
+            protos_list = [o["protos"] for o in outs]
+        det = postprocess_batch_parts(
+            torch.cat([o["boxes_xywh"] for o in outs], 1),
+            torch.cat([o["cls_logits"] for o in outs], 1), coefs_all,
+            protos_list[0] if protos_list else None, pcfg, False,
+            mcfg.input_size, mask_dtype=self.mask_dtype,
+            scores_are_logits=True, with_masks=False)
+        if protos_list is not None:
+            _masks_by_source(det, protos_list, A, mcfg, self.crop_masks,
+                             self.mask_dtype, None)
+        det["slate"] = pack_slate(det, pcfg.max_detections)
+        return det
+
+
+def build_ensemble_pipeline(cfg: ExecutorConfig, params_list,
+                            model_cfgs=None, *,
+                            frame_hw: Optional[Tuple[int, int]] = None,
+                            batch: Optional[int] = None,
+                            resize_mode: str = "stretch",
+                            crop_masks: bool = False,
+                            mask_dtype: str = "float32",
+                            device="cuda") -> EnsemblePipeline:
+    """A model ensemble in one program (the JAX package's
+    build_ensemble_pipeline): every member's forward runs on the same
+    preprocessed frames, the candidates concatenate along the anchor axis
+    (A -> M*A) and merge through cfg.post: merge="wbf" fuses what the
+    members agree on (K5 at M*A on the card), "nms" keeps the best single
+    candidate (K1 at M*A).
+
+    params_list: YOLO11 modules; model_cfgs: their ModelConfigs when the
+    members differ in scale (n + s + ...; the same task, classes and input
+    size, validated as in the JAX package), else cfg.model for each.
+    Segment masks stay exact per member: each survivor synthesizes against
+    its own member's protos (indices // A), as TTA does per view."""
+    mcfg = cfg.model
+    model_cfgs = list(model_cfgs or [mcfg] * len(params_list))
+    if len(model_cfgs) != len(params_list) or not params_list:
+        raise ValueError("params_list and model_cfgs must be equal-length"
+                         " and non-empty")
+    for mc in model_cfgs:
+        if (mc.task, mc.num_classes, mc.input_size) != \
+                (mcfg.task, mcfg.num_classes, mcfg.input_size):
+            raise ValueError("ensemble members must share task/classes/"
+                             f"input_size; got {mc.task}/{mc.num_classes}"
+                             f"/{mc.input_size} vs {mcfg.task}/"
+                             f"{mcfg.num_classes}/{mcfg.input_size}")
+    if mcfg.task not in ("detect", "segment"):
+        raise ValueError("ensemble pipeline supports detect/segment"
+                         f" (got {mcfg.task!r})")
+    _check_merge(cfg.post)
+    dev = resolve_device(device)
+    members = tuple(
+        _bind_params(dataclasses.replace(cfg, model=mc), p, None).to(dev)
+        .eval() for p, mc in zip(params_list, model_cfgs))
+    B = batch or cfg.batch_size
+    fh, fw = frame_hw or mcfg.input_size
+    return EnsemblePipeline(
+        cfg=cfg, params=members, input_shape=(B, fh, fw, 3), device=dev,
+        resize_mode=resize_mode, crop_masks=crop_masks,
+        mask_dtype=getattr(torch, mask_dtype),
+        readback=Readback(B * slate_length(cfg.post.max_detections), dev),
+        model_cfgs=tuple(model_cfgs))
 
 
 def _bind_params(cfg: ExecutorConfig, params, params_dtype
@@ -613,3 +711,129 @@ def load_model(cfg: ExecutorConfig, params: Optional[yolo11.YOLO11] = None,
         params = yolo11.init_params(torch.Generator().manual_seed(seed),
                                     cfg.model)
     return build_pipeline(cfg, params, device=device, **kw).warmup()
+
+
+# ---------------------------------------------------------------------------
+# The compiled artifact and the converter CLI
+# ---------------------------------------------------------------------------
+
+ARTIFACT_META = "xrseg.json"         # the artifact's own entry: its geometry
+
+
+class _Program(torch.nn.Module):
+    """A pipeline's run() as a module with its weights registered, so that
+    torch.export lifts them into the program."""
+
+    def __init__(self, pipe: CompiledPipeline):
+        super().__init__()
+        params = pipe.params
+        self.models = torch.nn.ModuleList(
+            params if isinstance(params, tuple) else (params,))
+        self.pipe = pipe
+
+    def forward(self, *frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.pipe.run(*frames)
+
+
+def export_compiled(pipe: CompiledPipeline, path: str) -> None:
+    """Serialize the frame -> detections pipeline, weights inside, to one
+    artifact (the JAX package's StableHLO export, here a torch.export
+    program written by torch.export.save). The NMS and WBF kernels are
+    torch.library custom ops, so on the card the program holds the
+    kernels themselves; on the CPU it holds their plain versions. The
+    program runs on the pipeline's device at its batch and frame size;
+    load_compiled reads it back."""
+    pipe(pipe.dummy_input())         # the cached device constants, for real
+    frames = pipe.dummy_input()
+    frames = tuple(frames) if pipe.input_format == "yuv420" else (frames,)
+    frames = tuple(to_device(f, pipe.device) for f in frames)
+    with torch.no_grad(), precision_scope(pipe.cfg.model.matmul_precision):
+        program = torch.export.export(_Program(pipe), frames, strict=False)
+    meta = {"device": str(pipe.device), "input_shape": pipe.input_shape,
+            "input_format": pipe.input_format,
+            "matmul_precision": pipe.cfg.model.matmul_precision,
+            "cfg": dataclasses.asdict(pipe.cfg)}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:      # a file object: any name, not only .pt2
+        torch.export.save(program, f,
+                          extra_files={ARTIFACT_META: json.dumps(meta)})
+
+
+def load_compiled(path: str):
+    """Load an export_compiled artifact. Returns fn(frames) -> the
+    detection dict; frames (numpy or tensors, uint8 [B,H,W,3] or the three
+    yuv420 planes) are moved to the device the artifact was made for."""
+    extra = {ARTIFACT_META: ""}
+    with open(path, "rb") as f:
+        program = torch.export.load(f, extra_files=extra).module()
+    meta = json.loads(extra[ARTIFACT_META])
+    dev = resolve_device(meta["device"])
+
+    def run(frames) -> Dict[str, torch.Tensor]:
+        frames = tuple(frames) if meta["input_format"] == "yuv420" \
+            else (frames,)
+        with torch.no_grad(), precision_scope(meta["matmul_precision"]):
+            return program(*(to_device(f, dev) for f in frames))
+
+    run.meta = meta
+    return run
+
+
+def _main(argv: Optional[Sequence[str]] = None) -> int:
+    """Offline model converter:
+
+      python -m xrseg_tpu_torch.compile weights.{pt|onnx|npz} \\
+          --out model.xrseg [--scale n] [--iou 0.6] [--score 0.23] \\
+          [--frame-hw 480 640] [--batch 1] [--device cuda]
+
+    Loads the weights, builds preprocess + network + decode + NMS + masks
+    as one pipeline on --device and saves it with export_compiled. With an
+    .onnx --out it writes an ultralytics-contract ONNX file instead
+    (io/onnx_export, on the host), the format the reference's Unity
+    converter consumes."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("weights")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--scale", default="n")
+    ap.add_argument("--arch", default="yolo11",
+                    choices=["yolo11", "yolov8"])
+    ap.add_argument("--task", default="segment",
+                    choices=["segment", "detect"])
+    ap.add_argument("--classes", type=int, default=80,
+                    help="num classes (npz checkpoints carry no metadata; "
+                         ".pt infers it)")
+    ap.add_argument("--size", type=int, default=640,
+                    help="input size (multiple of 32)")
+    ap.add_argument("--iou", type=float, default=0.6)
+    ap.add_argument("--score", type=float, default=0.23)
+    ap.add_argument("--frame-hw", type=int, nargs=2, default=None)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the artifact runs on (default: the "
+                         "card); an .onnx --out is written on the host")
+    args = ap.parse_args(argv)
+
+    params, mcfg = load_params_auto(
+        args.weights, ModelConfig(arch=args.arch, scale=args.scale,
+                                  task=args.task, num_classes=args.classes,
+                                  input_size=(args.size, args.size)))
+    if args.out.endswith(".onnx"):
+        export_onnx(params, mcfg, args.out)
+        print(f"exported {args.weights} -> {args.out} "
+              f"({os.path.getsize(args.out) / 1e6:.1f} MB, ONNX opset 13)")
+        return 0
+    cfg = ExecutorConfig(model=mcfg, post=PostprocessConfig(
+        iou_threshold=args.iou, score_threshold=args.score))
+    pipe = build_pipeline(cfg, params, frame_hw=(tuple(args.frame_hw)
+                                                 if args.frame_hw else None),
+                          batch=args.batch, device=args.device)
+    export_compiled(pipe, args.out)
+    print(f"compiled {args.weights} -> {args.out} "
+          f"({os.path.getsize(args.out) / 1e6:.1f} MB, {pipe.device})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -60,11 +60,14 @@ class PostprocessConfig:
     # NMS execution backend: "scan" = the plain torch select-and-suppress
     # loop; "cuda" = the hand-written kernel (ops/nms_kernels.py);
     # "auto" = the kernel for CUDA tensors, the plain loop for CPU tensors.
-    # Both are exact greedy NMS with identical results.
+    # Both are exact greedy NMS with identical results. Under merge="wbf"
+    # it picks the WBF scan the same way (ops/wbf.py: K5/K6 or the plain
+    # scan).
     nms_backend: str = "auto"
     class_aware: bool = True
-    # Candidate merge: "nms" is ported; "wbf" is refused (ROADMAP queue 1,
-    # accuracy modes)
+    # Candidate merge: "nms" keeps the best of overlapping candidates,
+    # "wbf" fuses them (weighted box fusion, ops/wbf.py; the batched
+    # detect/segment/obb paths, as in the JAX package)
     merge: str = "nms"
 
 

@@ -51,47 +51,9 @@
 #include <cuda_runtime.h>
 
 #include "nms_common.cuh"
+#include "probiou.cuh"
 
 namespace {
-
-// torch.clamp_min(v, 0): NaN stays NaN
-__device__ __forceinline__ float clamp0(float v) { return v < 0.f ? 0.f : v; }
-
-// torch.clamp(v, lo, hi): NaN stays NaN
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-struct Gauss {
-  float x, y, a, b, c, det;
-};
-
-// probIoU of the selected box s against candidate q, in the plain version's
-// operation order.
-__device__ __forceinline__ float probiou(const Gauss& s, const Gauss& q,
-                                         float eps) {
-  const float sa = __fadd_rn(s.a, q.a);
-  const float sb = __fadd_rn(s.b, q.b);
-  const float sc = __fadd_rn(s.c, q.c);
-  const float dy = __fsub_rn(s.y, q.y);            // yi - y
-  const float dx = __fsub_rn(s.x, q.x);            // xi - x
-  const float denom = __fadd_rn(
-      clamp0(__fsub_rn(__fmul_rn(sa, sb), __fmul_rn(sc, sc))), eps);
-  const float t1 = __fmul_rn(
-      __fdiv_rn(__fadd_rn(__fmul_rn(sa, __fmul_rn(dy, dy)),
-                          __fmul_rn(sb, __fmul_rn(dx, dx))),
-                denom),
-      0.25f);
-  const float t2 = __fmul_rn(
-      __fdiv_rn(__fmul_rn(__fmul_rn(sc, __fsub_rn(q.x, s.x)), dy), denom),
-      0.5f);
-  const float root = __fsqrt_rn(clamp0(__fmul_rn(s.det, q.det)));
-  const float t3 = __fmul_rn(
-      0.5f, logf(__fadd_rn(
-                __fdiv_rn(denom, __fadd_rn(__fmul_rn(4.f, root), eps)), eps)));
-  const float bd = clamp(__fadd_rn(__fadd_rn(t1, t2), t3), eps, 100.f);
-  return __fsub_rn(1.f, __fsqrt_rn(__fadd_rn(__fsub_rn(1.f, expf(-bd)), eps)));
-}
 
 struct Rotated {
   using Box = Gauss;

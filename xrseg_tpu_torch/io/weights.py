@@ -7,6 +7,8 @@ under its "/"-joined path, conv weights HWIO under ".../w", biases under
 ".../b", the Proto's transposed-conv weight [kH,kW,I,O] under "up_w".
 `params_to_tree` is the inverse of io/bridge.py (module -> pytree of
 numpy arrays); `load_npz` goes back through io/bridge.params_from_jax.
+`load_params_auto` also reads ultralytics .pt/.pth state dicts
+(io/torch_pt) and ultralytics-contract .onnx exports (io/onnx_loader).
 
 quantize_int8 / dequantize_int8: per-output-channel symmetric weight-only
 int8 over the pytree ({q: int8, scale: f32} nodes in place of "w" and
@@ -24,6 +26,8 @@ import torch
 
 from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
+from xrseg_tpu_torch.io.onnx_loader import load_yolo11_onnx
+from xrseg_tpu_torch.io.torch_pt import load_yolo11_pt
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models.yolo11 import YOLO11
 
@@ -245,15 +249,32 @@ def maybe_seed_o2o(params: Tree, cfg: ModelConfig) -> Tree:
 # format-dispatching loader
 # ---------------------------------------------------------------------------
 
-def load_params_auto(path: str, cfg: ModelConfig):
-    """Load a YOLO11 for `cfg` from a weights file by extension. Returns
-    (model on the CPU, cfg). Only npz checkpoints are read by the port;
-    {q, scale} nodes dequantize on load."""
+def load_params_auto(path: str, cfg: ModelConfig = None):
+    """Load a YOLO11 from a weights file by extension, as the JAX package's
+    load_params_auto dispatches: .pt/.pth (an ultralytics state dict, BN
+    fused on load: io/torch_pt), .onnx (an ultralytics-contract export:
+    io/onnx_loader) and .npz (either package's flat checkpoint; {q, scale}
+    nodes dequantize on load). Returns (model on the CPU, cfg): .pt infers
+    the config when `cfg` is None, .onnx and .npz default to ModelConfig().
+
+    Two formats stay refused (ROADMAP item 13, standing refusals): .sentis,
+    whose JAX reader and writer need the reference's template file, which
+    is in neither this repository nor the card's machine, so a port could
+    not be tested; and orbax checkpoint directories, which need orbax and
+    tensorstore. Convert either to .npz with the JAX package
+    (xrseg_tpu.io.weights.save_npz) and load that."""
+    if path.endswith((".pt", ".pth")):
+        return load_yolo11_pt(path, cfg)
+    if path.endswith(".onnx"):
+        return load_yolo11_onnx(path, cfg)
+    cfg = cfg if cfg is not None else ModelConfig()
     if path.endswith(".npz"):
         return load_npz(path, cfg), cfg
-    kind = next((ext for ext in (".sentis", ".onnx", ".pt", ".pth")
-                 if path.endswith(ext)), "an orbax checkpoint directory")
+    kind, why = ((".sentis", "its reader needs the reference's template "
+                  "file, which is not available") if path.endswith(".sentis")
+                 else ("an orbax checkpoint directory", "it needs orbax and "
+                       "tensorstore"))
     raise NotImplementedError(
-        f"loading {kind} ({path!r}) is not ported yet (ROADMAP queue 1, "
-        "item 13: the port's own torch-only loaders); save the weights "
-        "as .npz")
+        f"loading {kind} ({path!r}) is refused (ROADMAP item 13, a standing "
+        f"refusal: {why}); convert it to .npz with the JAX package's "
+        "xrseg_tpu.io.weights.save_npz and load that")

@@ -34,8 +34,6 @@ tensors it launches the kernel or raises. Each wrapper counts its own
 launches in `<wrapper>.launches`; K1 also counts them per batch size in
 `nms_select_batched_cuda.launches_by_batch`.
 """
-from __future__ import annotations
-
 import ctypes
 import functools
 from typing import Dict, Optional, Tuple
@@ -379,15 +377,21 @@ def _check_device(t: torch.Tensor) -> bool:
                      f"{t.device}")
 
 
-def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
-                            iou_threshold: float, max_det: int = 50, *,
-                            cluster: Optional[int] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: corners [B,K,4] f32, masked [B,K] f32 -> (idx, ok) [B,max_det].
-    `cluster` forces the blocks per image instead of launch_plan's choice."""
-    if not _check_device(corners):
-        return nms_select_batched_torch(corners, masked, iou_threshold,
-                                        max_det)
+# The kernels as torch.library custom ops, so that an exported program
+# (compile.export_compiled) holds them: the CUDA implementation launches the
+# kernel and counts the launch, the CPU one is the plain version. K2 is
+# K1's __global__ at B = 1, registered apart for its own count.
+
+@torch.library.custom_op("xrseg::nms_select_batched", mutates_args=())
+def _nms_select_batched_op(corners: torch.Tensor, masked: torch.Tensor,
+                           iou_threshold: float, max_det: int,
+                           cluster: Optional[int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return nms_select_batched_torch(corners, masked, iou_threshold, max_det)
+
+
+@_nms_select_batched_op.register_kernel("cuda")
+def _(corners, masked, iou_threshold, max_det, cluster):
     out = _select(corners, masked, iou_threshold, max_det, cluster)
     nms_select_batched_cuda.launches += 1
     by_batch = nms_select_batched_cuda.launches_by_batch
@@ -395,19 +399,69 @@ def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("xrseg::nms_select", mutates_args=())
+def _nms_select_op(corners: torch.Tensor, masked: torch.Tensor,
+                   iou_threshold: float, max_det: int, cluster: Optional[int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return nms_select_batched_torch(corners, masked, iou_threshold, max_det)
+
+
+@_nms_select_op.register_kernel("cuda")
+def _(corners, masked, iou_threshold, max_det, cluster):
+    out = _select(corners, masked, iou_threshold, max_det, cluster)
+    nms_select_cuda.launches += 1
+    return out
+
+
+@torch.library.custom_op("xrseg::nms_rotated_batched", mutates_args=())
+def _nms_rotated_batched_op(rows: torch.Tensor, masked: torch.Tensor,
+                            iou_threshold: float, max_det: int,
+                            cluster: Optional[int]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return nms_rotated_batched_torch(rows, masked, iou_threshold, max_det)
+
+
+@_nms_rotated_batched_op.register_kernel("cuda")
+def _(rows, masked, iou_threshold, max_det, cluster):
+    out = _launch("nms_rotated", rows, masked, lambda B, K: (B, 6, K),
+                  max_det, cluster, as_f32(iou_threshold),
+                  as_f32(PROBIOU_EPS))
+    nms_rotated_batched_cuda.launches += 1
+    return out
+
+
+def _fake_select(geo, masked, iou_threshold, max_det, cluster):
+    B = masked.shape[0]
+    return (masked.new_empty((B, max_det), dtype=torch.int32),
+            masked.new_empty((B, max_det), dtype=torch.bool))
+
+
+for _op in (_nms_select_batched_op, _nms_select_op, _nms_rotated_batched_op):
+    _op.register_fake(_fake_select)
+
+
+def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
+                            iou_threshold: float, max_det: int = 50, *,
+                            cluster: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: corners [B,K,4] f32, masked [B,K] f32 -> (idx, ok) [B,max_det].
+    `cluster` forces the blocks per image instead of launch_plan's choice."""
+    _check_device(corners)
+    return torch.ops.xrseg.nms_select_batched(
+        corners, masked, float(iou_threshold), int(max_det), cluster)
+
+
 def nms_select_cuda(corners: torch.Tensor, masked: torch.Tensor,
                     iou_threshold: float, max_det: int = 50, *,
                     cluster: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: corners [K,4] f32, masked [K] f32 -> (idx, ok) [max_det]."""
-    if not _check_device(corners):
-        return nms_select_torch(corners, masked, iou_threshold, max_det)
-    if corners.dim() != 2 or masked.dim() != 1:
+    if _check_device(corners) and (corners.dim() != 2 or masked.dim() != 1):
         raise ValueError(f"nms_select_cuda takes [K,4] and [K], got "
                          f"{tuple(corners.shape)} and {tuple(masked.shape)}")
-    idx, ok = _select(corners[None], masked[None], iou_threshold, max_det,
-                      cluster)
-    nms_select_cuda.launches += 1
+    idx, ok = torch.ops.xrseg.nms_select(
+        corners[None], masked[None], float(iou_threshold), int(max_det),
+        cluster)
     return idx[0], ok[0]
 
 
@@ -417,13 +471,9 @@ def nms_rotated_batched_cuda(rows: torch.Tensor, masked: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: rows [B,6,K] f32 (rotated_gaussian_rows), masked [B,K] f32 ->
     (idx, ok) [B,max_det]."""
-    if not _check_device(rows):
-        return nms_rotated_batched_torch(rows, masked, iou_threshold, max_det)
-    out = _launch("nms_rotated", rows, masked, lambda B, K: (B, 6, K),
-                  max_det, cluster, as_f32(iou_threshold),
-                  as_f32(PROBIOU_EPS))
-    nms_rotated_batched_cuda.launches += 1
-    return out
+    _check_device(rows)
+    return torch.ops.xrseg.nms_rotated_batched(
+        rows, masked, float(iou_threshold), int(max_det), cluster)
 
 
 nms_select_batched_cuda.launches = 0

@@ -12,6 +12,10 @@ per image) and the plain loop for CPU tensors. The OBB task
 as in the JAX package: "auto" takes K3 for CUDA tensors; the pose task
 (postprocess_pose_batch) likewise, taking K1 for CUDA tensors. The NMS-free
 one-to-one head (postprocess_o2o_batch) selects by score alone.
+
+PostprocessConfig.merge="wbf" swaps NMS for weighted box fusion
+(ops/wbf.py: K5, and K6 for the obb task) in the batched paths, as in the
+JAX package; pose and the single-image path keep NMS there too.
 """
 from __future__ import annotations
 
@@ -24,13 +28,16 @@ from xrseg_tpu_torch.config import PostprocessConfig
 from xrseg_tpu_torch.device import resolve_device, to_device
 from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
+from xrseg_tpu_torch.ops import wbf as wbf_ops
+
+
+MERGES = ("nms", "wbf")
 
 
 def _check_merge(cfg: PostprocessConfig) -> None:
-    if cfg.merge != "nms":
-        raise NotImplementedError(
-            f"merge {cfg.merge!r} is not ported yet (ROADMAP queue 1, "
-            "item 9: accuracy modes, ops/wbf.py)")
+    if cfg.merge not in MERGES:
+        raise ValueError(f"unknown merge {cfg.merge!r}; expected one of "
+                         f"{MERGES}")
 
 
 def _logit_threshold(cfg: PostprocessConfig, scores_are_logits: bool):
@@ -67,7 +74,9 @@ def postprocess_single_parts(boxes, cls_scores, coefs_all, protos,
                              with_masks: bool = True
                              ) -> Dict[str, torch.Tensor]:
     """One image: boxes [A,4], cls_scores [A,nc], coefs_all [A,nm] or None,
-    protos [h,w,nm] or None. Honours cfg.pre_nms_topk."""
+    protos [h,w,nm] or None. Honours cfg.pre_nms_topk. Always NMS: like
+    the JAX package's, this path never reads cfg.merge (the b=1
+    postprocess() entry point runs NMS under merge="wbf" too)."""
     _check_merge(cfg)
     scores, labels = cls_scores.max(-1)
     scores, labels = scores.float(), labels.int()
@@ -94,17 +103,30 @@ def postprocess_batch_parts(boxes, cls_scores, coefs_all, protos,
     """Batched hot path: boxes [B,A,4], cls_scores [B,A,nc], coefs_all
     [B,A,nm] or None, protos [B,h,w,nm] or None. The whole batch goes
     through ONE NMS call (K1 on the card); always full width, as in the
-    JAX package (no pre_topk)."""
+    JAX package (no pre_topk). merge="wbf" runs weighted box fusion
+    instead (K5 on the card, honouring pre_nms_topk): its weights must be
+    positive probabilities, so logits go through the sigmoid first and the
+    gate is in probability space, as in the JAX package."""
     _check_merge(cfg)
     scores, labels = cls_scores.max(-1)
     scores, labels = scores.float(), labels.int()
-    det = nms_ops.nms_fixed_batched(
-        boxes, scores, labels, iou_threshold=cfg.iou_threshold,
-        score_threshold=_logit_threshold(cfg, scores_are_logits),
-        max_det=cfg.max_detections, class_aware=cfg.class_aware,
-        backend=cfg.nms_backend)
-    if scores_are_logits:
-        det["scores"] = torch.sigmoid(det["scores"]) * det["valid"]
+    if cfg.merge == "wbf":
+        if scores_are_logits:
+            scores = torch.sigmoid(scores)
+        det = wbf_ops.wbf_fixed_batched(
+            boxes, scores, labels, iou_threshold=cfg.iou_threshold,
+            score_threshold=cfg.score_threshold,
+            max_det=cfg.max_detections, class_aware=cfg.class_aware,
+            pre_topk=cfg.pre_nms_topk, backend=cfg.nms_backend)
+        det["scores"] = det["scores"] * det["valid"]
+    else:
+        det = nms_ops.nms_fixed_batched(
+            boxes, scores, labels, iou_threshold=cfg.iou_threshold,
+            score_threshold=_logit_threshold(cfg, scores_are_logits),
+            max_det=cfg.max_detections, class_aware=cfg.class_aware,
+            backend=cfg.nms_backend)
+        if scores_are_logits:
+            det["scores"] = torch.sigmoid(det["scores"]) * det["valid"]
     if protos is not None and coefs_all is not None:
         _attach_masks(det, coefs_all, protos, crop, input_size, mask_dtype,
                       with_masks)
@@ -154,7 +176,8 @@ def postprocess_pose_batch(boxes, cls_scores, kpts, cfg: PostprocessConfig,
     """Pose task: axis-aligned NMS on boxes [B,A,4] and cls_scores
     [B,A,nc] (ONE call for the batch: K1 on the card under "auto"), then
     each survivor's decoded keypoints kpts [B,A,K,D] -> det["kpts"]
-    [B,max_det,K,D], zero on invalid rows."""
+    [B,max_det,K,D], zero on invalid rows. Always NMS, as in the JAX
+    package: merge="wbf" has no keypoint fusion."""
     _check_merge(cfg)
     scores, labels = cls_scores.max(-1)
     scores, labels = scores.float(), labels.int()
@@ -178,14 +201,22 @@ def postprocess_obb_batch(boxes_xywhr, cls_scores, cfg: PostprocessConfig,
     """OBB task: rotated (probIoU) NMS on boxes_xywhr [B,A,5] and
     cls_scores [B,A,nc]; the slate's box key is "boxes_xywhr" [B,max_det,5]
     (cx, cy, w, h, angle in radians). The whole batch goes through ONE NMS
-    call (K3 on the card under "auto")."""
-    if cfg.merge == "wbf":
-        raise NotImplementedError(
-            "merge 'wbf' for rotated boxes is not ported yet (ROADMAP queue "
-            "1, item 9: accuracy modes, ops/wbf.py wbf_rotated_fixed_batched)")
+    call (K3 on the card under "auto"); merge="wbf" runs rotated weighted
+    box fusion instead (K6 on the card), on probabilities as in
+    postprocess_batch_parts."""
     _check_merge(cfg)
     scores, labels = cls_scores.max(-1)
     scores, labels = scores.float(), labels.int()
+    if cfg.merge == "wbf":
+        if scores_are_logits:
+            scores = torch.sigmoid(scores)
+        det = wbf_ops.wbf_rotated_fixed_batched(
+            boxes_xywhr, scores, labels, iou_threshold=cfg.iou_threshold,
+            score_threshold=cfg.score_threshold,
+            max_det=cfg.max_detections, class_aware=cfg.class_aware,
+            pre_topk=cfg.pre_nms_topk, backend=backend)
+        det["scores"] = det["scores"] * det["valid"]
+        return det
     det = nms_ops.nms_fixed_rotated_batched(
         boxes_xywhr, scores, labels, iou_threshold=cfg.iou_threshold,
         score_threshold=_logit_threshold(cfg, scores_are_logits),

@@ -2,7 +2,8 @@
 xrseg_tpu/perception/rgbd.py).
 
 Ties together: latency-compensated depth pose (perception.camera), the
-fusion ops (ops.depth_fusion), the max-points cap + depth-gradient
+fusion (ops.depth_fusion on the device; io/native's C++ fusion on the host
+with backend="native"), the max-points cap + depth-gradient
 coloring + double-buffered fallback of the reference's CollectJobResults
 (IEExecutor.cs:653-682).
 """
@@ -16,6 +17,7 @@ import torch
 
 from xrseg_tpu_torch.config import DepthConfig
 from xrseg_tpu_torch.device import resolve_device
+from xrseg_tpu_torch.io.native import depth_fusion_native
 from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.perception.camera import CameraIntrinsics, Pose
 from xrseg_tpu_torch.viz.pointcloud import DepthGradient
@@ -36,11 +38,7 @@ class PointCloudExtractor:
     def __init__(self, cfg: DepthConfig = DepthConfig(),
                  backend: str = "torch", num_threads: int = 0,
                  device="cuda"):
-        if backend == "native":
-            raise NotImplementedError(
-                "the native (C++) depth-fusion backend is not ported yet "
-                "(ROADMAP queue 1 item 13)")
-        if backend != "torch":
+        if backend not in ("torch", "native"):
             raise ValueError(f"unknown depth-fusion backend {backend!r}")
         self.cfg = cfg
         self.backend = backend
@@ -81,7 +79,19 @@ class PointCloudExtractor:
                 box_xywh_640, intrinsics: CameraIntrinsics,
                 depth_pose: Pose) -> PointCloud:
         """ExtractDepthData + CollectJobResults equivalent, from a host
-        mask."""
+        mask. The native backend runs the C++ fusion
+        (io/native.depth_fusion_native) on the host."""
+        if self.backend == "native":
+            c = self.cfg
+            pos, dep, valid = depth_fusion_native(
+                depth_fp16, mask_160, np.asarray(box_xywh_640, np.float32),
+                depth_pose.position, depth_pose.rotation,
+                intrinsics.focal_length, intrinsics.principal_point,
+                intrinsics.resolution,
+                confidence_threshold=c.confidence_threshold,
+                min_depth=c.min_depth_m, max_depth=c.max_depth_m,
+                sampling_step=c.sampling_step, num_threads=self.num_threads)
+            return self._collect(pos, dep, valid)
         mask = torch.tensor(np.ascontiguousarray(mask_160, np.float32),
                             device=self.device)
         out = df.extract_points(

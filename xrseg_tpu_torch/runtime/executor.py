@@ -422,8 +422,10 @@ class Executor:
     def _extract_depth_for(self, box: BoundingBox) -> Optional[PointCloud]:
         """ExtractDepthData (IEExecutor.cs:561-651).
 
-        The target's mask never leaves the device: the slate-row gather and
-        the fusion run there (extract_points_for_target)."""
+        On the torch backend the target's mask never leaves the device: the
+        slate-row gather and the fusion run there (extract_points_for_target).
+        The native backend copies the mask to the host for the C++ fusion,
+        as the JAX package's does."""
         if self._depth_frame is None or self._depth_pose is None:
             return None
         meta = self._inflight_meta
@@ -441,6 +443,12 @@ class Executor:
             box, self.screen_wh,
             tuple(map(float, self.cfg.model.input_size)))
         with self.tracer.section("depth_fusion"):
+            if self.points.backend == "native":
+                # the C++ fusion reads a host mask: one small copy
+                mask = self._device_target_mask(dev, box.index).float()
+                return self.points.extract(self._depth_frame,
+                                           mask.cpu().numpy(), raw_box, intr,
+                                           self._depth_pose)
             if "masks" in dev:
                 return self.points.extract_from_slate(
                     self._depth_frame, dev["masks"][0], box.index,
