@@ -149,12 +149,38 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      against fused.
    One line "accuracy: {...}" gives the pipelines' numbers beside the
    card's name and power limit, and the phase's seconds.
-9. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+9. dataset evaluation and the host runtime surface (lines starting
+   `eval:`):
+   - evaluate_dataset on SyntheticShapesDataset(n=32, 480x640, 3
+     classes) through YOLO11n-seg at 640x640 with detection_params
+     weights, batch 8, with a COCO results dump. Launch counters are
+     zeroed just before and read just after: K1 once per batch (at B=8)
+     and nothing else. Every image's detections (at least one each) and
+     the result dict equal the same eval with nms_backend="scan"; the
+     dump, read back, has a row per detection;
+   - evaluate_task_dataset for pose (a YOLO11n-pose with the synthetic
+     set's 5-keypoint skeleton, 2 classes, 640x640; K1 once per batch of
+     4) and obb (YOLO11n-obb at 1024x1024 on 1024x1024 images; K3 once
+     per batch of 4), each equal to the eval through the same decode with
+     the plain NMS;
+   - parity_report on 4 augmented frames, the card pipeline in bf16 and
+     in float32 without TF32 against the CPU float32 oracle (a reading);
+   - a Y4M clip of the phase-5 frames through VideoFrameSource into an
+     Executor(multi_tracking=True): every frame's boxes equal the direct
+     b=1 pipeline's on the decoded frame, and the track ids persist;
+   - check_environment(require_cuda=True) ok (its checks printed), a
+     profile_fn trace of the b=1 pipeline naming K1's __global__, and
+     `python -m xrseg_tpu_torch.eval --data synthetic --max-images 16`
+     as a subprocess printing a JSON line with n_images 16.
+   One line "eval: {...}" gives the results, the parity readings, the
+   launches and the phase's seconds beside the card's name and power
+   limit.
+10. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
-   the serve loads, the runners, the task paths and the NMS ensemble,
-   K3's over the obb and obb-TTA paths, K5's and K6's over phase 8's WBF
-   paths; no path runs K4, as in the JAX package), then the
-   last line
+   the serve loads, the runners, the task paths, the NMS ensemble and
+   the segment and pose evals, K3's over the obb, obb-TTA and obb eval
+   paths, K5's and K6's over phase 8's WBF paths; no path runs K4, as in
+   the JAX package), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -166,6 +192,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -188,6 +215,10 @@ from xrseg_tpu_torch.compile import (DEFAULT_TTA_VIEWS,
                                      unpack_slate)
 from xrseg_tpu_torch.config import (ExecutorConfig, ModelConfig,
                                     PostprocessConfig)
+from xrseg_tpu_torch.eval import dataset_eval
+from xrseg_tpu_torch.eval.dataset_eval import (evaluate_dataset,
+                                               evaluate_task_dataset)
+from xrseg_tpu_torch.eval.parity import augment_images, parity_report
 from xrseg_tpu_torch.io import torch_pt
 from xrseg_tpu_torch.io.onnx_exec import run_onnx
 from xrseg_tpu_torch.io.onnx_export import export_onnx
@@ -209,17 +240,22 @@ from xrseg_tpu_torch.ops.postprocess import (postprocess,
 from xrseg_tpu_torch.ops.relock import relock_match
 from xrseg_tpu_torch.ops.yuv import rgb_to_yuv420_numpy
 from xrseg_tpu_torch.perception.tracking import (TargetTracker,
-                                                 box_to_model_space)
+                                                 box_to_model_space,
+                                                 parse_boxes)
 from xrseg_tpu_torch.precision import precision_scope
 from xrseg_tpu_torch.profile import frame_step, profile_batch
+from xrseg_tpu_torch.runtime.deploy_check import check_environment
 from xrseg_tpu_torch.runtime.executor import Executor
 from xrseg_tpu_torch.runtime.frame_source import FrameData
+from xrseg_tpu_torch.runtime.profiling import profile_fn
 from xrseg_tpu_torch.runtime.server import InferenceServer
 from xrseg_tpu_torch.runtime.streaming import (PipelinedTickRunner,
                                                StreamingRunner)
+from xrseg_tpu_torch.runtime.video import VideoFrameSource
 from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
 from xrseg_tpu_torch.testing import detection_params, xr_frames
+from xrseg_tpu_torch.train import data as data_lib
 
 # H100 SXM data sheet: HBM rate, and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -311,6 +347,12 @@ IO_DIR = Path(__file__).resolve().parent / "build" / "io"
 # in float32 in another order
 ONNX_TOL = 2e-3
 NATIVE_TICKS = 10
+# phase 9: the eval datasets (the synthetic pose set draws 5 keypoints, so
+# its YOLO11n-pose has a 5-keypoint head), the K1/K2/K3 __global__ name
+EVAL_N = 32
+POSE_EVAL_MODEL = ModelConfig(task="pose", num_classes=2, kpt_shape=(5, 3))
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "eval"
+K1_GLOBAL = "greedy_nms_kernel"
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
           replaces="xrseg_tpu/ops/pallas_kernels.py:218")
@@ -2231,6 +2273,284 @@ def phase_accuracy(smi: str) -> dict:
     return {"launches": launches, "cases": cases, "on_paths": on_paths}
 
 
+# ---------------------------------------------------------------------------
+# 9. dataset evaluation and the host runtime surface
+# ---------------------------------------------------------------------------
+
+class CapturedPerImage:
+    """Stands in for eval/dataset_eval.evaluate during a run and keeps the
+    per-image (detections, ground truths) lists it is handed."""
+
+    def __init__(self):
+        self.real, self.calls = dataset_eval.evaluate, []
+
+    def __call__(self, per_image, *args, **kwargs):
+        self.calls.append(per_image)
+        return self.real(per_image, *args, **kwargs)
+
+    def __enter__(self) -> "CapturedPerImage":
+        dataset_eval.evaluate = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dataset_eval.evaluate = self.real
+
+
+class PlainTaskPipe:
+    """The deployed pipeline's decode on the same raw outputs with the plain
+    NMS loop (pose's and obb's postprocess take their own backend argument,
+    as in the JAX package, so nms_backend="scan" does not reach them)."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __call__(self, frames):
+        mcfg, post = self.pipe.cfg.model, self.pipe.cfg.post
+        model = self.pipe.params
+        x = pre_ops.preprocess(torch.from_numpy(frames).to(DEVICE),
+                               mcfg.input_size, dtype=model.dtype)
+        with torch.inference_mode():
+            out = model(x, concat_preds=False)
+            if mcfg.task == "pose":
+                return postprocess_pose_batch(
+                    out["boxes_xywh"], out["cls_logits"], out["kpts"], post,
+                    scores_are_logits=True, backend="scan")
+            return postprocess_obb_batch(out["boxes_xywhr"],
+                                         out["cls_logits"], post,
+                                         scores_are_logits=True,
+                                         backend="scan")
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Result dicts equal (NaN where both are NaN)."""
+    return set(a) == set(b) and all(
+        a[k] == b[k] or (isinstance(a[k], float) and np.isnan(a[k])
+                         and np.isnan(b[k])) for k in a)
+
+
+def same_per_image(got, want, what: str) -> int:
+    """Every image's detections and ground truths equal; each image has at
+    least one detection. Returns the number of detections."""
+    check(len(got) == len(want), f"{what}: {len(got)} images, {len(want)}")
+    n = 0
+    fields = ("box_xywh", "mask", "kpts", "box_xywhr")
+    for i, ((dg, gg), (dw, gw)) in enumerate(zip(got, want)):
+        check(len(dg) == len(dw) and len(dg) > 0,
+              f"{what}: image {i}: {len(dg)} detections, {len(dw)} plain")
+        n += len(dg)
+        for a, b in zip(dg, dw):
+            check(a.label == b.label and a.score == b.score and all(
+                (getattr(a, f) is None) == (getattr(b, f) is None)
+                and (getattr(a, f) is None
+                     or np.array_equal(getattr(a, f), getattr(b, f)))
+                for f in fields), f"{what}: image {i}: a detection differs "
+                                  "from the plain NMS's")
+        check(len(gg) == len(gw), f"{what}: image {i}: ground truths differ")
+    return n
+
+
+def eval_run(fn, what: str) -> tuple:
+    """fn() with the launch counters zeroed around it and the per-image
+    lists captured: (result, per_image, launches, K1 launches by batch)."""
+    zero_counters()
+    with CapturedPerImage() as cap:
+        out = fn()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    by_batch = dict(nk.nms_select_batched_cuda.launches_by_batch)
+    check(len(cap.calls) >= 1, f"{what}: no per-image lists were scored")
+    return out, cap.calls[0], launches, by_batch
+
+
+def write_y4m(path: Path, frames) -> None:
+    """uint8 RGB frames -> a 4:2:0 Y4M clip (the planes of
+    ops/yuv.rgb_to_yuv420_numpy)."""
+    h, w = frames[0].shape[:2]
+    y, u, v = rgb_to_yuv420_numpy(np.stack(frames))
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F30:1 Ip A1:1 C420jpeg\n".encode())
+        for i in range(len(frames)):
+            f.write(b"FRAME\n" + y[i].tobytes() + u[i].tobytes()
+                    + v[i].tobytes())
+
+
+def video_to_tracker(model, frames) -> dict:
+    """A Y4M clip of the phase-5 frames through VideoFrameSource into an
+    Executor(multi_tracking=True) on the card: each frame's boxes equal the
+    direct b=1 pipeline's on the decoded frame; track ids persist."""
+    clip = EVAL_DIR / "phase5.y4m"
+    write_y4m(clip, frames)
+    cfg = ExecutorConfig(model=MODEL, multi_tracking=True)
+    src = VideoFrameSource(str(clip))
+    check(src.open(), "VideoFrameSource did not open the clip")
+    ex = Executor(cfg, params=model, frame_hw=FRAME_HW, device=DEVICE)
+    ids, n = [], 0
+    for fd in src.frames():
+        r = ex.run_sync(fd)
+        direct = unpack_slate(ex.pipeline(fd.rgb[None])["slate"][0], MAX_DET)
+        want = parse_boxes(direct["boxes_xywh"], direct["labels"],
+                           direct["scores"], direct["count"], ex.screen_wh,
+                           ex.labels, max_boxes=MAX_DET,
+                           model_size=tuple(map(float, MODEL.input_size)))
+        check(r.count == MAX_DET and r.boxes == want,
+              f"video frame {n}: the executor's boxes differ from the "
+              "direct b=1 pipeline's on the decoded frame")
+        ids.append({t.track_id for t in (r.tracks or [])})
+        n += 1
+    src.close()
+    confirmed = [s for s in ids if s]
+    check(n == len(frames) and bool(confirmed)
+          and bool(confirmed[0] & confirmed[-1]),
+          f"video: {n} frames, track ids {ids} did not persist")
+    return {"frames": n, "tracks_confirmed_from_frame": ids.index(
+        confirmed[0]), "persisting_ids": len(confirmed[0] & confirmed[-1])}
+
+
+def trace_kernels(logdir: Path) -> list:
+    """Kernel names in the Chrome traces under logdir."""
+    names = set()
+    for path in logdir.glob("*.json"):
+        for e in json.loads(path.read_text()).get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                names.add(e.get("name", ""))
+    return sorted(names)
+
+
+def phase_eval(smi: str) -> dict:
+    """Dataset evaluation through the card's pipeline (segment, pose, obb),
+    the parity report, video into the Executor, the deploy check, the
+    profiler and the eval CLI."""
+    t0 = time.perf_counter()
+    EVAL_DIR.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator
+    seg = detection_params(gen().manual_seed(0), MODEL, device=DEVICE)
+    pose = detection_params(gen().manual_seed(0), POSE_EVAL_MODEL,
+                            device=DEVICE)
+    obb = detection_params(gen().manual_seed(0), OBB_MODEL, device=DEVICE)
+    seconds = {"weights": time.perf_counter() - t0}
+
+    def post(backend="auto"):
+        return PostprocessConfig(score_threshold=0.05, iou_threshold=0.6,
+                                 max_detections=MAX_DET, nms_backend=backend)
+
+    numbers, launches = {}, {}
+    # --- segment: K1 once per batch of 8, equal to nms_backend="scan"
+    ds = data_lib.SyntheticShapesDataset(n=EVAL_N, hw=FRAME_HW, n_classes=3)
+    dump = EVAL_DIR / "coco_results.json"
+    seg_out, seg_pi, seg_l, seg_b = eval_run(lambda: evaluate_dataset(
+        MODEL, seg, ds, batch=8, coco_dump=str(dump), device=DEVICE),
+        "segment eval")
+    batches = -(-EVAL_N // 8)
+    check(seg_l[K1["name"]] == batches and seg_b == {8: batches}
+          and sum(seg_l.values()) == batches,
+          f"segment eval: launches {seg_l}, K1 by batch {seg_b}; expected "
+          f"K1 x{batches} at B=8 and nothing else")
+    scan_pipe = build_pipeline(ExecutorConfig(model=MODEL, post=post("scan")),
+                               seg, crop_masks=True,
+                               frame_hw=MODEL.input_size, batch=8,
+                               device=DEVICE)
+    scan_out, scan_pi, _, _ = eval_run(lambda: evaluate_dataset(
+        MODEL, seg, ds, batch=8, pipe=scan_pipe, device=DEVICE),
+        "segment eval (scan)")
+    n_det = same_per_image(seg_pi, scan_pi, "segment eval")
+    check(same_result({k: v for k, v in seg_out.items() if k != "dumped"},
+                      scan_out), f"segment eval: {seg_out} != {scan_out}")
+    rows = json.loads(dump.read_text())
+    check(len(rows) == n_det == seg_out["dumped"]
+          and all(len(r["bbox"]) == 4 and "segmentation" in r for r in rows),
+          f"COCO dump: {len(rows)} rows for {n_det} detections")
+    numbers["segment"] = seg_out
+    launches["segment"] = seg_l
+    seconds["segment eval x2"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # --- pose (K1) and obb (K3): once per batch of 4, equal to the plain
+    for name, model, data in (
+            ("pose", pose, data_lib.SyntheticPoseDataset(n=8, hw=FRAME_HW)),
+            ("obb", obb, data_lib.SyntheticOBBDataset(n=8,
+                                                      hw=OBB_FRAME_HW))):
+        out, pi, lc, by_b = eval_run(lambda: evaluate_task_dataset(
+            model.cfg, model, data, batch=4, device=DEVICE), f"{name} eval")
+        kern = K3 if name == "obb" else K1
+        check(lc[kern["name"]] == 2 and sum(lc.values()) == 2
+              and (name == "obb" or by_b == {4: 2}),
+              f"{name} eval: launches {lc}, K1 by batch {by_b}; expected "
+              f"{kern['name']} x2 at B=4 and nothing else")
+        plain = PlainTaskPipe(build_pipeline(
+            ExecutorConfig(model=model.cfg, post=post()), model,
+            frame_hw=model.cfg.input_size, batch=4, device=DEVICE))
+        ref, ref_pi, _, _ = eval_run(lambda: evaluate_task_dataset(
+            model.cfg, model, data, batch=4, pipe=plain, device=DEVICE),
+            f"{name} eval (scan)")
+        same_per_image(pi, ref_pi, f"{name} eval")
+        check(same_result(out, ref), f"{name} eval: {out} != {ref}")
+        numbers[name] = out
+        launches[name] = lc
+    seconds["pose, obb eval x2"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # --- parity report: the card pipeline (bf16, and float32 without
+    # TF32) against the CPU oracle, a reading
+    base = xr_frames(1, FRAME_HW, DEPTH_HW, seed=5)[0].rgb
+    images = augment_images([base], n_variants=3)
+    exact = yolo11.YOLO11(EXACT_MODEL)
+    exact.load_state_dict(seg.state_dict())
+    pcfg = PostprocessConfig()
+    numbers["parity"] = {
+        "bf16": parity_report(images, seg, MODEL, pcfg, device=DEVICE),
+        "float32_highest": parity_report(images, exact.to(DEVICE).eval(),
+                                         EXACT_MODEL, pcfg, device=DEVICE)}
+    for v in numbers["parity"].values():
+        check(v["n_detections_ours"] > 0 and v["n_images"] == len(images),
+              f"parity report: {v}")
+    seconds["parity"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # --- video into the Executor
+    numbers["video"] = video_to_tracker(
+        seg, [f.rgb for f in xr_frames(8, FRAME_HW, DEPTH_HW)])
+    seconds["video"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # --- deploy check and profiler
+    env = check_environment(ExecutorConfig(model=MODEL), require_cuda=True,
+                            device=DEVICE)
+    for name, ok, detail in env.checks:
+        print(f"eval: deploy check {name}: {'ok' if ok else 'FAILED'} "
+              f"({detail})", flush=True)
+    check(env.ok, "check_environment(require_cuda=True) failed")
+    b1 = build_pipeline(ExecutorConfig(model=MODEL), seg, frame_hw=FRAME_HW,
+                        batch=1, device=DEVICE)
+    trace_dir = EVAL_DIR / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    profile_fn(lambda: b1(base[None]), str(trace_dir), steps=3)
+    names = trace_kernels(trace_dir)
+    k1_names = [n for n in names if K1_GLOBAL in n]
+    check(bool(k1_names), f"profiler trace names no {K1_GLOBAL} kernel "
+                          f"({len(names)} kernel names)")
+    numbers["deploy_checks"] = len(env.checks)
+    numbers["trace"] = {"kernel_names": len(names), "k1": k1_names}
+    seconds["deploy check, profiler"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # --- the CLI, as a user runs it
+    cli = subprocess.run(
+        [sys.executable, "-m", "xrseg_tpu_torch.eval", "--data", "synthetic",
+         "--max-images", "16"], capture_output=True, text=True,
+        timeout=600, cwd=Path(__file__).resolve().parent)
+    check(cli.returncode == 0, f"eval CLI exit {cli.returncode}: "
+                               f"{cli.stderr[-2000:]}")
+    cli_out = json.loads(cli.stdout.strip().splitlines()[-1])
+    check(cli_out.get("n_images") == 16, f"eval CLI printed {cli_out}")
+    numbers["cli"] = cli_out
+    seconds["cli"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["whole phase"] = time.perf_counter() - t0
+    print("eval: " + json.dumps({"card": smi, **numbers,
+                                 "launches": launches,
+                                 "seconds": {k: round(v, 2)
+                                             for k, v in seconds.items()}}),
+          flush=True)
+    return {"launches": launches}
+
+
 def wbf_kernels(acc: dict) -> list:
     """K5's and K6's entries of the kernel line from phase 8's result: the
     seeded cases held against the plain scan, their launches on phase 8's
@@ -2340,6 +2660,13 @@ def main() -> int:
         kernels[0]["launches_by_path"]["ensemble"] = \
             acc["launches"][K1["name"]]
         kernels += wbf_kernels(acc)
+        ev = phase_eval(smi)["launches"]
+        seconds["eval"] = time.perf_counter() - t0 - sum(seconds.values())
+        for k, paths in ((kernels[0], ("segment", "pose")),
+                         (kernels[2], ("obb",))):
+            for path in paths:
+                k["launches"] += ev[path][k["name"]]
+                k["launches_by_path"][f"eval {path}"] = ev[path][k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

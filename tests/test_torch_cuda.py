@@ -540,9 +540,17 @@ def test_b8_bucket_equals_eight_b1_calls(card):
                                            atol=1e-3)
 
 
+# the kernel torch launches for a float32 -> bfloat16 copy (a weight or
+# bias cast at run time, or an activation's); the profiler names it so
+CAST_KERNEL = "bfloat16_copy_kernel_cuda"
+
+
 def test_bf16_storage_launches_no_weight_cast(card):
     """bf16 compute: f32 storage casts every weight at every call (one
-    elementwise kernel each); bf16 storage launches none of them."""
+    bfloat16_copy kernel each); bf16 storage launches none of them. Only
+    the cast kernels are counted, by name: the other casts (the input,
+    the f32-stored biases) are the same in both runs, and a profiler
+    event of another kernel lost or added cannot move the count."""
     from torch.profiler import ProfilerActivity, profile
 
     from xrseg_tpu_torch.io.weights import cast_params
@@ -563,7 +571,7 @@ def test_bf16_storage_launches_no_weight_cast(card):
                 torch.cuda.synchronize()
         launches.append(sum(
             e.device_type == torch.autograd.DeviceType.CUDA
-            for e in prof.events()))
+            and CAST_KERNEL in e.name for e in prof.events()))
     assert launches[0] - launches[1] == n_weights, (launches, n_weights)
 
 
@@ -725,3 +733,77 @@ def test_compiled_artifact_holds_the_kernels(card, tmp_path):
         assert kernel.launches == before + 1
         want = pipe(frames)
         assert torch.equal(got["slate"], want["slate"])
+
+
+# ---------------------------------------------------------------------------
+# dataset evaluation and the deploy check on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("task", ["segment", "obb"])
+def test_dataset_eval_on_the_card_equals_scan(card, task, monkeypatch):
+    """evaluate_dataset / evaluate_task_dataset through the card's
+    pipeline: K1 (segment) or K3 (obb) once per batch, and every image's
+    detections and the result equal to the same eval with the plain NMS."""
+    from xrseg_tpu_torch.eval import dataset_eval as de
+    from xrseg_tpu_torch.train import data as data_lib
+    mcfg = ModelConfig(task=task, num_classes=3, input_size=(128, 128))
+    model = detection_params(torch.Generator().manual_seed(0), mcfg,
+                             device=card)
+    calls = []
+    real = de.evaluate
+
+    def capture(per_image, *a, **k):
+        calls.append(per_image)
+        return real(per_image, *a, **k)
+    monkeypatch.setattr(de, "evaluate", capture)
+    kernel = tk.nms_rotated_batched_cuda if task == "obb" \
+        else tk.nms_select_batched_cuda
+    before = kernel.launches
+    if task == "segment":
+        ds = data_lib.SyntheticShapesDataset(n=6, hw=(96, 128))
+        got = de.evaluate_dataset(mcfg, model, ds, batch=4)
+        scan = ExecutorConfig(model=mcfg, post=PostprocessConfig(
+            score_threshold=0.05, nms_backend="scan"))
+        pipe = build_pipeline(scan, model, crop_masks=True,
+                              frame_hw=(128, 128), batch=4)
+    else:
+        ds = data_lib.SyntheticOBBDataset(n=6, hw=(128, 128))
+        got = de.evaluate_task_dataset(mcfg, model, ds, batch=4)
+        auto = build_pipeline(ExecutorConfig(model=mcfg, post=PostprocessConfig(
+            score_threshold=0.05)), model, frame_hw=(128, 128), batch=4)
+
+        def pipe(frames):          # obb's decode takes its own backend
+            x = preprocess(torch.from_numpy(frames).to(card), (128, 128),
+                           dtype=model.dtype)
+            with torch.inference_mode():
+                out = model(x, concat_preds=False)
+                return postprocess_obb_batch(
+                    out["boxes_xywhr"], out["cls_logits"], auto.cfg.post,
+                    scores_are_logits=True, backend="scan")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = (de.evaluate_dataset(mcfg, model, ds, batch=4, pipe=pipe)
+            if task == "segment" else
+            de.evaluate_task_dataset(mcfg, model, ds, batch=4, pipe=pipe))
+    assert got == want
+    for (dg, _), (dw, _) in zip(calls[0], calls[-1], strict=True):
+        assert len(dg) == len(dw) > 0
+        for a, b in zip(dg, dw):
+            assert (a.label, a.score) == (b.label, b.score)
+            np.testing.assert_array_equal(a.box_xywh, b.box_xywh)
+            for f in ("mask", "box_xywhr"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert (x is None) == (y is None)
+                if x is not None:
+                    np.testing.assert_array_equal(x, y)
+
+
+def test_deploy_check_on_the_card(card):
+    from xrseg_tpu_torch.runtime.deploy_check import check_environment
+    res = check_environment(ExecutorConfig(), require_cuda=True,
+                            mesh_shape=(1, 1))
+    assert res.ok, res.checks
+    by = {n: (p, d) for n, p, d in res.checks}
+    assert by["cuda_platform"][0] and by["cuda_kernels"][0]
+    assert by["devices_present"][1].startswith("1 device(s)") or \
+        torch.cuda.device_count() > 1

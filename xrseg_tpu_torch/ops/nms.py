@@ -14,11 +14,16 @@ Backends:
           K1 for nms_fixed_batched, K3 for nms_fixed_rotated_batched);
   "auto"  "cuda" for CUDA tensors, "scan" for CPU tensors.
 Both are exact greedy NMS and give identical results.
+
+The numpy references at the end (probiou_numpy, nms_reference_numpy,
+nms_rotated_reference_numpy) are the JAX package's naive host oracles,
+copied: eval's rotated AP and the parity reports' oracle use them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from xrseg_tpu_torch.ops.nms_kernels import (NEG, PROBIOU_EPS, as_f32,
@@ -289,3 +294,93 @@ def nms_fixed_rotated(boxes_xywhr: torch.Tensor, scores: torch.Tensor,
         iou_threshold=iou_threshold, score_threshold=score_threshold,
         max_det=max_det, class_aware=class_aware, backend=backend)
     return {k: v[0] for k, v in out.items()}
+
+
+def probiou_numpy(b1, b2, eps=1e-7):
+    """Scalar numpy probIoU (test oracle, independent arithmetic)."""
+
+    def cov(b):
+        # same 1e-3 px variance floor as the torch op (rbox_covariance)
+        a0 = max(b[2], 1e-3) ** 2 / 12.0
+        b0 = max(b[3], 1e-3) ** 2 / 12.0
+        c, s = np.cos(b[4]), np.sin(b[4])
+        return (a0 * c * c + b0 * s * s, a0 * s * s + b0 * c * c,
+                (a0 - b0) * c * s)
+
+    b1 = np.asarray(b1, np.float64)
+    b2 = np.asarray(b2, np.float64)
+    a1, bb1, c1 = cov(b1)
+    a2, bb2, c2 = cov(b2)
+    # same PSD clamp as the torch op (see probiou): degenerate pairs
+    # round the form negative and NaN the log otherwise
+    den = max((a1 + a2) * (bb1 + bb2) - (c1 + c2) ** 2, 0.0) + eps
+    t1 = ((a1 + a2) * (b1[1] - b2[1]) ** 2
+          + (bb1 + bb2) * (b1[0] - b2[0]) ** 2) / den * 0.25
+    t2 = ((c1 + c2) * (b2[0] - b1[0]) * (b1[1] - b2[1])) / den * 0.5
+    t3 = 0.5 * np.log(den / (4.0 * np.sqrt(
+        max((a1 * bb1 - c1 * c1), 0.0) * max((a2 * bb2 - c2 * c2), 0.0))
+        + eps) + eps)
+    bd = min(max(t1 + t2 + t3, eps), 100.0)
+    return 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
+
+
+def nms_rotated_reference_numpy(boxes_xywhr, scores, labels, iou_threshold,
+                                score_threshold, class_aware=True,
+                                max_keep: int = 0):
+    """Naive greedy rotated NMS (test oracle). max_keep>0 stops once that
+    many boxes are kept — EXACT for the kept[:max_keep] prefix (greedy
+    NMS only ever appends, in score order); essential when thousands of
+    candidates survive the gate (fixture weights at 640^2)."""
+    order = np.argsort(-scores, kind="stable")
+    order = [i for i in order if scores[i] > score_threshold]
+    kept = []
+    for i in order:
+        if max_keep and len(kept) >= max_keep:
+            break
+        ok = True
+        for j in kept:
+            if class_aware and labels[i] != labels[j]:
+                continue
+            if probiou_numpy(boxes_xywhr[i], boxes_xywhr[j]) > iou_threshold:
+                ok = False
+                break
+        if ok:
+            kept.append(i)
+    return kept
+
+
+def nms_reference_numpy(boxes_xywh, scores, labels, iou_threshold,
+                        score_threshold, class_aware=True,
+                        max_keep: int = 0):
+    """Naive O(N^2) host NMS — test oracle only. max_keep as in
+    nms_rotated_reference_numpy (exact early exit for the top prefix)."""
+    order = np.argsort(-scores, kind="stable")
+    order = [i for i in order if scores[i] > score_threshold]
+    kept = []
+
+    def iou(a, b):
+        ax1, ay1 = a[0] - a[2] / 2, a[1] - a[3] / 2
+        ax2, ay2 = a[0] + a[2] / 2, a[1] + a[3] / 2
+        bx1, by1 = b[0] - b[2] / 2, b[1] - b[3] / 2
+        bx2, by2 = b[0] + b[2] / 2, b[1] + b[3] / 2
+        iw = max(0.0, min(ax2, bx2) - max(ax1, bx1))
+        ih = max(0.0, min(ay2, by2) - max(ay1, by1))
+        inter = iw * ih
+        ua = max(0.0, ax2 - ax1) * max(0.0, ay2 - ay1)
+        ub = max(0.0, bx2 - bx1) * max(0.0, by2 - by1)
+        u = ua + ub - inter
+        return inter / u if u > 0 else 0.0
+
+    for i in order:
+        if max_keep and len(kept) >= max_keep:
+            break
+        ok = True
+        for j in kept:
+            if class_aware and labels[i] != labels[j]:
+                continue
+            if iou(boxes_xywh[i], boxes_xywh[j]) > iou_threshold:
+                ok = False
+                break
+        if ok:
+            kept.append(i)
+    return kept

@@ -25,10 +25,13 @@ import torch
 from xrseg_tpu_torch.precision import precision_scope
 
 
-def _tap_indices(src: int, dst: int):
+def _tap_indices(src: int, dst: int, dtype=np.float64):
     """2-tap bilinear gather plan: (idx0, idx1, w1) per output coordinate
-    (half-pixel-centre convention)."""
-    s = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    (half-pixel-centre convention). dtype float32 computes the sample
+    positions as the native C++ resize does (native/src/augment.cpp), for
+    its plain twin (train/data._resize2tap_numpy)."""
+    s = ((np.arange(dst, dtype=dtype) + dtype(0.5))
+         * (dtype(src) / dtype(dst)) - dtype(0.5))
     s0 = np.floor(s).astype(np.int64)
     frac = (s - s0).astype(np.float32)
     i0 = np.clip(s0, 0, src - 1)
