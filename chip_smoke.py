@@ -175,12 +175,40 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    One line "eval: {...}" gives the results, the parity readings, the
    launches and the phase's seconds beside the card's name and power
    limit.
-10. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+10. training (lines starting `train:`):
+   - Trainer.fit on YOLO11n-seg at full width (640x640, 80 classes, bf16,
+     remat, EMA, mosaic) with detection_params weights from seed 0, on
+     SyntheticShapesDataset(n=32, 480x640, 3 classes) at batch 8 for 2
+     epochs, validating each epoch on 8 other images. The launch counters
+     are zeroed just before each validation and read just after: K1 once
+     at B=8 and nothing else. Every step's loss and grad_norm finite; the
+     memory preflight ran. The validation then equals the same eval
+     through the plain NMS (nms_backend="scan"), image for image. A fresh
+     Trainer resumes from state.pt for one epoch: the step count, the
+     optimizer's count and the LR horizon continue (8 -> 12 steps).
+   - the step time and images/s of bf16 remat steps at b=8 on one batch,
+     with a profile of them (device ms, idle share, launches), beside the
+     preflight estimate and the measured peak memory, and the Loader's
+     host work alone (ms a batch of 8, augmentation included) beside fit's
+     seconds a step;
+   - one float32 "highest" step at b=2 (320x320 input) on the card
+     against the same step on the CPU: metrics within rtol 1e-4, the
+     clipped gradient within 1e-3 of each leaf's max abs, params and
+     moments within rtol 1e-4, atol 1e-5;
+   - two steps each of YOLO11n-obb (1024x1024, 15 classes), a YOLO11n-pose
+     with the synthetic set's 5-keypoint skeleton and YOLO11n-cls (224x224,
+     1000 classes) through Trainer.fit, finite losses; the obb one
+     validates 4 images: K3 once and nothing else.
+   One line "train: {...}" gives the history, every step's metrics, the
+   readings and the phase's seconds beside the card's name and power
+   limit.
+11. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
-   the serve loads, the runners, the task paths, the NMS ensemble and
-   the segment and pose evals, K3's over the obb, obb-TTA and obb eval
-   paths, K5's and K6's over phase 8's WBF paths; no path runs K4, as in
-   the JAX package), then the last line
+   the serve loads, the runners, the task paths, the NMS ensemble, the
+   segment and pose evals and the training validations, K3's over the
+   obb, obb-TTA, obb eval and obb training-validation paths, K5's and
+   K6's over phase 8's WBF paths; no path runs K4, as in the JAX
+   package), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -189,6 +217,7 @@ device it exits 2 and runs nothing.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -256,6 +285,8 @@ from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
 from xrseg_tpu_torch.testing import detection_params, xr_frames
 from xrseg_tpu_torch.train import data as data_lib
+from xrseg_tpu_torch.train import train_step as train_ts
+from xrseg_tpu_torch.train.trainer import TrainConfig, Trainer
 
 # H100 SXM data sheet: HBM rate, and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -352,6 +383,14 @@ NATIVE_TICKS = 10
 EVAL_N = 32
 POSE_EVAL_MODEL = ModelConfig(task="pose", num_classes=2, kpt_shape=(5, 3))
 EVAL_DIR = Path(__file__).resolve().parent / "build" / "eval"
+# phase 10: the training set (480x640 synthetic shapes), batch, validation
+# images, the float32 card-against-CPU step's input, the timed steps
+TRAIN_N = 32
+TRAIN_BATCH = 8
+TRAIN_VAL_N = 8
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
+TRAIN_EXACT_HW = (320, 320)
+TRAIN_TIMED_STEPS = 5
 K1_GLOBAL = "greedy_nms_kernel"
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
@@ -2563,6 +2602,291 @@ def wbf_kernels(acc: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# 10. training
+# ---------------------------------------------------------------------------
+
+class StepRecorder:
+    """Stands in for train_step.make_train_step during a run and keeps each
+    step's metrics as host floats."""
+
+    def __init__(self):
+        self.real, self.rows = train_ts.make_train_step, []
+
+    def __call__(self, *args, **kwargs):
+        step, rows = self.real(*args, **kwargs), self.rows
+
+        def recorded(state, batch):
+            state, m = step(state, batch)
+            rows.append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        recorded.compute_grads = step.compute_grads
+        return recorded
+
+    def __enter__(self) -> "StepRecorder":
+        train_ts.make_train_step = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        train_ts.make_train_step = self.real
+
+
+def counted_evaluate(trainer: Trainer) -> list:
+    """Wrap trainer.evaluate so each call runs with the launch counters
+    zeroed just before it and read just after; returns the list of
+    (counts, K1 launches by batch) it fills."""
+    real, counts = trainer.evaluate, []
+
+    def evaluate(*args, **kwargs):
+        zero_counters()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        counts.append((read_counters(),
+                       dict(nk.nms_select_batched_cuda.launches_by_batch)))
+        return out
+
+    trainer.evaluate = evaluate
+    return counts
+
+
+def finite_steps(rows, n: int, what: str) -> None:
+    check(len(rows) == n and all(np.isfinite(r["loss"])
+                                 and np.isfinite(r["grad_norm"])
+                                 for r in rows),
+          f"{what}: {len(rows)} steps (expected {n}), loss/grad_norm "
+          f"{[(r['loss'], r['grad_norm']) for r in rows]}")
+
+
+def exact_step_card_vs_cpu(ds) -> dict:
+    """One float32 "highest" train step at b=2 (YOLO11n-seg at full width,
+    TRAIN_EXACT_HW input) on the card and on the CPU from the same weights
+    and batch: metrics within rtol 1e-4, the clipped gradient (the first
+    moment / 0.1) within 1e-3 of each leaf's max abs, params and moments
+    within rtol 1e-4, atol 1e-5: the CPU tests' tolerances x10 (cuDNN sums
+    in another order)."""
+    cfg = dataclasses.replace(MODEL, dtype="float32",
+                              matmul_precision="highest",
+                              input_size=TRAIN_EXACT_HW)
+    host = yolo11.init_params(torch.Generator().manual_seed(3), cfg)
+    batch = next(data_lib.Loader(ds, cfg, 2, max_gt=16, device="cpu")
+                 ._host_batches(0))
+    opt = train_ts.make_optimizer(lr=1e-6, warmup_steps=0, total_steps=10)
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        model = copy.deepcopy(host).to(dev)
+        state = train_ts.TrainState(model, opt.init(model), 0)
+        step = train_ts.make_train_step(cfg, opt, use_remat=False, device=dev)
+        state, m = step(state, batch)
+        runs.append(({k: float(v) for k, v in m.items()}, state))
+    (mc, sc), (mh, sh) = runs
+    for k in mh:
+        check(abs(mc[k] - mh[k]) <= 1e-4 * abs(mh[k]) + 1e-7,
+              f"exact step: {k} {mc[k]} on the card, {mh[k]} on the CPU")
+    worst_g = 0.0
+    for name, mu in sh.opt_state["mu"].items():
+        g_h, g_c = mu.numpy() / 0.1, sc.opt_state["mu"][name].cpu().numpy() / 0.1
+        err = float(np.abs(g_c - g_h).max()) / max(float(np.abs(g_h).max()),
+                                                    1e-30)
+        worst_g = max(worst_g, err)
+        check(err <= 1e-3, f"exact step: gradient of {name} off by {err:.2e}"
+                           " of its max")
+    pairs = [(n, p.detach(), dict(sh.params.named_parameters())[n].detach())
+             for n, p in sc.params.named_parameters()]
+    pairs += [(f"{k} {n}", t, sh.opt_state[k][n]) for k in ("mu", "nu")
+              for n, t in sc.opt_state[k].items()]
+    for name, c, h in pairs:
+        check(torch.allclose(c.cpu(), h, rtol=1e-4, atol=1e-5),
+              f"exact step: {name} differs from the CPU's beyond rtol 1e-4,"
+              " atol 1e-5")
+    return {"input": list(TRAIN_EXACT_HW), "loss": mc["loss"],
+            "loss_cpu": mh["loss"], "grad_norm": mc["grad_norm"],
+            "grad_norm_cpu": mh["grad_norm"],
+            "worst_grad_err_of_leaf_max": worst_g}
+
+
+def timed_steps(state, optimizer, batch) -> dict:
+    """ms per bf16 remat step at the trainer's batch, images/s, the peak
+    memory of those steps, and a profile of them (device ms, idle share,
+    launches). Each step ends in the one host copy of its metrics the
+    trainer makes."""
+    step = train_ts.make_train_step(MODEL, optimizer, device=DEVICE)
+
+    def one():
+        _, m = step(state, batch)
+        torch.stack(list(m.values())).tolist()
+
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_batch(one, TRAIN_BATCH, TRAIN_TIMED_STEPS, top=6)
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": prof["wall_ms"],
+            "images_per_s": TRAIN_BATCH * 1e3 / prof["wall_ms"],
+            "device_ms": prof["device_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "launches": prof["launches"], "top": prof["top"],
+            "peak_bytes": peak}
+
+
+def phase_train(smi: str) -> dict:
+    """Trainer.fit on YOLO11n-seg at full width (bf16, remat, EMA, mosaic)
+    with validation through K1, resume, timed steps, the float32 step
+    against the CPU, and two steps of each other task (obb validation
+    through K3)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    seconds, numbers = {}, {}
+    seg = detection_params(torch.Generator().manual_seed(0), MODEL,
+                           device=DEVICE)
+    ds = data_lib.SyntheticShapesDataset(n=TRAIN_N, hw=FRAME_HW, n_classes=3)
+    val_ds = data_lib.SyntheticShapesDataset(n=TRAIN_VAL_N, hw=FRAME_HW,
+                                             n_classes=3, seed=1)
+    per_epoch = TRAIN_N // TRAIN_BATCH
+    tcfg = TrainConfig(epochs=2, batch=TRAIN_BATCH, max_gt=16, lr=1e-3,
+                       warmup_steps=2, log_every=per_epoch,
+                       ckpt_dir=str(TRAIN_DIR), val_max_images=TRAIN_VAL_N)
+    tr = Trainer(MODEL, tcfg, params=seg, device=DEVICE)
+    val_counts = counted_evaluate(tr)
+    torch.cuda.reset_peak_memory_stats()
+    with StepRecorder() as rec:
+        hist = tr.fit(ds, val_dataset=val_ds)
+    torch.cuda.synchronize()
+    fit_peak = torch.cuda.max_memory_allocated()
+    finite_steps(rec.rows, 2 * per_epoch, "fit")
+    check(tr.preflight_bytes is not None, "the memory preflight did not run")
+    check(len(val_counts) == 2 and all(
+        c[K1["name"]] == 1 and sum(c.values()) == 1
+        and by_b == {TRAIN_BATCH: 1} for c, by_b in val_counts),
+        f"fit validation launches {val_counts}; expected K1 once a "
+        f"validation at B={TRAIN_BATCH} and nothing else")
+    numbers["fit"] = {"history": hist, "steps": rec.rows}
+    seconds["fit 2 epochs + validation"] = time.perf_counter() - t0
+
+    # the validation equals the same eval through the plain NMS
+    del tr.evaluate                     # the instance's wrapper
+    post = PostprocessConfig(score_threshold=tcfg.val_score_threshold,
+                             max_detections=tcfg.val_max_detections,
+                             nms_backend="scan")
+    scan_pipe = build_pipeline(ExecutorConfig(model=MODEL, post=post),
+                               tr._val_model, crop_masks=True,
+                               frame_hw=MODEL.input_size, batch=TRAIN_BATCH,
+                               device=DEVICE)
+    got, got_pi, _, _ = eval_run(lambda: tr.evaluate(
+        val_ds, max_images=TRAIN_VAL_N), "train validation")
+    want, want_pi, _, _ = eval_run(lambda: evaluate_dataset(
+        MODEL, tr._val_model, val_ds,
+        score_threshold=tcfg.val_score_threshold,
+        max_detections=tcfg.val_max_detections, max_images=TRAIN_VAL_N,
+        batch=TRAIN_BATCH, pipe=scan_pipe, device=DEVICE),
+        "train validation (scan)")
+    n_det = same_per_image(got_pi, want_pi, "train validation")
+    check(got == {"val_box_mAP": want["box_mAP"],
+                  "val_box_AP50": want["box_AP50"],
+                  "val_mask_mAP": want["mask_mAP"]},
+          f"train validation {got} != scan {want}")
+    numbers["validation"] = {"result": got, "detections": n_det}
+    seconds["validation against scan"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # resume from state.pt: the step count and the LR horizon continue
+    tr2 = Trainer(MODEL, tcfg, device=DEVICE)
+    with StepRecorder() as rec2:
+        tr2.fit(ds, resume=True, epochs=1)
+    finite_steps(rec2.rows, per_epoch, "resumed fit")
+    done = 3 * per_epoch
+    check(tr2.state.step == done and tr2.state.opt_state["count"] == done
+          and tr2.optimizer.total_steps == done and len(tr2.history) == 3,
+          f"resume: step {tr2.state.step}, count "
+          f"{tr2.state.opt_state['count']}, horizon "
+          f"{tr2.optimizer.total_steps}, {len(tr2.history)} epochs; "
+          f"expected {done}, {done}, {done}, 3")
+    numbers["resume"] = {"step": tr2.state.step,
+                         "lr_at_resume": tr2.optimizer.schedule(
+                             2 * per_epoch),
+                         "lr_fresh_horizon": train_ts.make_optimizer(
+                             tcfg.lr, tcfg.weight_decay, tcfg.warmup_steps,
+                             2 * per_epoch).schedule(2 * per_epoch)}
+    seconds["resume 1 epoch"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # the Loader's host work alone (fit's augmentation: mosaic, affine,
+    # HSV, collate), step time, images/s, the preflight against the peak
+    loader = data_lib.Loader(ds, MODEL, TRAIN_BATCH, max_gt=16,
+                             device=DEVICE)
+    t_host = time.perf_counter()
+    host_batches = list(loader._host_batches(0))
+    host_ms = (time.perf_counter() - t_host) * 1e3 / len(host_batches)
+    batch = next(iter(loader.epoch(0)))
+    step = timed_steps(tr2.state, tr2.optimizer, batch)
+    numbers["step"] = {k: v for k, v in step.items() if k != "peak_bytes"}
+    numbers["loader_host_ms_per_batch"] = host_ms
+    numbers["fit_s_per_step"] = [h["sec"] / per_epoch for h in hist]
+    numbers["memory"] = {"preflight_estimate_gb": tr.preflight_bytes / 1e9,
+                         "timed_steps_peak_gb": step["peak_bytes"] / 1e9,
+                         "fit_peak_gb": fit_peak / 1e9}
+    seconds["timed steps"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    numbers["exact_step"] = exact_step_card_vs_cpu(ds)
+    seconds["float32 step, card and CPU"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # the other tasks at full width: two steps each; obb validates (K3)
+    launches = {"train validation": sum(c[K1["name"]] for c, _ in
+                                        val_counts)}
+    numbers["tasks"] = {}
+    for name, cfg, data, val in (
+            ("obb", OBB_MODEL,
+             data_lib.SyntheticOBBDataset(n=8, hw=OBB_FRAME_HW),
+             data_lib.SyntheticOBBDataset(n=4, hw=OBB_FRAME_HW, seed=1)),
+            ("pose", POSE_EVAL_MODEL,
+             data_lib.SyntheticPoseDataset(n=8, hw=FRAME_HW), None),
+            ("classify", CLS_MODEL,
+             data_lib.SyntheticClassifyDataset(n=8, hw=FRAME_HW), None)):
+        weights = (detection_params(torch.Generator().manual_seed(0), cfg,
+                                    device=DEVICE) if val is not None
+                   else None)
+        tt = Trainer(cfg, TrainConfig(epochs=1, batch=4, max_gt=8,
+                                      warmup_steps=1, log_every=0,
+                                      val_max_images=4),
+                     params=weights, device=DEVICE)
+        counts = counted_evaluate(tt)
+        with StepRecorder() as r:
+            h = tt.fit(data, val_dataset=val, verbose=False)
+        finite_steps(r.rows, 2, f"{name} fit")
+        if val is not None:
+            check(len(counts) == 1 and counts[0][0][K3["name"]] == 1
+                  and sum(counts[0][0].values()) == 1,
+                  f"obb validation launches {counts}; expected K3 once")
+            launches["train obb validation"] = counts[0][0][K3["name"]]
+        numbers["tasks"][name] = {"losses": [x["loss"] for x in r.rows],
+                                  **{k: v for k, v in h[-1].items()
+                                     if k.startswith("val_")}}
+    seconds["obb, pose, classify"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+    seconds["whole phase"] = time.perf_counter() - t0
+    step_line = numbers["step"]
+    print(f"train: card {smi}: bf16 remat step at b={TRAIN_BATCH}, "
+          f"{MODEL.input_size[0]}x{MODEL.input_size[1]}: "
+          f"{step_line['ms']:.2f} ms ({step_line['images_per_s']:.1f} "
+          f"images/s), device {step_line['device_ms']:.2f} ms, idle "
+          f"{step_line['device_idle_share']:.1%}, "
+          f"{step_line['launches']:.0f} launches; the Loader's host work "
+          f"{host_ms:.1f} ms a batch, fit {numbers['fit_s_per_step']} s a "
+          "step", flush=True)
+    mem = numbers["memory"]
+    print(f"train: preflight estimate {mem['preflight_estimate_gb']:.3f} GB "
+          f"against a measured peak of {mem['timed_steps_peak_gb']:.3f} GB "
+          f"over the timed steps ({mem['fit_peak_gb']:.3f} GB over the fit)",
+          flush=True)
+    print("train: " + json.dumps({"card": smi, **numbers,
+                                  "launches": launches,
+                                  "seconds": {k: round(v, 2) for k, v in
+                                              seconds.items()}}),
+          flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -2667,6 +2991,12 @@ def main() -> int:
             for path in paths:
                 k["launches"] += ev[path][k["name"]]
                 k["launches_by_path"][f"eval {path}"] = ev[path][k["name"]]
+        tr = phase_train(smi)["launches"]
+        seconds["train"] = time.perf_counter() - t0 - sum(seconds.values())
+        for k, path in ((kernels[0], "train validation"),
+                        (kernels[2], "train obb validation")):
+            k["launches"] += tr[path]
+            k["launches_by_path"][path] = tr[path]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

@@ -807,3 +807,90 @@ def test_deploy_check_on_the_card(card):
     assert by["cuda_platform"][0] and by["cuda_kernels"][0]
     assert by["devices_present"][1].startswith("1 device(s)") or \
         torch.cuda.device_count() > 1
+
+
+def test_train_step_on_the_card_equals_cpu(card):
+    """One float32 "highest" train step at b=2 (remat on) on the card and
+    on the CPU from the same weights and batch: metrics within rtol 1e-4,
+    the clipped gradient (the first moment / 0.1) within 1e-3 of each
+    leaf's max abs, params and moments within rtol 1e-4, atol 1e-5 (the
+    CPU tests' tolerances x10: cuDNN sums in another order)."""
+    import copy
+
+    from xrseg_tpu_torch.models import yolo11
+    from xrseg_tpu_torch.train import data as data_lib
+    from xrseg_tpu_torch.train import train_step as ts
+    cfg = ModelConfig(input_size=(96, 96), num_classes=3, dtype="float32",
+                      matmul_precision="highest")
+    host = yolo11.init_params(torch.Generator().manual_seed(3), cfg)
+    ds = data_lib.SyntheticShapesDataset(n=2, hw=(96, 96))
+    batch = next(data_lib.Loader(ds, cfg, 2, max_gt=4,
+                                 device="cpu")._host_batches(0))
+    opt = ts.make_optimizer(lr=1e-6, warmup_steps=0, total_steps=10)
+    runs = []
+    for dev in (card, "cpu"):
+        model = copy.deepcopy(host).to(dev)
+        state = ts.TrainState(model, opt.init(model), 0)
+        state, m = ts.make_train_step(cfg, opt, device=dev)(state, batch)
+        runs.append(({k: float(v) for k, v in m.items()}, state))
+    (mc, sc), (mh, sh) = runs
+    assert set(mc) == set(mh)
+    for k in mh:
+        assert mc[k] == pytest.approx(mh[k], rel=1e-4, abs=1e-7), k
+    for name, mu in sh.opt_state["mu"].items():
+        g_h = mu / 0.1
+        g_c = sc.opt_state["mu"][name].cpu() / 0.1
+        assert float((g_c - g_h).abs().max()) <= 1e-3 * max(
+            float(g_h.abs().max()), 1e-30), name
+    cpu_params = dict(sh.params.named_parameters())
+    for name, p in sc.params.named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), cpu_params[name].detach(),
+                                   rtol=1e-4, atol=1e-5)
+    for key in ("mu", "nu"):
+        for name, t in sc.opt_state[key].items():
+            torch.testing.assert_close(t.cpu(), sh.opt_state[key][name],
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_trainer_validation_on_the_card_equals_scan(card, monkeypatch):
+    """Trainer.fit on the card validates through K1 (once per validation
+    batch, at B=8), and the validation equals the same eval through the
+    plain NMS, image for image."""
+    from xrseg_tpu_torch.eval import dataset_eval as de
+    from xrseg_tpu_torch.train import data as data_lib
+    from xrseg_tpu_torch.train.trainer import TrainConfig, Trainer
+    mcfg = ModelConfig(num_classes=3, input_size=(128, 128))
+    weights = detection_params(torch.Generator().manual_seed(0), mcfg,
+                               device=card)
+    ds = data_lib.SyntheticShapesDataset(n=8, hw=(96, 128))
+    tr = Trainer(mcfg, TrainConfig(epochs=1, batch=4, max_gt=8,
+                                   warmup_steps=1, log_every=0,
+                                   val_max_images=8), params=weights,
+                 device=card)
+    before = tk.nms_select_batched_cuda.launches
+    hist = tr.fit(ds, val_dataset=ds, verbose=False)
+    torch.cuda.synchronize()
+    assert tk.nms_select_batched_cuda.launches == before + 1
+    assert np.isfinite(hist[-1]["loss"]) and tr.preflight_bytes > 0
+    calls = []
+    real = de.evaluate
+
+    def capture(per_image, *a, **k):
+        calls.append(per_image)
+        return real(per_image, *a, **k)
+    monkeypatch.setattr(de, "evaluate", capture)
+    got = tr.evaluate(ds, max_images=8)
+    scan = build_pipeline(ExecutorConfig(model=mcfg, post=PostprocessConfig(
+        score_threshold=0.05, nms_backend="scan")), tr._val_model,
+        crop_masks=True, frame_hw=(128, 128), batch=8)
+    want = de.evaluate_dataset(mcfg, tr._val_model, ds, max_images=8,
+                               batch=8, pipe=scan)
+    assert got == {"val_box_mAP": want["box_mAP"],
+                   "val_box_AP50": want["box_AP50"],
+                   "val_mask_mAP": want["mask_mAP"]}
+    for (dg, _), (dw, _) in zip(calls[0], calls[-1], strict=True):
+        assert len(dg) == len(dw) > 0
+        for a, b in zip(dg, dw):
+            assert (a.label, a.score) == (b.label, b.score)
+            np.testing.assert_array_equal(a.box_xywh, b.box_xywh)
+            np.testing.assert_array_equal(a.mask, b.mask)

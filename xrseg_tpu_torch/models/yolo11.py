@@ -19,6 +19,13 @@ same structure runs beside det and adds o2o_boxes_xywh [B,A,4] and
 o2o_cls_logits [B,A,nc]: the NMS-free one-to-one head
 (ops/postprocess.postprocess_o2o_batch).
 
+`YOLO11.forward_train(x)` is the training forward (JAX yolo11.forward_train):
+raw float32 box_logits [B,A,4*reg_max] and cls_logits [B,A,nc], decoded
+boxes_xywh, and per task mask_coefs/protos, kpts or boxes_xywhr/angle, plus
+o2o_box_logits/o2o_cls_logits/o2o_boxes_xywh with cfg.o2o; the classify
+task returns the head's logits and probs. Its anchors follow the batch's
+own (H, W), so multi-scale batches need no config of their own.
+
 Both archs ("yolo11", "yolov8") and every task of the JAX package
 ("segment", "detect", "obb", "pose", "classify") are ported.
 """
@@ -283,6 +290,9 @@ class YOLO11(nn.Module):
                              persistent=False)
         self.register_buffer("strides", torch.from_numpy(strides),
                              persistent=False)
+        # forward_train's anchors per (H, W, device), made on first use
+        self._train_anchors: Dict[tuple, Tuple[torch.Tensor,
+                                               torch.Tensor]] = {}
 
     def _init_backbone(self, s: Spec, dt) -> None:
         self.b0 = L.Conv(3, s.c64, 3, 2, dtype=dt)
@@ -361,59 +371,71 @@ class YOLO11(nn.Module):
         x22 = self.h22(torch.cat([self.h20(x19), x10], 1))
         return x16, x19, x22
 
-    def _detect(self, head: DetectHead, feats):
-        """One detect head: (DFL ltrb [B,A,4], xywh [B,A,4] in input
-        pixels, class logits [B,A,nc] in the compute dtype)."""
+    def _detect(self, head: DetectHead, feats, anchors=None, strides=None):
+        """One detect head: (box logits [B,A,4*reg_max] and class logits
+        [B,A,nc] in the compute dtype, DFL ltrb [B,A,4], xywh [B,A,4] in
+        input pixels). The anchors default to those of cfg.input_size."""
         cfg = self.cfg
+        anchors = self.anchors if anchors is None else anchors
+        strides = self.strides if strides is None else strides
         box_flat = _flatten([b(f) for b, f in zip(head.cv2, feats)],
                             4 * cfg.reg_max)
         cls_flat = _flatten([c(f) for c, f in zip(head.cv3, feats)],
                             cfg.num_classes)
         ltrb = dfl_decode(box_flat, cfg.reg_max)
-        x1y1 = self.anchors - ltrb[..., :2]
-        x2y2 = self.anchors + ltrb[..., 2:]
-        xywh = torch.cat([(x1y1 + x2y2) * 0.5 * self.strides,
-                          (x2y2 - x1y1) * self.strides], -1)
-        return ltrb, xywh, cls_flat
+        x1y1 = anchors - ltrb[..., :2]
+        x2y2 = anchors + ltrb[..., 2:]
+        xywh = torch.cat([(x1y1 + x2y2) * 0.5 * strides,
+                          (x2y2 - x1y1) * strides], -1)
+        return box_flat, cls_flat, ltrb, xywh
 
-    def head_outputs(self, feats, concat_preds: bool = True
-                     ) -> Dict[str, torch.Tensor]:
+    def _task_outputs(self, feats, ltrb, anchors, strides
+                      ) -> Dict[str, torch.Tensor]:
+        """The task head's float32 outputs: protos and mask_coefs
+        (segment), decoded kpts (pose), boxes_xywhr and angle (obb)."""
         cfg = self.cfg
-        ltrb, xywh, cls_flat = self._detect(self.det, feats)
-        scores = torch.sigmoid(cls_flat.float())
-        out = {"boxes_xywh": xywh, "scores": scores, "cls_logits": cls_flat}
-        if cfg.o2o:
-            _, out["o2o_boxes_xywh"], out["o2o_cls_logits"] = self._detect(
-                self.det_o2o, feats)
         if cfg.task == "segment":
             protos = self.proto(feats[0])
             mc = _flatten([m(f) for m, f in zip(self.seg_cv4, feats)],
                           cfg.num_masks)
-            out["mask_coefs"] = mc.float()
-            out["protos"] = protos.permute(0, 2, 3, 1).float().contiguous()
-            if concat_preds:
-                out["preds"] = torch.cat([xywh, scores, out["mask_coefs"]], -1)
-        elif cfg.task == "pose":
+            return {"mask_coefs": mc.float(),
+                    "protos": protos.permute(0, 2, 3, 1).float().contiguous()}
+        if cfg.task == "pose":
             nk = cfg.kpt_shape[0] * cfg.kpt_shape[1]
             kf = _flatten([m(f) for m, f in zip(self.pose_cv4, feats)], nk)
-            out["kpts"] = decode_kpts(kf.float(), self.anchors, self.strides,
-                                      cfg.kpt_shape)
-            if concat_preds:
-                out["preds"] = torch.cat(
-                    [xywh, scores, out["kpts"].reshape(*xywh.shape[:2], nk)],
-                    -1)
-        elif cfg.task == "obb":
+            return {"kpts": decode_kpts(kf.float(), anchors, strides,
+                                        cfg.kpt_shape)}
+        if cfg.task == "obb":
             raw = _flatten([m(f) for m, f in zip(self.obb_cv4, feats)], 1)
             # ultralytics OBB: angle = (sigmoid(raw) - 0.25) * pi, decoded
             # before the box (the ltrb offsets rotate by it)
             angle = (torch.sigmoid(raw[..., 0].float()) - 0.25) * math.pi
-            out["boxes_xywhr"] = decode_rbox(ltrb, angle, self.anchors,
-                                             self.strides)
-            out["angle"] = angle
-            if concat_preds:
-                out["preds"] = torch.cat([out["boxes_xywhr"][..., :4], scores,
-                                          angle[..., None]], -1)
-        elif concat_preds:
+            return {"boxes_xywhr": decode_rbox(ltrb, angle, anchors,
+                                               strides), "angle": angle}
+        return {}
+
+    def head_outputs(self, feats, concat_preds: bool = True
+                     ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        _, cls_flat, ltrb, xywh = self._detect(self.det, feats)
+        scores = torch.sigmoid(cls_flat.float())
+        out = {"boxes_xywh": xywh, "scores": scores, "cls_logits": cls_flat}
+        if cfg.o2o:
+            _, out["o2o_cls_logits"], _, out["o2o_boxes_xywh"] = self._detect(
+                self.det_o2o, feats)
+        out.update(self._task_outputs(feats, ltrb, self.anchors,
+                                      self.strides))
+        if not concat_preds:
+            return out
+        if cfg.task == "segment":
+            out["preds"] = torch.cat([xywh, scores, out["mask_coefs"]], -1)
+        elif cfg.task == "pose":
+            out["preds"] = torch.cat(
+                [xywh, scores, out["kpts"].flatten(2)], -1)
+        elif cfg.task == "obb":
+            out["preds"] = torch.cat([out["boxes_xywhr"][..., :4], scores,
+                                      out["angle"][..., None]], -1)
+        else:
             out["preds"] = torch.cat([xywh, scores], -1)
         return out
 
@@ -429,6 +451,48 @@ class YOLO11(nn.Module):
             if self.cfg.task == "classify":
                 return self.cls_head(self.backbone(x)[2])
             return self.head_outputs(self.backbone_neck(x), concat_preds)
+
+    def _anchors_for(self, hw: Tuple[int, int], device: torch.device):
+        """(anchors [A,2], strides [A,1]) for an input of `hw` on `device`,
+        made once per shape and device."""
+        key = (int(hw[0]), int(hw[1]), device)
+        hit = self._train_anchors.get(key)
+        if hit is None:
+            anchors, strides = make_anchors(key[:2])
+            hit = (torch.from_numpy(anchors).to(device),
+                   torch.from_numpy(strides).to(device))
+            self._train_anchors[key] = hit
+        return hit
+
+    def forward_train(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The training forward (JAX yolo11.forward_train): x NHWC
+        [B, H, W, 3] of any (H, W) that are multiples of 32 -> raw float32
+        logits and decoded boxes on anchors of the batch's own (H, W)
+        (module docstring). Nothing is sigmoided or concatenated."""
+        cfg = self.cfg
+        if x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 32 \
+                or x.shape[2] % 32:
+            raise ValueError(f"input {tuple(x.shape)}: expected NHWC "
+                             "[B, H, W, 3] with H and W multiples of 32")
+        H, W = int(x.shape[1]), int(x.shape[2])
+        with precision_scope(cfg.matmul_precision):
+            x = x.permute(0, 3, 1, 2).to(self.dtype)
+            if cfg.task == "classify":
+                return self.cls_head(self.backbone(x)[2])
+            feats = self.backbone_neck(x)
+            anchors, strides = self._anchors_for((H, W), x.device)
+            box_flat, cls_flat, ltrb, xywh = self._detect(
+                self.det, feats, anchors, strides)
+            out = {"box_logits": box_flat.float(),
+                   "cls_logits": cls_flat.float(), "boxes_xywh": xywh}
+            if cfg.o2o:
+                obox, ocls, _, oxywh = self._detect(self.det_o2o, feats,
+                                                    anchors, strides)
+                out.update(o2o_box_logits=obox.float(),
+                           o2o_cls_logits=ocls.float(),
+                           o2o_boxes_xywh=oxywh)
+            out.update(self._task_outputs(feats, ltrb, anchors, strides))
+        return out
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> YOLO11:

@@ -24,20 +24,39 @@ Samples are dicts: image uint8 [H,W,3]; boxes [N,4] cxcywh normalized
 None); pose adds kpts [N,K,3], obb carries boxes_xywhr [N,5], classify
 {image, label}.
 
-Not here yet: the training half (augmentation, mosaic, copy-paste, the
-collates and the prefetching Loader, JAX data.py:553-990 and
-:1078-1214). They come with the port of training.
+The training half (JAX data.py:496-982 and :1078-1208), line for line
+the JAX package's numpy, so seeded host batches are bit-equal to its:
+
+  augmentations   — hflip_sample, hsv_jitter (the port's C++ kernel,
+                    io/native.hsv_jitter_native; _hsv_jitter_numpy is its
+                    twin), scale_translate, mosaic4, copy_paste, mixup2,
+                    and the task flips hflip_pose_sample/hflip_obb_sample.
+  assembly        — AugmentConfig, _base_sample, augment_sample,
+                    augment_task_sample; collate (detect/segment),
+                    collate_pose, collate_obb, collate_classify.
+  Loader          — the seeded epoch iterator: default_rng((seed, epoch,
+                    i)) per sample, scale buckets, drop_last=False padding
+                    with sample_weight, a prefetch thread, and the batches
+                    as torch tensors on the Loader's device (pinned host
+                    staging, non_blocking copies on a card).
 
 Image files decode through PIL, imported lazily where a file is read,
 as in the JAX package; the synthetic datasets need no PIL.
 """
 from __future__ import annotations
 
+import dataclasses
 import glob
 import os
-from typing import Dict, List, Optional, Tuple
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from xrseg_tpu_torch.config import ModelConfig
+from xrseg_tpu_torch.device import resolve_device
 
 Sample = Dict[str, np.ndarray]
 # sample dict: image uint8 [H,W,3]; boxes [N,4] cxcywh normalized [0,1];
@@ -497,6 +516,485 @@ def rasterize_mask(poly: Optional[np.ndarray], box: np.ndarray,
     return m
 
 
+def hflip_sample(s: Sample) -> Sample:
+    out = dict(s)
+    out["image"] = s["image"][:, ::-1]
+    b = s["boxes"].copy()
+    if len(b):
+        b[:, 0] = 1.0 - b[:, 0]
+    out["boxes"] = b
+    out["polys"] = [None if p is None else
+                    np.stack([1.0 - p[:, 0], p[:, 1]], -1)
+                    for p in s["polys"]]
+    return out
+
+
+def hsv_jitter(img: np.ndarray, rng: np.random.Generator,
+               h_gain: float = 0.015, s_gain: float = 0.7,
+               v_gain: float = 0.4) -> np.ndarray:
+    """Random HSV gains (the YOLO-family color augmentation) through the
+    port's single-pass C++ kernel (io/native.hsv_jitter_native, the
+    loader's hottest host op); a failed build raises. _hsv_jitter_numpy is
+    its plain twin."""
+    gains = rng.uniform(-1, 1, 3) * (h_gain, s_gain, v_gain) + 1.0
+    from xrseg_tpu_torch.io import native
+    return native.hsv_jitter_native(img, *gains)
+
+
+def _hsv_jitter_numpy(img: np.ndarray, gains: np.ndarray) -> np.ndarray:
+    """Vectorized numpy HSV round-trip on uint8 (the native kernel's
+    twin: equal on all but rare hue-sextant boundary pixels, one step
+    apart there)."""
+    x = img.astype(np.float32) / 255.0
+    mx = x.max(-1)
+    mn = x.min(-1)
+    c = mx - mn + 1e-12
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    hue = np.where(mx == r, ((g - b) / c) % 6,
+                   np.where(mx == g, (b - r) / c + 2, (r - g) / c + 4)) / 6
+    sat = np.where(mx > 0, c / (mx + 1e-12), 0.0)
+    hue = (hue * gains[0]) % 1.0
+    sat = np.clip(sat * gains[1], 0, 1)
+    val = np.clip(mx * gains[2], 0, 1)
+    k = (hue * 6).astype(np.int32) % 6
+    f = hue * 6 - np.floor(hue * 6)
+    p = val * (1 - sat)
+    q = val * (1 - f * sat)
+    t = val * (1 - (1 - f) * sat)
+    k = k[..., None]
+    rgb = np.select(
+        [k == 0, k == 1, k == 2, k == 3, k == 4, k == 5],
+        [np.stack([val, t, p], -1), np.stack([q, val, p], -1),
+         np.stack([p, val, t], -1), np.stack([p, q, val], -1),
+         np.stack([t, p, val], -1), np.stack([val, p, q], -1)])
+    return (rgb * 255.0 + 0.5).astype(np.uint8)
+
+
+def scale_translate(s: Sample, rng: np.random.Generator,
+                    scale: float = 0.4, translate: float = 0.1) -> Sample:
+    """Random zoom + shift (normalized space), nearest-sampled on the pixel
+    grid; boxes/polys follow the same affine. GT falling outside the view
+    is dropped (degenerate boxes filtered by collate's min-size gate)."""
+    h, w = s["image"].shape[:2]
+    z = 1.0 + rng.uniform(-scale, scale)
+    tx = rng.uniform(-translate, translate)
+    ty = rng.uniform(-translate, translate)
+    # output pixel (u,v) samples input at ((u/w - 0.5 - tx)/z + 0.5)*w
+    uu = ((np.arange(w) / w - 0.5 - tx) / z + 0.5) * w
+    vv = ((np.arange(h) / h - 0.5 - ty) / z + 0.5) * h
+    ui = np.clip(np.round(uu).astype(np.int64), 0, w - 1)
+    vi = np.clip(np.round(vv).astype(np.int64), 0, h - 1)
+    oob_u = (uu < -0.5) | (uu > w - 0.5)
+    oob_v = (vv < -0.5) | (vv > h - 0.5)
+    img = s["image"][vi][:, ui]
+    img[oob_v, :] = 114        # gray fill, the YOLO letterbox color
+    img[:, oob_u] = 114
+    out = dict(s)
+    out["image"] = img
+
+    def fwd_xy(xy: np.ndarray) -> np.ndarray:
+        return (xy - 0.5) * z + 0.5 + np.asarray([tx, ty], np.float32)
+
+    b = s["boxes"].copy()
+    if len(b):
+        b[:, :2] = fwd_xy(b[:, :2])
+        b[:, 2:] = b[:, 2:] * z
+        # clip to the visible frame, preserving cxcywh
+        x1 = np.clip(b[:, 0] - b[:, 2] / 2, 0, 1)
+        y1 = np.clip(b[:, 1] - b[:, 3] / 2, 0, 1)
+        x2 = np.clip(b[:, 0] + b[:, 2] / 2, 0, 1)
+        y2 = np.clip(b[:, 1] + b[:, 3] / 2, 0, 1)
+        b = np.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+    out["boxes"] = b
+    out["polys"] = [None if p is None else fwd_xy(p) for p in s["polys"]]
+    return out
+
+
+def mosaic4(samples: Sequence[Sample], rng: np.random.Generator,
+            out_hw: Tuple[int, int]) -> Sample:
+    """Standard 4-image mosaic: each input is stretch-resized to out_hw,
+    the four are placed around a random center on a [2H,2W] canvas, and
+    the canvas is resized back down to out_hw. GT transforms per quadrant."""
+    assert len(samples) == 4
+    H, W = out_hw
+    canvas = np.full((2 * H, 2 * W, 3), 114, np.uint8)
+    cy = int(rng.uniform(0.5, 1.5) * H)
+    cx = int(rng.uniform(0.5, 1.5) * W)
+    # quadrant corner placements (y0, y1, x0, x1) on the canvas
+    quads = [(0, cy, 0, cx), (0, cy, cx, 2 * W),
+             (cy, 2 * H, 0, cx), (cy, 2 * H, cx, 2 * W)]
+    boxes, labels, polys = [], [], []
+    for s, (y0, y1, x0, x1) in zip(samples, quads):
+        qh, qw = y1 - y0, x1 - x0
+        canvas[y0:y1, x0:x1] = _resize_uint8(s["image"], (qh, qw))
+        # normalized-in-quadrant -> normalized-in-canvas
+        sx, sy = qw / (2 * W), qh / (2 * H)
+        ox, oy = x0 / (2 * W), y0 / (2 * H)
+        b = s["boxes"].copy()
+        if len(b):
+            b[:, 0] = b[:, 0] * sx + ox
+            b[:, 1] = b[:, 1] * sy + oy
+            b[:, 2] = b[:, 2] * sx
+            b[:, 3] = b[:, 3] * sy
+            boxes.append(b)
+            labels.append(s["labels"])
+            polys.extend(
+                None if p is None else
+                np.stack([p[:, 0] * sx + ox, p[:, 1] * sy + oy], -1)
+                for p in s["polys"])
+    out: Sample = {
+        "image": _resize_uint8(canvas, (H, W)),
+        "boxes": (np.concatenate(boxes) if boxes
+                  else np.zeros((0, 4), np.float32)),
+        "labels": (np.concatenate(labels) if labels
+                   else np.zeros((0,), np.int32)),
+        "polys": polys,
+    }
+    return out
+
+
+def copy_paste(dst: Sample, src: Sample, rng: np.random.Generator,
+               p: float = 0.5, max_paste: int = 3) -> Sample:
+    """Segment copy-paste augmentation (Ghiasi et al. 2021; ultralytics'
+    `copy_paste` option): donor instances that carry a polygon are
+    rasterized at dst resolution and their pixels pasted into dst, with
+    box/label/polygon appended to dst's GT. Both samples use normalized
+    coordinates so no geometry conversion is needed; like ultralytics,
+    pre-existing GT occluded by a paste is left as-is (the assigner's
+    IoU weighting absorbs the noise)."""
+    donors = [i for i, pl in enumerate(src["polys"])
+              if pl is not None and len(pl) >= 3]
+    if not donors or p <= 0:
+        return dst
+    h, w = dst["image"].shape[:2]
+    src_img = _resize_uint8(src["image"], (h, w))
+    img = dst["image"].copy()
+    from PIL import Image, ImageDraw
+    add_b, add_l, add_p = [], [], []
+    for i in donors:
+        if len(add_b) >= max_paste or rng.uniform() >= p:
+            continue
+        poly = src["polys"][i]
+        m = Image.new("L", (w, h), 0)
+        ImageDraw.Draw(m).polygon(
+            [(float(x * w), float(y * h)) for x, y in poly], fill=1)
+        m = np.asarray(m, bool)
+        if not m.any():
+            continue
+        img[m] = src_img[m]
+        add_b.append(src["boxes"][i])
+        add_l.append(src["labels"][i])
+        add_p.append(poly)
+    if not add_b:
+        return dst
+    return {
+        "image": img,
+        "boxes": np.concatenate([dst["boxes"].reshape(-1, 4),
+                                 np.stack(add_b)]).astype(np.float32),
+        "labels": np.concatenate([dst["labels"],
+                                  np.asarray(add_l, np.int32)]),
+        "polys": list(dst["polys"]) + add_p,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Augmentation pipeline + collate
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    mosaic: float = 1.0          # probability of 4-image mosaic
+    mixup: float = 0.0           # probability of 2-image mixup blend
+    hflip: float = 0.5
+    hsv: bool = True
+    scale: float = 0.4
+    translate: float = 0.1
+    copy_paste: float = 0.0      # per-instance paste probability (segment)
+    min_box_px: float = 2.0      # drop GT smaller than this after augment
+    # aspect-preserving letterbox of every raw sample (incl. mosaic
+    # tiles) before augmentation, instead of the default stretch — the
+    # ultralytics-training geometry (see letterbox_sample)
+    letterbox: bool = False
+
+
+def mixup2(a: Sample, b: Sample, rng: np.random.Generator) -> Sample:
+    """YOLO-style mixup: pixel blend with lambda ~ Beta(32,32) (so ~0.5),
+    GT sets CONCATENATED unweighted (ultralytics semantics — the loss
+    sees both images' objects at full strength). Inputs must share HxW.
+    kpts (pose) and boxes_xywhr (obb) merge too when both sides carry
+    them."""
+    lam = float(rng.beta(32.0, 32.0))
+    img = np.clip(lam * a["image"].astype(np.float32)
+                  + (1.0 - lam) * b["image"].astype(np.float32),
+                  0, 255).astype(np.uint8)
+    out: Sample = {
+        "image": img,
+        "labels": np.concatenate([a["labels"], b["labels"]], 0),
+    }
+    for key in ("boxes", "boxes_xywhr", "kpts"):
+        if key in a and key in b:
+            out[key] = np.concatenate([a[key], b[key]], 0)
+    if "polys" in a and "polys" in b:
+        out["polys"] = list(a["polys"]) + list(b["polys"])
+    return out
+
+
+def _base_sample(get, i: int, rng: np.random.Generator,
+                 input_hw: Tuple[int, int], aug: AugmentConfig,
+                 n_total: int) -> Sample:
+    """mosaic-or-plain base image at input_hw (shared by main + mixup)."""
+    if aug.letterbox:
+        raw_get = get
+        get = lambda j: letterbox_sample(raw_get(j), input_hw)  # noqa: E731
+    if aug.mosaic > 0 and rng.uniform() < aug.mosaic:
+        idx = [i] + list(rng.integers(0, n_total, 3))
+        return mosaic4([get(j) for j in idx], rng, input_hw)
+    s = get(i)
+    return dict(s, image=_resize_uint8(s["image"], input_hw))
+
+
+def augment_sample(get, i: int, rng: np.random.Generator,
+                   input_hw: Tuple[int, int], aug: AugmentConfig,
+                   n_total: int) -> Sample:
+    """Assemble one augmented sample. `get(j)` fetches raw sample j."""
+    s = _base_sample(get, i, rng, input_hw, aug, n_total)
+    if aug.mixup > 0 and rng.uniform() < aug.mixup:
+        other = _base_sample(get, int(rng.integers(0, n_total)), rng,
+                             input_hw, aug, n_total)
+        s = mixup2(s, other, rng)
+    if aug.copy_paste > 0:
+        donor = get(int(rng.integers(0, n_total)))
+        s = copy_paste(s, donor, rng, aug.copy_paste)
+    if aug.scale > 0 or aug.translate > 0:
+        s = scale_translate(s, rng, aug.scale, aug.translate)
+    if rng.uniform() < aug.hflip:
+        s = hflip_sample(s)
+    if aug.hsv:
+        s = dict(s, image=hsv_jitter(s["image"], rng))
+    return s
+
+
+def collate(samples: Sequence[Sample], cfg: ModelConfig, max_gt: int,
+            min_box_px: float = 2.0, with_masks: Optional[bool] = None,
+            input_hw: Optional[Tuple[int, int]] = None
+            ) -> Dict[str, np.ndarray]:
+    """Fixed-shape padded batch in the train_step contract (model-pixel
+    boxes, -1-padded labels, proto-resolution masks). `input_hw` overrides
+    cfg.input_size for multi-scale training; the mask target tracks it at
+    proto resolution (H//4, W//4)."""
+    H, W = input_hw or cfg.input_size
+    mh, mw = H // 4, W // 4
+    if with_masks is None:
+        with_masks = cfg.task == "segment"
+    B = len(samples)
+    images = np.zeros((B, H, W, 3), np.float32)
+    boxes = np.zeros((B, max_gt, 4), np.float32)
+    labels = np.full((B, max_gt), -1, np.int32)
+    masks = (np.zeros((B, max_gt, mh, mw), np.float32) if with_masks
+             else None)
+    for b, s in enumerate(samples):
+        images[b] = _resize_uint8(s["image"], (H, W)).astype(np.float32) / 255
+        n = 0
+        for g in range(len(s["labels"])):
+            bx = s["boxes"][g]
+            if bx[2] * W < min_box_px or bx[3] * H < min_box_px:
+                continue
+            if n >= max_gt:
+                break
+            boxes[b, n] = bx * (W, H, W, H)
+            labels[b, n] = s["labels"][g]
+            if with_masks:
+                poly = s["polys"][g] if g < len(s["polys"]) else None
+                masks[b, n] = rasterize_mask(poly, bx, (mh, mw))
+            n += 1
+    out = {"images": images, "boxes_xywh": boxes, "labels": labels}
+    if with_masks:
+        out["masks"] = masks
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Prefetching loader
+# ---------------------------------------------------------------------------
+
+class Loader:
+    """Epoch iterator: deterministic shuffled order, per-sample seeded
+    augmentation, background prefetch, batches as torch tensors on
+    `device`.
+
+    Determinism: sample i of epoch e is augmented with
+    rng = default_rng((seed, e, i)) regardless of thread timing, so runs
+    reproduce exactly (and checkpoint-resume sees the same stream). The
+    host batches are the JAX package's Loader's, bit for bit.
+    """
+
+    def __init__(self, dataset, cfg: ModelConfig, batch: int,
+                 max_gt: int = 16, aug: AugmentConfig = AugmentConfig(),
+                 seed: int = 0, mesh=None, prefetch: int = 2,
+                 drop_last: bool = True,
+                 scales: Optional[Sequence[Tuple[int, int]]] = None,
+                 kpt_flip_idx: Optional[Sequence[int]] = None,
+                 device="cuda"):
+        """`scales`: optional multi-scale bucket list, e.g.
+        [(512,512),(576,576),(640,640),(704,704)]. Each batch picks one
+        bucket deterministically from (seed, epoch, step); the model's
+        forward_train takes its anchors from the batch shape. All entries
+        must be multiples of 32 (P5 stride).
+
+        cfg.task selects the sample contract: detect/segment use the
+        full augmentation pipeline + `collate`; pose/obb/classify use
+        augment_task_sample + their task collate. `kpt_flip_idx`: pose
+        keypoint left/right permutation applied on hflip. A `mesh`
+        (sharded batches) is ROADMAP item 10 and raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh (sharded batches) is not ported yet (ROADMAP item "
+                "10); load onto one device")
+        self.device = resolve_device(device)
+        self.ds = dataset
+        self.cfg = cfg
+        self.batch = batch
+        self.max_gt = max_gt
+        self.aug = aug
+        self.seed = seed
+        self.prefetch = max(1, prefetch)
+        self.drop_last = drop_last
+        if scales is not None:
+            for hw in scales:
+                if hw[0] % 32 or hw[1] % 32:
+                    raise ValueError(f"scale {hw} not a multiple of 32")
+        self.scales = list(scales) if scales else None
+        self.kpt_flip_idx = kpt_flip_idx
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.ds)
+        return n // self.batch if self.drop_last else -(-n // self.batch)
+
+    def _host_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        n = len(self.ds)
+        order = np.random.default_rng((self.seed, epoch)).permutation(n)
+        for step, b0 in enumerate(
+                range(0, n - (self.batch - 1) * self.drop_last, self.batch)):
+            idx = order[b0:b0 + self.batch]
+            if len(idx) == 0:
+                break
+            if self.scales:
+                srng = np.random.default_rng((self.seed, epoch, step, 7))
+                input_hw = self.scales[int(srng.integers(len(self.scales)))]
+            else:
+                input_hw = self.cfg.input_size
+            task = self.cfg.task
+            samples = []
+            for i in idx:
+                rng = np.random.default_rng((self.seed, epoch, int(i)))
+                if task in ("pose", "obb", "classify"):
+                    samples.append(augment_task_sample(
+                        self.ds.__getitem__, int(i), rng, input_hw,
+                        self.aug, task, self.kpt_flip_idx, n_total=n))
+                else:
+                    samples.append(augment_sample(
+                        self.ds.__getitem__, int(i), rng, input_hw,
+                        self.aug, n))
+            if task == "pose":
+                batch = collate_pose(samples, input_hw, self.max_gt)
+            elif task == "obb":
+                batch = collate_obb(samples, input_hw, self.max_gt)
+            elif task == "classify":
+                batch = collate_classify(samples, input_hw)
+            else:
+                batch = collate(samples, self.cfg, self.max_gt,
+                                self.aug.min_box_px, input_hw=input_hw)
+            if not self.drop_last:
+                batch = self._pad_batch(batch, len(samples))
+            yield batch
+
+    def _pad_batch(self, batch: Dict[str, np.ndarray], n_real: int
+                   ) -> Dict[str, np.ndarray]:
+        """drop_last=False: pad the (possibly partial) batch to the
+        configured size so every step shares one compiled shape and the
+        leading axis stays divisible by the mesh data axis. Padding rows
+        are zero images with no GT and sample_weight 0 — the loss removes
+        them exactly (losses.detection_loss)."""
+        pad = self.batch - n_real
+        if pad > 0:
+            out = {}
+            for k, v in batch.items():
+                fill = np.full((pad,) + v.shape[1:], -1 if k == "labels"
+                               else 0, v.dtype)
+                out[k] = np.concatenate([v, fill])
+            batch = out
+        # constant pytree structure across ALL steps (full batches too):
+        # one jit trace per geometry, not one per remainder
+        batch["sample_weight"] = np.concatenate(
+            [np.ones(n_real, np.float32),
+             np.zeros(self.batch - n_real, np.float32)])
+        return batch
+
+    def _staged(self, hb: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host batch as torch tensors, in pinned memory for a card."""
+        out = {k: torch.from_numpy(v) for k, v in hb.items()}
+        if self.device.type == "cuda":
+            out = {k: v.pin_memory() for k, v in out.items()}
+        return out
+
+    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+        """Batches of one epoch as tensors on the Loader's device, made
+        and staged (pinned, on a card) off-thread, copied with
+        non_blocking.
+
+        Abandoning the generator early (break / next(iter(...))) is safe:
+        the finally block signals the producer and drains the queue so the
+        thread always exits (bounded puts would otherwise block forever).
+        A producer's exception is raised here."""
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        SENTINEL = object()
+        stop = threading.Event()
+        failure: list = []             # producer exception, re-raised here
+
+        def _put(item) -> bool:
+            """stop-aware bounded put; False if the consumer is gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for hb in self._host_batches(epoch):
+                    if not _put(self._staged(hb)):
+                        return
+            except BaseException as e:   # surface to the training loop —
+                failure.append(e)        # a swallowed error silently
+            finally:                     # truncates every epoch
+                # the SENTINEL must not be dropped when the queue is full
+                # (the consumer would block forever). If stop is set the
+                # consumer is gone and no longer reads the queue.
+                _put(SENTINEL)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                hb = q.get()
+                if hb is SENTINEL:
+                    if failure:
+                        raise failure[0]
+                    break
+                yield {k: v.to(self.device, non_blocking=True)
+                       for k, v in hb.items()}
+        finally:
+            stop.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5)
+
+
 # ---------------------------------------------------------------------------
 # Task-family synthetic datasets (pose / obb / classify) — the exact-GT
 # procedural stand-ins that let the tasks' eval paths run and be tested
@@ -588,6 +1086,139 @@ class SyntheticClassifyDataset:
     def __getitem__(self, i: int):
         s = self.base[i]
         return {"image": s["image"], "label": int(s["labels"][0])}
+
+
+def collate_pose(samples: Sequence, input_hw: Tuple[int, int],
+                 max_gt: int = 8) -> Dict[str, np.ndarray]:
+    """Pose batch: images + px boxes/labels + kpts [B,G,K,3] (px, vis)."""
+    H, W = input_hw
+    B = len(samples)
+    K = samples[0]["kpts"].shape[1] if samples[0]["kpts"].size else 5
+    images = np.zeros((B, H, W, 3), np.float32)
+    boxes = np.zeros((B, max_gt, 4), np.float32)
+    labels = np.full((B, max_gt), -1, np.int32)
+    kpts = np.zeros((B, max_gt, K, 3), np.float32)
+    for b, s in enumerate(samples):
+        images[b] = _resize_uint8(s["image"], (H, W)).astype(np.float32) / 255
+        n = min(len(s["labels"]), max_gt)
+        boxes[b, :n] = s["boxes"][:n] * (W, H, W, H)
+        labels[b, :n] = s["labels"][:n]
+        k = s["kpts"][:n].copy()
+        k[..., 0] *= W
+        k[..., 1] *= H
+        kpts[b, :n] = k
+    return {"images": images, "boxes_xywh": boxes, "labels": labels,
+            "kpts": kpts}
+
+
+def collate_obb(samples: Sequence, input_hw: Tuple[int, int],
+                max_gt: int = 8) -> Dict[str, np.ndarray]:
+    """OBB batch: images + rotated px boxes [B,G,5] + labels."""
+    H, W = input_hw
+    B = len(samples)
+    images = np.zeros((B, H, W, 3), np.float32)
+    boxes = np.zeros((B, max_gt, 5), np.float32)
+    labels = np.full((B, max_gt), -1, np.int32)
+    for b, s in enumerate(samples):
+        images[b] = _resize_uint8(s["image"], (H, W)).astype(np.float32) / 255
+        n = min(len(s["labels"]), max_gt)
+        bx = s["boxes_xywhr"][:n].copy()
+        bx[:, 0] *= W
+        bx[:, 1] *= H
+        bx[:, 2] *= W
+        bx[:, 3] *= H
+        boxes[b, :n] = bx
+        labels[b, :n] = s["labels"][:n]
+    return {"images": images, "boxes_xywhr": boxes, "labels": labels}
+
+
+def collate_classify(samples: Sequence, input_hw: Tuple[int, int]
+                     ) -> Dict[str, np.ndarray]:
+    H, W = input_hw
+    images = np.stack([_resize_uint8(s["image"], (H, W)) for s in samples]
+                      ).astype(np.float32) / 255
+    labels = np.asarray([s["label"] for s in samples], np.int32)
+    return {"images": images, "labels": labels}
+
+
+# ---------------------------------------------------------------------------
+# Task-family augmentation (geometry-aware hflip + color)
+# ---------------------------------------------------------------------------
+
+def hflip_pose_sample(s, flip_idx: Optional[Sequence[int]] = None):
+    """Horizontal flip of a pose sample: image mirrored, box centers and
+    visible keypoint x mirrored in normalized space. `flip_idx` permutes
+    keypoints into their left/right-symmetric slots (COCO-style skeletons
+    swap left/right joints under a mirror — without the permutation the
+    flipped GT would label a left wrist as a right wrist)."""
+    out = dict(s)
+    out["image"] = s["image"][:, ::-1]
+    b = s["boxes"].copy()
+    if len(b):
+        b[:, 0] = 1.0 - b[:, 0]
+    out["boxes"] = b
+    k = s["kpts"].copy()
+    if k.size:
+        # invisible slots (v=0) are zero-filled; leave them at 0 so the
+        # padding contract survives the flip
+        k[..., 0] = np.where(k[..., 2] > 0, 1.0 - k[..., 0], k[..., 0])
+        if flip_idx is not None:
+            k = k[:, np.asarray(flip_idx)]
+    out["kpts"] = k
+    return out
+
+
+def hflip_obb_sample(s):
+    """Horizontal flip of an OBB sample: the w-edge direction
+    (cos a, sin a) mirrors to (-cos a, sin a), i.e. a -> pi - a, folded
+    back into the model's (-pi/4, 3pi/4) range by the rectangle's pi
+    symmetry."""
+    out = dict(s)
+    out["image"] = s["image"][:, ::-1]
+    b = s["boxes_xywhr"].copy()
+    if len(b):
+        b[:, 0] = 1.0 - b[:, 0]
+        a = np.pi - b[:, 4]
+        a = np.where(a >= 3 * np.pi / 4, a - np.pi, a)
+        a = np.where(a < -np.pi / 4, a + np.pi, a)
+        b[:, 4] = a
+    out["boxes_xywhr"] = b
+    return out
+
+
+def augment_task_sample(get, i: int, rng: np.random.Generator,
+                        input_hw: Tuple[int, int], aug: AugmentConfig,
+                        task: str,
+                        flip_idx: Optional[Sequence[int]] = None,
+                        n_total: int = 0):
+    """Task-family counterpart of augment_sample: stretch-resize +
+    mixup (pose/obb) + geometry-aware hflip + HSV jitter. Mosaic /
+    affine / copy-paste are detect/segment-only (they operate on polygon
+    masks); classify rejects mixup (hard int labels — soft-label CE is a
+    different loss contract). The task path keeps the same deterministic
+    per-(seed, epoch, i) RNG contract."""
+    s = get(i)
+    s = dict(s, image=_resize_uint8(s["image"], input_hw))
+    if aug.mixup > 0:
+        if task == "classify":
+            raise ValueError("mixup is unsupported for the classify task"
+                             " (labels are hard ints; soft-label CE is a"
+                             " different loss contract)")
+        if n_total > 0 and rng.uniform() < aug.mixup:
+            other = get(int(rng.integers(0, n_total)))
+            other = dict(other,
+                         image=_resize_uint8(other["image"], input_hw))
+            s = mixup2(s, other, rng)
+    if rng.uniform() < aug.hflip:
+        if task == "pose":
+            s = hflip_pose_sample(s, flip_idx)
+        elif task == "obb":
+            s = hflip_obb_sample(s)
+        else:                                    # classify: image only
+            s = dict(s, image=s["image"][:, ::-1])
+    if aug.hsv:
+        s = dict(s, image=hsv_jitter(s["image"], rng))
+    return s
 
 
 # ---------------------------------------------------------------------------
