@@ -202,10 +202,43 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    One line "train: {...}" gives the history, every step's metrics, the
    readings and the phase's seconds beside the card's name and power
    limit.
-11. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+11. fine-tuning and label efficiency (lines starting `label_efficiency:`):
+   - transfer_params of a detection_params YOLO11n-seg (80 classes) on the
+     card to a 3-class segmenter and to a 1-class pose model: each report
+     equal to the same transfer of the donor on the CPU, every copied leaf
+     bit-equal to the donor's, the 3-class convs at the YOLO prior bias;
+     then one epoch of Trainer.fit from the 3-class model on 16 synthetic
+     480x640 images at b=8 (bf16, remat), validating 8 (the counters
+     zeroed around the validation: K1 once at B=8), losses finite;
+   - model_info at 640x640: 2,868,648 parameters; its FLOP count (torch's
+     FlopCounterMode) printed beside ultralytics' published 10.4 GFLOPs and
+     held only to 8-13;
+   - distillation of YOLO11n-seg from a YOLO11s-seg teacher at 640x640,
+     bf16, remat, b=8 on random images: 10 timed steps (ms a step,
+     images/s) and a profile of 3 (device ms, idle share, launches a
+     step), losses finite; one float32 "highest" distill step at b=2
+     (320x320) on the card against the CPU (the clipped gradient within
+     1e-3 of each leaf's max abs); two steps of a YOLOv8n-seg student under
+     the YOLO11n-seg model;
+   - generate_pseudo_samples, rank_frames("margin") and
+     rank_frames("flip") over 8 seeded 480x640 frames through the 80-class
+     model, the counters zeroed around each: K1 8, 8 and 16 times at B=1
+     and nothing else, each result equal to the same call through the
+     plain NMS (boxes, labels, polygons; order and uncertainties); the
+     pseudo-labels' COCO JSON read back through CocoDataset with the same
+     labels;
+   - each training script's main(argv) with --device cuda at 64-128 px on
+     npz and PNG files under build/label_efficiency/scripts: examples.train
+     (--weights an 80-class npz, --classes 3: the transfer reported),
+     train_tasks (pose), train_toy, distill, tools.pseudo_label and
+     tools.select_frames, each returning 0 and writing its output.
+   One line "label_efficiency: {...}" gives the readings, the launches
+   and the phase's seconds beside the card's name and power limit.
+12. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
-   segment and pose evals and the training validations, K3's over the
+   segment and pose evals, the training validations, the transferred
+   fit's validation, the pseudo-labels and both rankings, K3's over the
    obb, obb-TTA, obb eval and obb training-validation paths, K5's and
    K6's over phase 8's WBF paths; no path runs K4, as in the JAX
    package), then the last line
@@ -233,6 +266,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from PIL import Image
 
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.compile import (DEFAULT_TTA_VIEWS,
@@ -251,9 +285,16 @@ from xrseg_tpu_torch.eval.parity import augment_images, parity_report
 from xrseg_tpu_torch.io import torch_pt
 from xrseg_tpu_torch.io.onnx_exec import run_onnx
 from xrseg_tpu_torch.io.onnx_export import export_onnx
-from xrseg_tpu_torch.io.weights import load_params_auto, save_npz
+from xrseg_tpu_torch.examples import distill as ex_distill
+from xrseg_tpu_torch.examples import train as ex_train
+from xrseg_tpu_torch.examples import train_tasks as ex_train_tasks
+from xrseg_tpu_torch.examples import train_toy as ex_train_toy
+from xrseg_tpu_torch.io.weights import (flatten_params, load_params_auto,
+                                        params_to_tree, save_npz,
+                                        transfer_params)
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
+from xrseg_tpu_torch.models.yolo11 import model_info
 from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
                                        rotated_inputs, steps_run)
 from xrseg_tpu_torch.ops import depth_fusion as df
@@ -284,8 +325,14 @@ from xrseg_tpu_torch.runtime.video import VideoFrameSource
 from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
 from xrseg_tpu_torch.testing import detection_params, xr_frames
+from xrseg_tpu_torch.tools import pseudo_label as tool_pseudo
+from xrseg_tpu_torch.tools import select_frames as tool_select
 from xrseg_tpu_torch.train import data as data_lib
 from xrseg_tpu_torch.train import train_step as train_ts
+from xrseg_tpu_torch.train.active import rank_frames
+from xrseg_tpu_torch.train.distill import make_distill_step
+from xrseg_tpu_torch.train.pseudo import (coco_from_samples,
+                                          generate_pseudo_samples)
 from xrseg_tpu_torch.train.trainer import TrainConfig, Trainer
 
 # H100 SXM data sheet: HBM rate, and float32 rate outside the tensor cores
@@ -391,6 +438,16 @@ TRAIN_VAL_N = 8
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
 TRAIN_EXACT_HW = (320, 320)
 TRAIN_TIMED_STEPS = 5
+# phase 11: the transfer targets, the fit's training set, the distill
+# step's timed and profiled steps, the pseudo/active frames
+LE_SEG_MODEL = dataclasses.replace(MODEL, num_classes=3)
+LE_POSE_MODEL = ModelConfig(task="pose", num_classes=1)
+LE_FIT_N = 16
+LE_TIMED_STEPS = 10
+LE_PROFILED_STEPS = 3
+LE_FRAMES = 8
+LE_SEED = 11
+LE_DIR = Path(__file__).resolve().parent / "build" / "label_efficiency"
 K1_GLOBAL = "greedy_nms_kernel"
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
@@ -2887,6 +2944,387 @@ def phase_train(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11. fine-tuning and label efficiency
+# ---------------------------------------------------------------------------
+
+def same_leaves_as_donor(model, donor_flat: dict, report: dict,
+                         what: str) -> int:
+    """Every leaf the transfer reports copied equals the donor's bit for
+    bit; returns how many were compared."""
+    flat = flatten_params(params_to_tree(model))
+    reinit = set(report["reinit"])
+    copied = [k for k in flat if k not in reinit]
+    check(len(copied) == report["copied"],
+          f"{what}: {len(copied)} leaves not reinitialised, report says "
+          f"{report['copied']} copied")
+    for k in copied:
+        check(k in donor_flat and np.array_equal(flat[k], donor_flat[k]),
+              f"{what}: copied leaf {k} differs from the donor's")
+    return len(copied)
+
+
+def transfer_phase(donor, ds, val_ds) -> dict:
+    """transfer_params of the card donor to a 3-class segmenter and to a
+    1-class pose model, each report equal to a CPU run's, every copied
+    leaf bit-equal to the donor's, the class convs at the prior bias; then
+    one epoch of Trainer.fit from the 3-class model (K1 once in its
+    validation)."""
+    donor_cpu = copy.deepcopy(donor).cpu()
+    donor_flat = flatten_params(params_to_tree(donor_cpu))
+    out = {}
+    models = {}
+    for name, cfg in (("segment", LE_SEG_MODEL), ("pose", LE_POSE_MODEL)):
+        model, rep = transfer_params(donor, cfg,
+                                     torch.Generator().manual_seed(1))
+        _, rep_cpu = transfer_params(donor_cpu, cfg,
+                                     torch.Generator().manual_seed(1))
+        check(rep == rep_cpu, f"transfer {name}: the card donor's report "
+                              f"{rep} != the CPU donor's {rep_cpu}")
+        n = same_leaves_as_donor(model, donor_flat, rep, f"transfer {name}")
+        out[name] = {"copied": rep["copied"], "compared": n,
+                     "reinit": len(rep["reinit"]),
+                     "dropped": len(rep["dropped"])}
+        models[name] = model
+    seg = models["segment"]
+    nc = LE_SEG_MODEL.num_classes
+    for i, stride in enumerate((8, 16, 32)):
+        prior = np.float32(np.log(5 / nc / (640 / stride) ** 2))
+        b = seg.det.cv3[i].out.bias.detach().numpy()
+        check(bool((b == prior).all()), f"transfer: class conv {i} bias "
+                                        f"{b} is not the prior {prior}")
+    check(out["segment"]["reinit"] == 6 and out["pose"]["dropped"] > 0,
+          f"transfer reports {out}")
+
+    tcfg = TrainConfig(epochs=1, batch=TRAIN_BATCH, max_gt=16, lr=1e-3,
+                       warmup_steps=2, log_every=0,
+                       val_max_images=TRAIN_VAL_N)
+    tr = Trainer(LE_SEG_MODEL, tcfg, params=seg, device=DEVICE)
+    counts = counted_evaluate(tr)
+    with StepRecorder() as rec:
+        hist = tr.fit(ds, val_dataset=val_ds, verbose=False)
+    finite_steps(rec.rows, len(ds) // TRAIN_BATCH, "fit from the transfer")
+    check(len(counts) == 1 and counts[0][0][K1["name"]] == 1
+          and sum(counts[0][0].values()) == 1
+          and counts[0][1] == {TRAIN_BATCH: 1},
+          f"fit from the transfer: validation launches {counts}; expected "
+          f"K1 once at B={TRAIN_BATCH}")
+    out["fit"] = {"losses": [r["loss"] for r in rec.rows],
+                  **{k: v for k, v in hist[-1].items()
+                     if k.startswith("val_") or k == "sec"}}
+    return {"numbers": out, "launches": counts[0][0][K1["name"]]}
+
+
+def exact_distill_card_vs_cpu() -> dict:
+    """One float32 "highest" distill step at b=2 (TRAIN_EXACT_HW input,
+    remat on) of YOLO11n-seg under YOLO11s-seg on the card and on the CPU:
+    metrics within rtol 1e-4, the clipped gradient within 1e-3 of each
+    leaf's max abs (phase 10's bound for the train step)."""
+    exact = dict(dtype="float32", matmul_precision="highest",
+                 input_size=TRAIN_EXACT_HW)
+    scfg = dataclasses.replace(MODEL, **exact)
+    tcfg = dataclasses.replace(S_MODEL, **exact)
+    student = yolo11.init_params(torch.Generator().manual_seed(3), scfg)
+    teacher = detection_params(torch.Generator().manual_seed(4), tcfg,
+                               device="cpu")
+    batch = {"images": np.random.default_rng(5).uniform(
+        0, 1, (2,) + TRAIN_EXACT_HW + (3,)).astype(np.float32)}
+    opt = train_ts.make_optimizer(lr=1e-6, warmup_steps=0, total_steps=10)
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        model = copy.deepcopy(student).to(dev)
+        state = train_ts.TrainState(model, opt.init(model), 0)
+        step = make_distill_step(scfg, tcfg, opt, device=dev)
+        state, m = step(state, copy.deepcopy(teacher).to(dev), batch)
+        runs.append(({k: float(v) for k, v in m.items()}, state))
+    (mc, sc), (mh, sh) = runs
+    for k in mh:
+        check(abs(mc[k] - mh[k]) <= 1e-4 * abs(mh[k]) + 1e-7,
+              f"exact distill step: {k} {mc[k]} on the card, {mh[k]} on "
+              "the CPU")
+    worst = 0.0
+    for name, mu in sh.opt_state["mu"].items():
+        g_h = mu.numpy() / 0.1
+        g_c = sc.opt_state["mu"][name].cpu().numpy() / 0.1
+        err = float(np.abs(g_c - g_h).max()) / max(float(np.abs(g_h).max()),
+                                                    1e-30)
+        worst = max(worst, err)
+        check(err <= 1e-3, f"exact distill step: gradient of {name} off by "
+                           f"{err:.2e} of its max")
+    return {"input": list(TRAIN_EXACT_HW), "loss": mc["loss"],
+            "loss_cpu": mh["loss"], "worst_grad_err_of_leaf_max": worst}
+
+
+def distill_phase(donor) -> dict:
+    """YOLO11n-seg distilled from YOLO11s-seg at full width (bf16, remat,
+    b=8): timed steps with a profile, the float32 step against the CPU,
+    and two steps of a YOLOv8n-seg student under the YOLO11n-seg donor
+    (no warmup, so the first step updates it and the second's loss and
+    grad_norm differ from the first's)."""
+    teacher = detection_params(torch.Generator().manual_seed(1), S_MODEL,
+                               device=DEVICE).requires_grad_(False)
+    opt = train_ts.make_optimizer(lr=1e-4, warmup_steps=2, total_steps=100)
+    state = train_ts.init_train_state(torch.Generator().manual_seed(2),
+                                      MODEL, opt, device=DEVICE)
+    step = make_distill_step(MODEL, S_MODEL, opt, device=DEVICE)
+    gen = torch.Generator().manual_seed(6)
+    batch = {"images": torch.rand((TRAIN_BATCH,) + MODEL.input_size + (3,),
+                                  generator=gen).to(DEVICE)}
+    rows = []
+
+    def one():
+        _, m = step(state, teacher, batch)
+        rows.append(dict(zip(m, torch.stack(list(m.values())).tolist())))
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LE_TIMED_STEPS):
+        one()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / LE_TIMED_STEPS
+    prof = profile_batch(one, TRAIN_BATCH, LE_PROFILED_STEPS, top=6)
+    finite_steps(rows, len(rows), "distill")
+    check(rows[-1]["teacher_agreement"] > 0.0,
+          f"distill: agreement {rows[-1]['teacher_agreement']}")
+    numbers = {"ms": wall_ms, "images_per_s": TRAIN_BATCH * 1e3 / wall_ms,
+               "device_ms": prof["device_ms"],
+               "device_idle_share": 1.0 - prof["device_ms"] / wall_ms,
+               "launches": prof["launches"], "top": prof["top"],
+               "profiled_wall_ms": prof["wall_ms"],
+               "first": rows[0], "last": rows[-1]}
+    numbers["exact"] = exact_distill_card_vs_cpu()
+
+    v8 = dataclasses.replace(MODEL, arch="yolov8")
+    v8_opt = train_ts.make_optimizer(lr=1e-3, warmup_steps=0,
+                                     total_steps=100)
+    v8_state = train_ts.init_train_state(torch.Generator().manual_seed(3),
+                                         v8, v8_opt, device=DEVICE)
+    v8_step = make_distill_step(v8, MODEL, v8_opt, device=DEVICE)
+    v8_rows = []
+    for _ in range(2):
+        _, m = v8_step(v8_state, donor, batch)
+        v8_rows.append({k: float(v) for k, v in m.items()})
+    finite_steps(v8_rows, 2, "YOLOv8n-seg student")
+    check(all(v8_rows[1][k] != v8_rows[0][k] for k in ("loss", "grad_norm"))
+          and v8_rows[1]["teacher_agreement"] > 0.0,
+          f"YOLOv8n-seg student: the second step {v8_rows[1]} shows no "
+          f"update from the first {v8_rows[0]}")
+    numbers["v8_student"] = v8_rows
+    return numbers
+
+
+def label_phase(donor, frames) -> dict:
+    """generate_pseudo_samples and rank_frames ("margin", "flip") through
+    the 80-class segmenter on the frames, each with the launch counters
+    zeroed around it (K1 once per pipeline call at B=1), each equal to the
+    same call through the plain NMS; the COCO JSON read back through
+    CocoDataset."""
+    ex = ExecutorConfig(model=MODEL)
+    scan = ExecutorConfig(model=MODEL,
+                          post=PostprocessConfig(nms_backend="scan"))
+    n = len(frames)
+    out, launches = {}, {}
+
+    def counted(what, fn, expect):
+        zero_counters()
+        t = time.perf_counter()
+        got = fn(ex)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        c, by_b = read_counters(), dict(
+            nk.nms_select_batched_cuda.launches_by_batch)
+        check(c[K1["name"]] == expect and sum(c.values()) == expect
+              and by_b == {1: expect},
+              f"{what}: launches {c} by batch {by_b}; expected K1 {expect} "
+              "times at B=1 and nothing else")
+        launches[what] = c[K1["name"]]
+        return got, fn(scan), sec
+
+    got, want, sec = counted("pseudo", lambda c: generate_pseudo_samples(
+        c, donor, frames, score_gate=0.5, poly_step=2, device=DEVICE), n)
+    n_poly = 0
+    for g, w in zip(got, want, strict=True):
+        check(len(g["labels"]) > 0 and np.array_equal(g["labels"],
+                                                      w["labels"])
+              and np.array_equal(g["boxes"], w["boxes"])
+              and len(g["polys"]) == len(w["polys"]),
+              "pseudo: the samples differ from the plain NMS's")
+        for a, b in zip(g["polys"], w["polys"]):
+            check((a is None) == (b is None)
+                  and (a is None or np.array_equal(a, b)),
+                  "pseudo: a polygon differs from the plain NMS's")
+            n_poly += a is not None
+    check(n_poly > 0, "pseudo: no polygon")
+    files = []
+    LE_DIR.mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(frames):
+        files.append(f"f{i}.png")
+        Image.fromarray(f).save(LE_DIR / files[-1])
+    (LE_DIR / "pseudo.json").write_text(json.dumps(coco_from_samples(
+        got, files, [str(c) for c in range(MODEL.num_classes)])))
+    ds = data_lib.CocoDataset(str(LE_DIR / "pseudo.json"), str(LE_DIR))
+    check(len(ds) == n and all(np.array_equal(ds[i]["labels"],
+                                              got[i]["labels"])
+                               for i in range(n)),
+          "pseudo: the COCO JSON does not read back with the same labels")
+    out["pseudo"] = {"s_per_frame": sec / n,
+                     "labels": sum(len(s["labels"]) for s in got),
+                     "polygons": n_poly}
+    for strategy, per in (("margin", 1), ("flip", 2)):
+        got, want, sec = counted(
+            f"active {strategy}", lambda c, s=strategy: rank_frames(
+                c, donor, frames, strategy=s, device=DEVICE), per * n)
+        check(got == want, f"active {strategy}: {got} != the plain NMS's "
+                           f"{want}")
+        out[f"active_{strategy}"] = {"s_per_frame": sec / n,
+                                     "order": [i for i, _ in got],
+                                     "top": got[0][1]}
+    return {"numbers": out, "launches": launches}
+
+
+def run_script(main_fn, argv, what: str) -> str:
+    """A script's main(argv) in this process; its stdout, which must show
+    it returned 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    check(rc == 0, f"{what} returned {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def scripts_phase(donor) -> dict:
+    """Each training script's main(argv) at a small size on the card, on
+    npz and PNG files written to build/label_efficiency/scripts."""
+    root = LE_DIR / "scripts"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "data" / "images").mkdir(parents=True)
+    (root / "data" / "labels").mkdir(parents=True)
+    rng = np.random.default_rng(9)
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3), np.uint8)).save(
+            root / "data" / "images" / f"f{i}.png")
+        (root / "data" / "labels" / f"f{i}.txt").write_text(
+            f"{i % 3} 0.5 0.5 0.3 0.4\n1 0.3 0.6 0.2 0.2\n")
+    save_npz(str(root / "seg80.npz"), donor)
+    det3 = detection_params(torch.Generator().manual_seed(2), dataclasses.
+                            replace(MODEL, task="detect", num_classes=3),
+                            label=1, device=DEVICE)
+    save_npz(str(root / "det3.npz"), det3)
+    dev = ["--device", DEVICE]
+    done = {}
+    t = time.perf_counter()
+    text = run_script(ex_train.main, [
+        "--data", str(root / "data"), "--weights", str(root / "seg80.npz"),
+        "--classes", "3", "--epochs", "1", "--batch", "2", "--size", "128",
+        "--out", str(root / "train"), *dev], "examples.train")
+    check("transfer: 194 leaves" in text and (root / "train" /
+                                              "ema.npz").exists(),
+          f"examples.train: no transfer or no checkpoint: {text[-800:]}")
+    done["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_script(ex_train_tasks.main, [
+        "--task", "pose", "--steps", "2", "--size", "64",
+        "--out", str(root / "pose.npz"), *dev], "examples.train_tasks")
+    check((root / "pose.npz").exists(), "examples.train_tasks: no npz")
+    done["train_tasks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_script(ex_train_toy.main, [
+        "--steps", "2", "--batch", "2", "--size", "64",
+        "--out", str(root / "toy"), *dev], "examples.train_toy")
+    check((root / "toy" / "toy_ckpt.npz").exists(),
+          "examples.train_toy: no npz")
+    done["train_toy"] = time.perf_counter() - t
+    t = time.perf_counter()
+    text = run_script(ex_distill.main, [
+        "--teacher", str(root / "det3.npz"), "--teacher-task", "detect",
+        "--images", str(root / "data" / "images"), "--size", "64",
+        "--steps", "2", "--batch", "2", "--out", str(root / "distill"),
+        *dev], "examples.distill")
+    summary = json.loads(text.strip().splitlines()[-1])
+    load_params_auto(summary["out"], dataclasses.replace(
+        MODEL, task="detect", num_classes=3, input_size=(64, 64)))
+    check(np.isfinite(summary["final_loss"]), f"distill: {summary}")
+    done["distill"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_script(tool_pseudo.main, [
+        "--images", str(root / "data" / "images"), "--weights",
+        str(root / "seg80.npz"), "--size", "128", "--out",
+        str(root / "pseudo.json"), *dev], "tools.pseudo_label")
+    check(len(data_lib.CocoDataset(str(root / "pseudo.json"),
+                                   str(root / "data" / "images"))) == 4,
+          "tools.pseudo_label: the JSON does not read back")
+    done["pseudo_label"] = time.perf_counter() - t
+    t = time.perf_counter()
+    text = run_script(tool_select.main, [
+        "--images", str(root / "data" / "images"), "--weights",
+        str(root / "seg80.npz"), "--size", "128", "--k", "2",
+        "--strategy", "flip", "--out", str(root / "sel.json"), *dev],
+        "tools.select_frames")
+    check(json.loads(text.strip().splitlines()[-1])["selected"] == 2
+          and (root / "sel.json").exists(), "tools.select_frames")
+    done["select_frames"] = time.perf_counter() - t
+    return done
+
+
+def phase_label_efficiency(smi: str) -> dict:
+    """Phase 11: transfer + fit, model_info, distillation, pseudo-labels
+    and active selection through K1, and the training scripts."""
+    t0 = time.perf_counter()
+    shutil.rmtree(LE_DIR, ignore_errors=True)
+    seconds, numbers = {}, {}
+    donor = detection_params(torch.Generator().manual_seed(0), MODEL,
+                             device=DEVICE)
+    ds = data_lib.SyntheticShapesDataset(n=LE_FIT_N, hw=FRAME_HW,
+                                         n_classes=3)
+    val_ds = data_lib.SyntheticShapesDataset(n=TRAIN_VAL_N, hw=FRAME_HW,
+                                             n_classes=3, seed=1)
+    tr = transfer_phase(donor, ds, val_ds)
+    numbers["transfer"] = tr["numbers"]
+    launches = {"transfer fit validation": tr["launches"]}
+    seconds["transfer + fit"] = time.perf_counter() - t0
+
+    info = model_info(MODEL, donor, device=DEVICE)
+    check(info["params"] == 2_868_648, f"model_info params {info}")
+    check(8.0 < info["gflops"] < 13.0, f"model_info gflops {info['gflops']}"
+                                       " outside the loose 8-13 bound")
+    numbers["model_info"] = {**info, "published_gflops": 10.4}
+    print(f"label_efficiency: model_info YOLO11n-seg 640x640: "
+          f"{info['params']} params, {info['gflops']} GFLOPs counted by "
+          "torch's FlopCounterMode (a reading; ultralytics publishes 10.4)",
+          flush=True)
+    seconds["model_info"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    numbers["distill"] = distill_phase(donor)
+    d = numbers["distill"]
+    print(f"label_efficiency: card {smi}: distill YOLO11s-seg -> "
+          f"YOLO11n-seg, bf16 remat, b={TRAIN_BATCH}, 640x640: "
+          f"{d['ms']:.2f} ms a step ({d['images_per_s']:.1f} images/s), "
+          f"device {d['device_ms']:.2f} ms, idle "
+          f"{d['device_idle_share']:.1%}, {d['launches']:.0f} launches; "
+          f"float32 step worst gradient error "
+          f"{d['exact']['worst_grad_err_of_leaf_max']:.2e} of a leaf's max",
+          flush=True)
+    seconds["distill"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    rng = np.random.default_rng(LE_SEED)
+    frames = [rng.integers(0, 256, FRAME_HW + (3,), np.uint8)
+              for _ in range(LE_FRAMES)]
+    lab = label_phase(donor, frames)
+    numbers.update(lab["numbers"])
+    launches.update(lab["launches"])
+    seconds["pseudo + active"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    numbers["scripts_s"] = scripts_phase(donor)
+    seconds["scripts"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["whole phase"] = time.perf_counter() - t0
+    print("label_efficiency: " + json.dumps({
+        "card": smi, **numbers, "launches": launches,
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}}),
+        flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -2997,6 +3435,12 @@ def main() -> int:
                         (kernels[2], "train obb validation")):
             k["launches"] += tr[path]
             k["launches_by_path"][path] = tr[path]
+        le = phase_label_efficiency(smi)["launches"]
+        seconds["label efficiency"] = time.perf_counter() - t0 - sum(
+            seconds.values())
+        for path, n in le.items():
+            kernels[0]["launches"] += n
+            kernels[0]["launches_by_path"][path] = n
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

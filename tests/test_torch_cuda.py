@@ -894,3 +894,115 @@ def test_trainer_validation_on_the_card_equals_scan(card, monkeypatch):
             assert (a.label, a.score) == (b.label, b.score)
             np.testing.assert_array_equal(a.box_xywh, b.box_xywh)
             np.testing.assert_array_equal(a.mask, b.mask)
+
+
+# ---------------------------------------------------------------------------
+# the label-efficiency path (transfer, distill, pseudo-labels, active)
+# ---------------------------------------------------------------------------
+
+def _label_frames(n, hw=(96, 128), seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, hw + (3,), np.uint8) for _ in range(n)]
+
+
+def test_pseudo_labels_launch_k1_once_a_frame(card):
+    """generate_pseudo_samples on the card: K1 once a frame at B=1, and the
+    samples equal the same run through the plain NMS."""
+    from xrseg_tpu_torch.train.pseudo import generate_pseudo_samples
+    mcfg = ModelConfig(num_classes=3, input_size=(128, 128))
+    model = detection_params(torch.Generator().manual_seed(0), mcfg,
+                             device=card)
+    frames = _label_frames(4)
+    before = tk.nms_select_batched_cuda.launches
+    got = generate_pseudo_samples(ExecutorConfig(model=mcfg), model, frames,
+                                  score_gate=0.3)
+    torch.cuda.synchronize()
+    assert tk.nms_select_batched_cuda.launches == before + len(frames)
+    want = generate_pseudo_samples(
+        ExecutorConfig(model=mcfg, post=PostprocessConfig(
+            nms_backend="scan")), model, frames, score_gate=0.3)
+    for g, w in zip(got, want, strict=True):
+        assert len(g["labels"]) > 0
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_array_equal(g["boxes"], w["boxes"])
+        for a, b in zip(g["polys"], w["polys"], strict=True):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+
+
+def test_flip_ranking_launches_k1_twice_a_frame(card):
+    """rank_frames(strategy="flip") on the card: K1 twice a frame (the
+    frame and its negative-stride mirror), the ranking equal to the plain
+    NMS's; a mirrored frame gives the slate of its contiguous copy."""
+    from xrseg_tpu_torch.train.active import rank_frames
+    mcfg = ModelConfig(num_classes=3, input_size=(128, 128))
+    model = detection_params(torch.Generator().manual_seed(1), mcfg,
+                             device=card)
+    frames = _label_frames(3, seed=1)
+    before = tk.nms_select_batched_cuda.launches
+    got = rank_frames(ExecutorConfig(model=mcfg), model, frames,
+                      strategy="flip")
+    torch.cuda.synchronize()
+    assert tk.nms_select_batched_cuda.launches == before + 2 * len(frames)
+    want = rank_frames(ExecutorConfig(model=mcfg, post=PostprocessConfig(
+        nms_backend="scan")), model, frames, strategy="flip")
+    assert got == want
+    pipe = build_pipeline(ExecutorConfig(model=mcfg), model,
+                          frame_hw=(96, 128), batch=1)
+    mirrored = frames[0][:, ::-1][None]
+    assert torch.equal(pipe(mirrored)["slate"],
+                       pipe(np.ascontiguousarray(mirrored))["slate"])
+
+
+def test_distill_step_on_the_card_equals_cpu(card):
+    """One float32 "highest" distill step at b=2 (remat on) on the card
+    and on the CPU: metrics within rtol 1e-4, the clipped gradient within
+    1e-3 of each leaf's max abs (the train step's card test)."""
+    import copy
+    import dataclasses
+
+    from xrseg_tpu_torch.models import yolo11
+    from xrseg_tpu_torch.train import distill as td
+    from xrseg_tpu_torch.train import train_step as ts
+    cfg = ModelConfig(input_size=(96, 96), num_classes=3, dtype="float32",
+                      matmul_precision="highest")
+    student = yolo11.init_params(torch.Generator().manual_seed(3), cfg)
+    teacher = detection_params(torch.Generator().manual_seed(4),
+                               dataclasses.replace(cfg, scale="s"),
+                               device="cpu")
+    batch = {"images": np.random.default_rng(2).uniform(
+        0, 1, (2, 96, 96, 3)).astype(np.float32)}
+    opt = ts.make_optimizer(lr=1e-6, warmup_steps=0, total_steps=10)
+    runs = []
+    for dev in (card, "cpu"):
+        model = copy.deepcopy(student).to(dev)
+        state = ts.TrainState(model, opt.init(model), 0)
+        step = td.make_distill_step(cfg, teacher.cfg, opt, device=dev)
+        state, m = step(state, copy.deepcopy(teacher).to(dev), batch)
+        runs.append(({k: float(v) for k, v in m.items()}, state))
+    (mc, sc), (mh, sh) = runs
+    assert set(mc) == set(mh)
+    for k in mh:
+        assert mc[k] == pytest.approx(mh[k], rel=1e-4, abs=1e-7), k
+    for name, mu in sh.opt_state["mu"].items():
+        g_h = mu / 0.1
+        g_c = sc.opt_state["mu"][name].cpu() / 0.1
+        assert float((g_c - g_h).abs().max()) <= 1e-3 * max(
+            float(g_h.abs().max()), 1e-30), name
+
+
+def test_transfer_from_a_card_donor(card):
+    """transfer_params on a donor on the card returns a CPU model with the
+    report of the same donor on the CPU, and the same numbers."""
+    from xrseg_tpu_torch.io.weights import transfer_params
+    donor = detection_params(torch.Generator().manual_seed(0),
+                             ModelConfig(input_size=(128, 128)), device=card)
+    new = ModelConfig(num_classes=3, input_size=(128, 128))
+    got, rep = transfer_params(donor, new, torch.Generator().manual_seed(1))
+    want, rep_cpu = transfer_params(donor.cpu(), new,
+                                    torch.Generator().manual_seed(1))
+    assert rep == rep_cpu and rep["reinit"]
+    assert next(got.parameters()).device.type == "cpu"
+    for a, b in zip(got.parameters(), want.parameters(), strict=True):
+        assert torch.equal(a, b)

@@ -80,3 +80,95 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and '"ok"' not in out.stdout
     assert "xrseg_tpu_torch" in out.stderr
+
+
+# ---------------------------------------------------------------------------
+# the subpackages re-export what their JAX twins do
+# ---------------------------------------------------------------------------
+
+SUBPACKAGES = ("io", "models", "ops", "perception", "runtime", "train",
+               "viz")
+# JAX-only names with no counterpart in the port, each with its reason
+NO_COUNTERPART = {
+    # the port's network is a module: JAX's free forward(params, x, cfg)
+    # is YOLO11.forward
+    ("models", "forward"),
+}
+
+
+def _jax_exports(sub: str) -> set:
+    """The names xrseg_tpu/<sub>/__init__.py binds, read from its source
+    (importing it would load JAX)."""
+    src = (ROOT / "xrseg_tpu" / sub / "__init__.py").read_text()
+    names = set()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Import):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return names
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_match_jax(sub):
+    import importlib
+    pkg = importlib.import_module(f"xrseg_tpu_torch.{sub}")
+    want = _jax_exports(sub) - {n for s, n in NO_COUNTERPART if s == sub}
+    assert want, sub
+    missing = sorted(n for n in want if not hasattr(pkg, n))
+    assert not missing, f"xrseg_tpu_torch.{sub} lacks {missing}"
+
+
+def test_named_imports_work():
+    from xrseg_tpu_torch.models import init_params, make_anchors, model_info
+    from xrseg_tpu_torch.runtime import CameraPermissions, Executor, XRLoop
+    from xrseg_tpu_torch.train import distill, trainer
+    assert all((init_params, make_anchors, model_info, CameraPermissions,
+                Executor, XRLoop, distill, trainer))
+
+
+# ---------------------------------------------------------------------------
+# negative-stride numpy input (a mirrored frame) enters the port
+# ---------------------------------------------------------------------------
+
+def test_negative_stride_frame_equals_its_copy():
+    """A frame mirrored with numpy (`img[:, ::-1]`, negative strides, which
+    torch.tensor refuses) gives the slate of its contiguous copy, through
+    the pipeline and through the train step."""
+    import copy
+
+    import numpy as np
+    import torch
+    from xrseg_tpu_torch.compile import build_pipeline
+    from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
+    from xrseg_tpu_torch.testing import detection_params
+    from xrseg_tpu_torch.train import train_step as ts
+
+    cfg = ModelConfig(scale="n", num_classes=3, input_size=(64, 64),
+                      dtype="float32", matmul_precision="highest")
+    model = detection_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    pipe = build_pipeline(ExecutorConfig(model=cfg), model, frame_hw=(40, 56),
+                          batch=2, device="cpu")
+    frames = np.random.default_rng(0).integers(0, 256, (2, 40, 56, 3),
+                                               np.uint8)
+    flipped = frames[:, :, ::-1]
+    assert any(s < 0 for s in flipped.strides)
+    got = pipe(flipped)["slate"]
+    want = pipe(np.ascontiguousarray(flipped))["slate"]
+    assert torch.equal(got, want) and int(want[0, -1]) > 0
+
+    images = np.random.default_rng(1).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32)
+    batch = {"images": images[:, ::-1],
+             "boxes_xywh": np.full((2, 1, 4), 20.0, np.float32),
+             "labels": np.zeros((2, 1), np.int32)}
+    assert any(s < 0 for s in batch["images"].strides)
+    opt = ts.make_optimizer(lr=1e-3, warmup_steps=1, total_steps=5)
+    metrics = []
+    for b in (batch, {k: np.ascontiguousarray(v) for k, v in batch.items()}):
+        m = copy.deepcopy(model)
+        step = ts.make_train_step(cfg, opt, use_remat=False, device="cpu")
+        _, out = step(ts.TrainState(m, opt.init(m), 0), b)
+        metrics.append({k: float(v) for k, v in out.items()})
+    assert metrics[0] == metrics[1]

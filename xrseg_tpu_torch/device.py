@@ -26,10 +26,12 @@ def resolve_device(device="cuda") -> torch.device:
 
 def to_device(x, dev: torch.device) -> torch.Tensor:
     """A tensor moves to `dev`; anything else (numpy, lists) is copied
-    there, so read-only host arrays are never aliased."""
+    there, so read-only host arrays are never aliased. A numpy view with a
+    negative stride (a mirrored frame, `img[:, ::-1]`) is made contiguous
+    first: torch refuses negative strides."""
     if isinstance(x, torch.Tensor):
         return x.to(dev)
-    return torch.tensor(np.asarray(x), device=dev)
+    return torch.tensor(np.asarray(x, order="C"), device=dev)
 
 
 class Readback:

@@ -77,10 +77,9 @@ def oracle_model(params: yolo11.YOLO11) -> yolo11.YOLO11:
     cfg = dataclasses.replace(params.cfg, dtype="float32",
                               param_dtype="float32",
                               matmul_precision="highest")
-    model = yolo11.YOLO11(cfg)
-    model.load_state_dict({k: v.detach().float().cpu()
-                           for k, v in params.state_dict().items()})
-    return model.eval()
+    return yolo11.yolo11_for_state(cfg, {
+        k: v.detach().float().cpu()
+        for k, v in params.state_dict().items()}).eval()
 
 
 def oracle_preprocess(img_uint8: np.ndarray, out_hw=(640, 640)

@@ -1,0 +1,4 @@
+"""The port's training examples, each runnable as
+`python -m xrseg_tpu_torch.examples.<name> --help` and callable as
+`main(argv)`: train (Trainer.fit, --weights through transfer_params),
+train_tasks (pose, obb, classify), train_toy and distill."""

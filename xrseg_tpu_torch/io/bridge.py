@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch.config import ModelConfig
-from xrseg_tpu_torch.models.yolo11 import YOLO11
+from xrseg_tpu_torch.models.yolo11 import YOLO11, yolo11_for_state
 
 _LEAVES = {"w": ("weight", (3, 2, 0, 1)), "b": ("bias", None),
            "up_w": ("up_w", (2, 3, 0, 1)), "up_b": ("up_b", None),
@@ -58,7 +58,6 @@ def state_dict_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
 def params_from_jax(tree: Any, cfg: ModelConfig) -> YOLO11:
     """The JAX package's params for `cfg` -> a YOLO11 module (on the CPU)
     computing the same function. Every parameter must be present and no
-    extra one may be (strict load)."""
-    model = YOLO11(cfg)
-    model.load_state_dict(state_dict_from_jax(tree), strict=True)
-    return model
+    extra one may be (strict load). Class branches take the tree's width
+    (models/yolo11.yolo11_for_state: a transferred checkpoint's)."""
+    return yolo11_for_state(cfg, state_dict_from_jax(tree))

@@ -18,6 +18,7 @@ the same bits. cast_params sets a module's weight-storage precision.
 from __future__ import annotations
 
 import copy
+import math
 import os
 from typing import Any, Dict
 
@@ -29,7 +30,8 @@ from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.io.onnx_loader import load_yolo11_onnx
 from xrseg_tpu_torch.io.torch_pt import load_yolo11_pt
 from xrseg_tpu_torch.models import layers as L
-from xrseg_tpu_torch.models.yolo11 import YOLO11
+from xrseg_tpu_torch.models import yolo11
+from xrseg_tpu_torch.models.yolo11 import YOLO11, yolo11_for_state
 
 Tree = Any
 
@@ -243,6 +245,133 @@ def maybe_seed_o2o(params: Tree, cfg: ModelConfig) -> Tree:
     if cfg.o2o and "det" in params and "det_o2o" in params:
         params["det_o2o"] = copy.deepcopy(params["det"])
     return params
+
+
+def _tree_of(params) -> Tree:
+    """A YOLO11, a nested pytree or a flat {"a/b/0/w": array} dict -> a
+    nested pytree of numpy arrays."""
+    if isinstance(params, YOLO11):
+        return params_to_tree(params)
+    if isinstance(params, dict) and any(_SEP in k for k in params):
+        return unflatten_params(params)
+    return params
+
+
+def transfer_params(donor, new_cfg: ModelConfig,
+                    gen: torch.Generator = None):
+    """Head-surgery transfer (the JAX package's transfer_params): start a
+    fresh `new_cfg` model from `gen` (init_params) and graft in every donor
+    leaf whose shape matches (backbone, neck, box branch, task branches),
+    reinitialising only what the new class count or task changes.
+
+    When the class count changes, the donor's class-branch hidden stack
+    (dw0, pw0, dw1, pw1) is kept at the donor's width and only the final
+    1x1 class conv, det/cv3/{i}/out, is drawn anew, with the YOLO prior
+    bias log(5 / nc / (640 / stride)^2). A new_cfg.o2o target whose donor
+    has no one-to-one branch gets det_o2o seeded from the post-surgery det.
+    YOLOv8 class branches (conv0, conv1, out; the JAX function raises a
+    KeyError on them) keep what the shape-matching pass gives them.
+
+    `donor`: a YOLO11 (on any device) or a params pytree, nested or flat
+    ("a/b/0/w" keys), of numpy arrays: an npz read with unflatten_params,
+    whose head need not fit any config (load_npz is strict, this is not).
+    Returns (a YOLO11 for new_cfg on the CPU, report) with report =
+    {"copied": n, "reinit": [...], "dropped": [...]} in the JAX package's
+    flat "a/b/0/w" notation. The reinitialised numbers come from torch's
+    generator and differ from JAX's."""
+    gen = torch.Generator().manual_seed(0) if gen is None else gen
+    dtree = _tree_of(donor)
+    dflat = flatten_params(dtree)
+    nflat = flatten_params(params_to_tree(yolo11.init_params(gen, new_cfg)))
+    out: Dict[str, np.ndarray] = {}
+    copied, reinit = [], []
+    for k, v in nflat.items():
+        dv = dflat.get(k)
+        if dv is not None and tuple(dv.shape) == tuple(v.shape):
+            out[k] = np.asarray(dv, v.dtype)
+            copied.append(k)
+        else:
+            out[k] = v
+            reinit.append(k)
+    dropped = [k for k in dflat if k not in nflat]
+    tree = unflatten_params(out)
+
+    # class-branch hidden-stack rescue: keep the donor's dw/pw stack at its
+    # own width and draw only the final class conv
+    nc = new_cfg.num_classes
+    if "det" in dtree and "det" in tree \
+            and donor_num_classes(dtree) != nc:
+        s = yolo11.Spec(new_cfg)
+        for i, dcv in enumerate(dtree["det"]["cv3"]):
+            if "pw0" not in dcv or np.shape(dcv["pw0"]["w"])[2] \
+                    != s.head_ch[i]:
+                continue        # a v8 branch, or another scale at this level
+            c3d = int(np.shape(dcv["pw1"]["w"])[-1])
+            conv = L.HeadConv(c3d, nc)
+            conv.reset_parameters(gen)
+            branch = {kk: {leaf: np.asarray(a, np.float32)
+                           for leaf, a in dcv[kk].items()}
+                      for kk in ("dw0", "pw0", "dw1", "pw1")}
+            branch["out"] = {
+                "w": np.ascontiguousarray(
+                    conv.weight.detach().permute(2, 3, 1, 0).numpy()),
+                "b": np.full((nc,), math.log(
+                    5 / nc / (640 / s.strides[i]) ** 2), np.float32)}
+            tree["det"]["cv3"][i] = branch
+            pre = f"det/cv3/{i}/"
+            rescued = [k for k in reinit
+                       if k.startswith(pre) and not k.startswith(pre + "out")]
+            copied.extend(rescued)
+            reinit = [k for k in reinit if k not in rescued]
+
+    # o2o warm start from the (post-surgery) one-to-many head
+    if new_cfg.o2o and "det_o2o" in tree and "det_o2o" not in dtree:
+        tree["det_o2o"] = copy.deepcopy(tree["det"])
+        copied.extend(k for k in reinit if k.startswith("det_o2o/"))
+        reinit = [k for k in reinit if not k.startswith("det_o2o/")]
+
+    model = params_from_jax(tree, new_cfg)
+    return model, {"copied": len(copied), "reinit": sorted(reinit),
+                   "dropped": sorted(dropped)}
+
+
+def with_config(model: YOLO11, cfg: ModelConfig) -> YOLO11:
+    """`model`'s weights under another config of the same network (another
+    input_size, dtype or precision): `model` itself when its config is
+    `cfg`, else a new YOLO11 on the CPU (build_pipeline binds a module to
+    the config it was built for)."""
+    if model.cfg == cfg:
+        return model
+    return yolo11_for_state(cfg, {k: v.detach().float().cpu()
+                                  for k, v in model.state_dict().items()})
+
+
+def load_for_config(path: str, cfg: ModelConfig, donor_cfg: ModelConfig):
+    """Weights from `path` as a start for training `cfg` (the training
+    scripts' --weights): loaded as they are when their head fits cfg,
+    transferred (transfer_params) when it does not. An .npz is read as a
+    tree, whatever head it holds; an .onnx or .pt whose head does not load
+    under `cfg` (the loaders' ValueError, as the JAX scripts catch it) is
+    loaded under `donor_cfg`, and any other load error propagates.
+    Returns (YOLO11 on the CPU, cfg, report or None); cfg is the file's
+    own for an .onnx or .pt whose head fits."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            donor = dequantize_int8(unflatten_params(
+                {k: z[k] for k in z.files}))
+        if params_match_config(donor, cfg):
+            return params_from_jax(donor, cfg), cfg, None
+    else:
+        try:
+            model, got = load_params_auto(path, cfg)
+            cfg = got if got is not None else cfg
+        except ValueError:
+            model, _ = load_params_auto(path, donor_cfg)
+        donor = params_to_tree(model)
+        if params_match_config(donor, cfg):
+            return with_config(model, cfg), cfg, None
+    model, report = transfer_params(donor, cfg)
+    return model, cfg, report
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ Both archs ("yolo11", "yolov8") and every task of the JAX package
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Tuple
 
@@ -521,3 +522,67 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> YOLO11:
 def count_params(model: nn.Module) -> int:
     """Number of parameter values (the JAX package's leaf-size sum)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def model_info(cfg: ModelConfig, model: nn.Module | None = None,
+               device="cuda") -> Dict[str, object]:
+    """Model summary (the JAX package's model_info, ultralytics'
+    `model.info()`): scale, task, input size, parameter count and anchors,
+    and `gflops`, the multiply-adds x 2 that torch's FlopCounterMode counts
+    in one forward at batch 1 on `device` (convolutions and matmuls; JAX
+    reads XLA's cost analysis instead, so the two are readings of the same
+    work, not equal numbers). `model` defaults to a fresh
+    init_params(seed 0); a model on another device is copied there, not
+    moved."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from xrseg_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if model is None:
+        model = init_params(torch.Generator().manual_seed(0), cfg)
+    n_params = count_params(model)
+    if next(model.parameters()).device.type != dev.type:
+        model = copy.deepcopy(model).to(dev)
+    x = torch.zeros((1,) + tuple(cfg.input_size) + (3,), device=dev)
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        model(x)
+    return {"scale": cfg.scale, "task": cfg.task,
+            "input_size": tuple(cfg.input_size),
+            "params": n_params, "params_m": round(n_params / 1e6, 3),
+            "anchors": cfg.num_anchors,
+            "gflops": round(counter.get_total_flops() / 1e9, 2)}
+
+
+def yolo11_for_state(cfg: ModelConfig, state: Dict[str, torch.Tensor]
+                     ) -> YOLO11:
+    """YOLO11(cfg) with each detect head's class branches built to the
+    shapes in `state` (a state dict), then `state` loaded strictly: a
+    missing or extra parameter, or a wrong shape, raises.
+
+    A model that io/weights.transfer_params grafted keeps its donor's
+    class-branch hidden stack (dw0, pw0, dw1, pw1) when the class count
+    changes, and that stack's width c3 = max(P3 channels, min(nc, 100))
+    follows the donor's class count, not cfg's; the JAX package's forward
+    reads any width from its pytree, a module needs it at construction."""
+    model = YOLO11(cfg)
+    s = Spec(cfg)
+    for head in ("det", "det_o2o"):
+        if cfg.task == "classify" or not hasattr(model, head):
+            continue
+        cv3 = getattr(model, head).cv3
+        for i in range(len(cv3)):
+            pre = f"{head}.cv3.{i}."
+            kind, hid = ((ClsBranch, "pw1") if pre + "dw0.weight" in state
+                         else (Branch3, "conv1"))
+            w = state.get(f"{pre}{hid}.weight")
+            if w is None:
+                continue                       # the strict load reports it
+            if isinstance(cv3[i], kind) and \
+                    cv3[i].out.weight.shape[1] == w.shape[0]:
+                continue
+            cv3[i] = kind(s.head_ch[i], int(w.shape[0]), cfg.num_classes,
+                          model.dtype)
+    model.load_state_dict(state, strict=True)
+    return model

@@ -932,7 +932,8 @@ class Loader:
 
     def _staged(self, hb: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A host batch as torch tensors, in pinned memory for a card."""
-        out = {k: torch.from_numpy(v) for k, v in hb.items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in hb.items()}
         if self.device.type == "cuda":
             out = {k: v.pin_memory() for k, v in out.items()}
         return out

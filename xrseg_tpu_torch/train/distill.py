@@ -1,0 +1,213 @@
+"""Knowledge distillation (counterpart of xrseg_tpu/train/distill.py):
+train a small or other-generation student from a larger teacher's
+responses, on unlabelled frames (yolo11s -> yolo11n, yolo11n -> yolov8n).
+
+One step: the teacher's forward_train under torch.no_grad (JAX's
+stop_gradient) in the teacher's precision scope; the student's
+forward_train (under torch.utils.checkpoint with use_remat), the loss and
+its backward in the student's precision scope (cuDNN reads the TF32
+switch when autograd launches the backward convolutions; the train
+step's pattern, train/train_step.TrainStep.compute_grads); then the train
+step's Optimizer.update. The step updates its TrainState in place.
+
+Losses (detect-family tasks), as in the JAX package:
+  - class response KL: per-class binary KL between the teacher's and the
+    student's sigmoid scores at temperature T, scaled by T^2;
+  - box distribution KL: KL between the DFL softmax distributions over
+    the reg_max bins, per box side;
+  - anchors weighted by the teacher's max class probability (^fg_power),
+    normalized over the batch.
+Classify: softmax KL at temperature T. Mask and proto branches are not
+distilled (mask coefficients are basis-relative); det_weight > 0 mixes
+the ground-truth loss in (detection_loss, or classification_loss for
+classify), its terms under a "gt_" prefix.
+
+log-sigmoid is F.logsigmoid: torch's softplus turns linear above its
+threshold of 20, JAX's does not, so -softplus(-x) would differ there.
+Multi-device (mesh) is ROADMAP item 10 and raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from xrseg_tpu_torch.config import ModelConfig
+from xrseg_tpu_torch.device import resolve_device, to_device
+from xrseg_tpu_torch.models import yolo11
+from xrseg_tpu_torch.precision import precision_scope
+from xrseg_tpu_torch.train.losses import (classification_loss,
+                                          detection_loss)
+from xrseg_tpu_torch.train.train_step import ITEM_10, Optimizer, TrainState
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    temperature: float = 2.0   # KL temperature (cls + box), loss x T^2
+    cls_weight: float = 1.0    # class-response KL weight
+    box_weight: float = 1.0    # DFL-distribution KL weight
+    fg_power: float = 1.0      # anchor weight = (teacher max prob)^p
+    det_weight: float = 0.0    # ground-truth loss mix (0 = pure distillation)
+
+
+def _binary_kl(t_logits, s_logits, T: float):
+    """Per-element KL( sigmoid(t/T) || sigmoid(s/T) ) * T^2 in logit space:
+    p(log p - log q) + (1-p)(log(1-p) - log(1-q))."""
+    t, s = t_logits / T, s_logits / T
+    p = torch.sigmoid(t)
+    log_p, log_1p = F.logsigmoid(t), F.logsigmoid(-t)
+    log_q, log_1q = F.logsigmoid(s), F.logsigmoid(-s)
+    return (p * (log_p - log_q) + (1.0 - p) * (log_1p - log_1q)) * T * T
+
+
+def _dfl_kl(t_box, s_box, reg_max: int, T: float):
+    """KL between DFL bin distributions per anchor (mean over the 4 box
+    sides): inputs [B,A,4*reg_max] raw logits -> [B,A]."""
+    B, A, _ = t_box.shape
+    t = t_box.reshape(B, A, 4, reg_max) / T
+    s = s_box.reshape(B, A, 4, reg_max) / T
+    p = t.softmax(-1)
+    kl = (p * (t.log_softmax(-1) - s.log_softmax(-1))).sum(-1)
+    return kl.mean(-1) * T * T
+
+
+def distill_loss(student_out: Dict[str, torch.Tensor],
+                 teacher_out: Dict[str, torch.Tensor],
+                 dcfg: DistillConfig, reg_max: int
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Detect-family response distillation on forward_train outputs (raw
+    logits); the teacher's carry no gradient."""
+    t_cls = teacher_out["cls_logits"].float()
+    s_cls = student_out["cls_logits"].float()
+    t_box = teacher_out["box_logits"].float()
+    s_box = student_out["box_logits"].float()
+
+    # foreground focus: anchors the teacher believes in dominate the loss
+    w = torch.sigmoid(t_cls).amax(-1) ** dcfg.fg_power        # [B, A]
+    w = w / (w.sum() + 1e-9)
+
+    cls_kl = _binary_kl(t_cls, s_cls, dcfg.temperature).sum(-1)
+    box_kl = _dfl_kl(t_box, s_box, reg_max, dcfg.temperature)
+    l_cls = (w * cls_kl).sum()
+    l_box = (w * box_kl).sum()
+    loss = dcfg.cls_weight * l_cls + dcfg.box_weight * l_box
+    # argmax takes the first maximum, as jnp.argmax
+    agree = (w * (s_cls.argmax(-1) == t_cls.argmax(-1))).sum()
+    return loss, {"distill_cls": l_cls, "distill_box": l_box,
+                  "teacher_agreement": agree}
+
+
+def distill_loss_classify(student_logits: torch.Tensor,
+                          teacher_logits: torch.Tensor, dcfg: DistillConfig
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Softmax KL at temperature T (Hinton's formulation)."""
+    T = dcfg.temperature
+    t = teacher_logits.float() / T
+    s = student_logits.float() / T
+    p = t.softmax(-1)
+    kl = (p * (t.log_softmax(-1) - s.log_softmax(-1))).sum(-1)
+    loss = dcfg.cls_weight * kl.mean() * T * T
+    agree = (s.argmax(-1) == t.argmax(-1)).float().mean()
+    return loss, {"distill_cls": loss, "teacher_agreement": agree}
+
+
+class DistillStep:
+    """step(state, teacher_model, batch) -> (state, metrics): one update of
+    the student `state` in place. metrics holds 0-dim tensors on the
+    device: loss, the distillation terms (and gt_* in mixed mode) and
+    grad_norm (before clipping). The teacher is a YOLO11 on the step's
+    device."""
+
+    def __init__(self, student_cfg: ModelConfig, optimizer: Optimizer,
+                 dcfg: DistillConfig, use_remat: bool, device: torch.device):
+        self.scfg, self.optimizer, self.dcfg = student_cfg, optimizer, dcfg
+        self.use_remat, self.device = use_remat, device
+        self.classify = student_cfg.task == "classify"
+
+    def loss_fn(self, model: yolo11.YOLO11, batch: Dict[str, torch.Tensor],
+                t_out: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg, dcfg = self.scfg, self.dcfg
+        images = batch["images"]
+        if self.use_remat:
+            # keep only the input; the backward runs the forward again
+            out = checkpoint(model.forward_train, images,
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = model.forward_train(images)
+        if self.classify:
+            loss, aux = distill_loss_classify(out["logits"],
+                                              t_out["logits"], dcfg)
+            if dcfg.det_weight > 0.0:
+                ce, ce_aux = classification_loss(out["logits"],
+                                                 batch["labels"])
+                loss = loss + dcfg.det_weight * ce
+                aux = {**aux, **{f"gt_{k}": v for k, v in ce_aux.items()}}
+            return loss, aux
+        loss, aux = distill_loss(out, t_out, dcfg, cfg.reg_max)
+        if dcfg.det_weight > 0.0:
+            tgt = {k: batch[k] for k in ("boxes_xywh", "boxes_xywhr",
+                                         "kpts", "labels", "sample_weight")
+                   if k in batch}
+            if "masks" in batch and cfg.task == "segment":
+                tgt["masks"] = batch["masks"]
+            det, det_aux = detection_loss(
+                out, tgt, cfg,
+                input_hw=tuple(int(d) for d in images.shape[1:3]))
+            loss = loss + dcfg.det_weight * det
+            aux = {**aux, **{f"gt_{k}": v for k, v in det_aux.items()}}
+        return loss, aux
+
+    def compute_grads(self, model: yolo11.YOLO11, teacher: yolo11.YOLO11,
+                      batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Loss and aux (detached) with every student parameter's .grad set
+        to the batch's gradient."""
+        with torch.no_grad():
+            # forward_train enters the teacher's own precision scope
+            t_out = teacher.forward_train(batch["images"])
+        with precision_scope(self.scfg.matmul_precision):
+            model.zero_grad(set_to_none=True)
+            loss, aux = self.loss_fn(model, batch, t_out)
+            loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def __call__(self, state: TrainState, teacher_model: yolo11.YOLO11,
+                 batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        batch = {k: to_device(v, self.device) for k, v in batch.items()}
+        loss, aux = self.compute_grads(state.params, teacher_model, batch)
+        grad_norm = self.optimizer.update(state.params, state.opt_state)
+        state.step += 1
+        return state, {"loss": loss, **aux, "grad_norm": grad_norm}
+
+
+def make_distill_step(student_cfg: ModelConfig, teacher_cfg: ModelConfig,
+                      optimizer: Optimizer,
+                      dcfg: DistillConfig = DistillConfig(), mesh=None,
+                      use_remat: bool = True, device="cuda") -> DistillStep:
+    """The distillation step on `device` (module docstring).
+
+    batch needs "images" (f32 [B,H,W,3] in [0,1]); ground-truth keys (the
+    train step's contract) only when dcfg.det_weight > 0. Teacher and
+    student must agree on the class count (and reg_max for the detect
+    family); arch and scale are free."""
+    if teacher_cfg.num_classes != student_cfg.num_classes:
+        raise ValueError(
+            f"teacher/student class-count mismatch: "
+            f"{teacher_cfg.num_classes} vs {student_cfg.num_classes}")
+    if (student_cfg.task == "classify") != (teacher_cfg.task == "classify"):
+        raise ValueError("classify students need classify teachers")
+    if student_cfg.task != "classify" \
+            and teacher_cfg.reg_max != student_cfg.reg_max:
+        raise ValueError(
+            f"teacher/student reg_max mismatch: {teacher_cfg.reg_max} vs "
+            f"{student_cfg.reg_max} (the DFL KL needs matching bins)")
+    if dcfg.det_weight < 0:
+        raise ValueError("det_weight must be >= 0")
+    if mesh is not None:
+        raise NotImplementedError(ITEM_10)
+    return DistillStep(student_cfg, optimizer, dcfg, use_remat,
+                       resolve_device(device))
