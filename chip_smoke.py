@@ -234,14 +234,50 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      tools.select_frames, each returning 0 and writing its output.
    One line "label_efficiency: {...}" gives the readings, the launches
    and the phase's seconds beside the card's name and power limit.
-12. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+12. multi-device serving (lines starting `parallel:`), YOLO11n-seg at
+   full width on 480x640 frames with detection_params weights from seed
+   0, over meshes that repeat the one card ([cuda:0] * n). The launch
+   counters are zeroed just before each path's run and read just after;
+   every reference and warm-up comes first:
+   - DP over (2, 1) at b=8: K1 once a shard (B=4), each shard's rows
+     bit-equal to build_pipeline(batch=4) on them;
+   - DP over (2, 1) at b=8, DP+TP over (1, 2) with tp_min_channels=256
+     at b=4 and SP over 2 row bands at b=1, all float32 without TF32,
+     against the unsharded pipeline: counts equal, scores within 1e-4
+     (the JAX tests' bound);
+   - PP over [cuda:0, cuda:0]: run_stream over 16 frames, each slate
+     equal to the direct b=1 pipeline's, K1 once a frame;
+   - MultiStreamRunner(n_streams=2): each stream equal to the b=1
+     pipeline on its frame, K1 twice;
+   - YOLO11n-obb at 1024x1024 over DP (2, 1) at b=4: K3 once a shard,
+     each shard bit-equal to build_pipeline(batch=2);
+   - the HTTP server with mesh_shape {"data": 1}: /healthz reports the
+     mesh, 4 answers equal the direct b=1 pipeline's, K1 once each;
+   - multihost at world size 1 over nccl: global_mesh, replicate_params,
+     shard_host_batch and gather_to_hosts give the b=2 pipeline's slate;
+   - each inference script's main(argv) with --device cuda: examples.demo
+     (3 PNGs), examples.serve (3 paths), tools.track_video (a 4-frame
+     Y4M clip) and tools.task_accuracy_report (its own 640x640), each
+     with its K1 (and K3 for the obb table) launches. The report's tables
+     are checked: 25 images each; pose and obb find as many detections as
+     the CPU oracle, at mAP >= 0.95 (the script runs float32 at "default"
+     precision, so TF32 may reorder near-tied scores among the 8400
+     anchors that detection_params makes fire); classify agrees on every
+     top-1 with probabilities within 1e-6. The same pose and obb tables
+     with TF32 off must match the oracle exactly (mAP 1).
+   With one card, the DP, PP and SP times measure what sharding costs in
+   host work, not a speed-up. One line "parallel: {...}" gives them, the
+   launches and the phase's seconds beside the card's name and power
+   limit.
+13. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
    segment and pose evals, the training validations, the transferred
-   fit's validation, the pseudo-labels and both rankings, K3's over the
-   obb, obb-TTA, obb eval and obb training-validation paths, K5's and
-   K6's over phase 8's WBF paths; no path runs K4, as in the JAX
-   package), then the last line
+   fit's validation, the pseudo-labels and both rankings, and phase 12's
+   parallel paths and scripts, K3's over the obb, obb-TTA, obb eval, obb
+   training-validation, obb DP and task-report paths, K5's and K6's over
+   phase 8's WBF paths; no path runs K4, as in the JAX package), then the
+   last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -255,6 +291,7 @@ import dataclasses
 import io
 import json
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -282,10 +319,13 @@ from xrseg_tpu_torch.eval import dataset_eval
 from xrseg_tpu_torch.eval.dataset_eval import (evaluate_dataset,
                                                evaluate_task_dataset)
 from xrseg_tpu_torch.eval.parity import augment_images, parity_report
+from xrseg_tpu_torch.eval.task_parity import task_parity_report
 from xrseg_tpu_torch.io import torch_pt
 from xrseg_tpu_torch.io.onnx_exec import run_onnx
 from xrseg_tpu_torch.io.onnx_export import export_onnx
+from xrseg_tpu_torch.examples import demo as ex_demo
 from xrseg_tpu_torch.examples import distill as ex_distill
+from xrseg_tpu_torch.examples import serve as ex_serve
 from xrseg_tpu_torch.examples import train as ex_train
 from xrseg_tpu_torch.examples import train_tasks as ex_train_tasks
 from xrseg_tpu_torch.examples import train_toy as ex_train_toy
@@ -309,6 +349,13 @@ from xrseg_tpu_torch.ops.postprocess import (postprocess,
                                              postprocess_pose_batch)
 from xrseg_tpu_torch.ops.relock import relock_match
 from xrseg_tpu_torch.ops.yuv import rgb_to_yuv420_numpy
+from xrseg_tpu_torch.parallel import multihost as mh
+from xrseg_tpu_torch.parallel.batch import (MultiStreamRunner,
+                                            build_serving_pipeline,
+                                            build_sharded_pipeline)
+from xrseg_tpu_torch.parallel.mesh import make_mesh
+from xrseg_tpu_torch.parallel.pipeline import PipelinedRunner
+from xrseg_tpu_torch.parallel.spatial import build_spatial_pipeline
 from xrseg_tpu_torch.perception.tracking import (TargetTracker,
                                                  box_to_model_space,
                                                  parse_boxes)
@@ -327,6 +374,8 @@ from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
 from xrseg_tpu_torch.testing import detection_params, xr_frames
 from xrseg_tpu_torch.tools import pseudo_label as tool_pseudo
 from xrseg_tpu_torch.tools import select_frames as tool_select
+from xrseg_tpu_torch.tools import task_accuracy_report as tool_task_report
+from xrseg_tpu_torch.tools import track_video as tool_track
 from xrseg_tpu_torch.train import data as data_lib
 from xrseg_tpu_torch.train import train_step as train_ts
 from xrseg_tpu_torch.train.active import rank_frames
@@ -448,6 +497,14 @@ LE_PROFILED_STEPS = 3
 LE_FRAMES = 8
 LE_SEED = 11
 LE_DIR = Path(__file__).resolve().parent / "build" / "label_efficiency"
+# phase 12: multi-device serving over meshes of the one card
+PAR_DIR = Path(__file__).resolve().parent / "build" / "parallel"
+PAR_STREAM_FRAMES = 16
+PAR_SCORE_TOL = 1e-4               # tests/test_parallel.py's bound
+PAR_TIMED = 5
+TASK_REPORT_SIZE = 640             # the report script's own default
+TASK_REPORT_MIN_MAP = 0.95         # pose/obb under TF32 (see phase 12)
+TASK_REPORT_PROB_TOL = 1e-6        # classify probabilities, card vs CPU
 K1_GLOBAL = "greedy_nms_kernel"
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
@@ -3325,6 +3382,329 @@ def phase_label_efficiency(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12. multi-device serving
+# ---------------------------------------------------------------------------
+
+def counted(launches: dict, path: str, fn):
+    """fn() with the launch counters zeroed just before and read just
+    after (the card synchronised), under launches[path]."""
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[path] = read_counters()
+    return out
+
+
+def only(counts: dict, want: dict, what: str) -> None:
+    """The path launched exactly `want` ({wrapper name: n}) and nothing
+    else."""
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def rows_equal(det, refs, rows: int, what: str) -> None:
+    """Shard i's rows of the gathered dict bit-equal refs[i]."""
+    for i, ref in enumerate(refs):
+        for k in ref:
+            check(torch.equal(det[k][i * rows:(i + 1) * rows], ref[k]),
+                  f"{what}: shard {i}'s {k} differs from build_pipeline "
+                  f"(batch={rows}) on its rows")
+
+
+def scores_close(det, ref, what: str) -> float:
+    check(torch.equal(det["count"], ref["count"]),
+          f"{what}: counts {det['count'].tolist()} != "
+          f"{ref['count'].tolist()}")
+    err = float((det["scores"] - ref["scores"]).abs().max())
+    check(err <= PAR_SCORE_TOL and bool(det["slate"].isfinite().all()),
+          f"{what}: scores differ from the unsharded pipeline by {err:.2e}")
+    return err
+
+
+def median_ms(fn, iters: int = PAR_TIMED) -> float:
+    """Median host ms of fn(), each call ended by a host copy."""
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_scripts(model, launches: dict) -> dict:
+    """Each inference script's main(argv) with --device cuda on files
+    under build/parallel/scripts; K1 (and K3) counted per script."""
+    root = PAR_DIR / "scripts"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "imgs").mkdir(parents=True)
+    rng = np.random.default_rng(13)
+    paths = []
+    for i in range(3):
+        paths.append(root / "imgs" / f"f{i}.png")
+        Image.fromarray(rng.integers(0, 256, FRAME_HW + (3,),
+                                     np.uint8)).save(paths[-1])
+    write_y4m(root / "clip.y4m", [rng.integers(0, 256, FRAME_HW + (3,),
+                                               np.uint8) for _ in range(4)])
+    save_npz(str(root / "w.npz"), model)
+    (root / "list.txt").write_text("\n".join(map(str, paths)))
+    dev = ["--device", DEVICE]
+    k1, k3 = K1["name"], K3["name"]
+    seconds = {}
+    for name, fn, argv, want in (
+            ("demo", ex_demo.main, ["--images", str(root / "imgs"), "--out",
+                                    str(root / "demo"), "--ckpt",
+                                    str(root / "w.npz")], {k1: 3}),
+            ("serve", ex_serve.main, ["--list", str(root / "list.txt"),
+                                      "--ckpt", str(root / "w.npz")],
+             {k1: 3}),
+            ("track_video", tool_track.main, [
+                "--video", str(root / "clip.y4m"), "--out",
+                str(root / "track.txt"), "--ckpt", str(root / "w.npz")],
+             {k1: 4}),
+            ("task_accuracy_report", tool_task_report.main, [
+                "--size", str(TASK_REPORT_SIZE), "--out",
+                str(root / "tasks.json")], {k1: 25, k3: 25})):
+        t = time.perf_counter()
+        text = counted(launches, f"script {name}",
+                       lambda: run_script(fn, [*argv, *dev], name))
+        seconds[name] = time.perf_counter() - t
+        got = launches[f"script {name}"]
+        # each also warms its pipeline up once: one launch more
+        check(all(got[k] >= n for k, n in want.items()),
+              f"{name}: launches {got}, expected at least {want}")
+        if name == "serve":
+            check(len(text.strip().splitlines()) == 3, "serve: 3 lines")
+        if name == "track_video":
+            check("4 frames ->" in text, f"track_video: {text[-300:]}")
+    rep = json.loads((root / "tasks.json").read_text())
+    check(set(rep) == {"pose", "obb", "classify"}
+          and all(r["n_images"] == 25 for r in rep.values()),
+          f"task report: {rep}")
+    for task, key in (("pose", "oks_mAP"), ("pose", "box_mAP"),
+                      ("obb", "rbox_mAP")):
+        r = rep[task]
+        check(r["n_detections_ours"] == r["n_detections_oracle"] > 0
+              and r[key] >= TASK_REPORT_MIN_MAP, f"task report {task}: {r}")
+    r = rep["classify"]
+    check(r["top1_agreement"] == 1.0
+          and r["prob_max_abs_diff"] <= TASK_REPORT_PROB_TOL,
+          f"task report classify: {r}")
+    t = time.perf_counter()
+    exact = task_report_highest()
+    seconds["task report, TF32 off"] = time.perf_counter() - t
+    return {"seconds": seconds, "task_report": rep,
+            "task_report_highest": exact}
+
+
+def task_report_highest() -> dict:
+    """The task report's pose and obb tables (its 25 frames, weights and
+    XR preset) with TF32 off on the card: every detection must match the
+    CPU oracle's (mAP 1)."""
+    images = tool_task_report.load_images(TASK_REPORT_SIZE)
+    pcfg = PostprocessConfig(iou_threshold=0.43, score_threshold=0.301,
+                             max_detections=50)
+    out = {}
+    for task, kw, keys in (("pose", dict(kpt_shape=(17, 3)),
+                            ("oks_mAP", "box_mAP")),
+                           ("obb", {}, ("rbox_mAP",))):
+        mcfg = ModelConfig(scale="n", input_size=(TASK_REPORT_SIZE,) * 2,
+                           dtype="float32", task=task,
+                           matmul_precision="highest", **kw)
+        params = detection_params(torch.Generator().manual_seed(0), mcfg,
+                                  device="cpu")
+        r = task_parity_report(task, images, params, mcfg, pcfg,
+                               device=DEVICE)
+        check(r["n_detections_ours"] == r["n_detections_oracle"] > 0
+              and all(abs(r[k] - 1.0) < 1e-9 for k in keys),
+              f"task report {task}, TF32 off: {r}")
+        out[task] = r
+    return out
+
+
+def phase_parallel(smi: str) -> dict:
+    """Phase 12: DP, DP+TP, SP, PP, the multi-stream runner, obb over DP,
+    the server's mesh, multihost at world size 1 and the inference
+    scripts, over meshes of the one card."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    k1, k3 = K1["name"], K3["name"]
+    launches, numbers = {}, {}
+    cfg = ExecutorConfig(model=MODEL)
+    model = detection_params(torch.Generator().manual_seed(0), MODEL,
+                             device=DEVICE)
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 256, (8,) + FRAME_HW + (3,), np.uint8)
+    mesh2 = make_mesh((2, 1), devices=[dev] * 2)
+
+    # DP b=8 over (2, 1): each shard against build_pipeline(batch=4)
+    dp = build_serving_pipeline(cfg, model, mesh2, batch=8,
+                                frame_hw=FRAME_HW).warmup()
+    shard = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=4,
+                           device=DEVICE).warmup()
+    b8 = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=8,
+                        device=DEVICE).warmup()
+    refs = [shard(frames[4 * i:4 * i + 4]) for i in range(2)]
+    det = counted(launches, "parallel dp", lambda: dp(frames))
+    only(launches["parallel dp"], {k1: 2}, "DP b=8")
+    check_det(det, 8, True, "DP b=8")
+    rows_equal(det, refs, 4, "DP b=8")
+    numbers["dp_b8_ms"] = median_ms(lambda: dp(frames)["slate"].cpu())
+    numbers["unsharded_b8_ms"] = median_ms(lambda: b8(frames)["slate"].cpu())
+
+    # DP+TP (1, 2), DP b=8 and SP over 2 bands, float32 without TF32,
+    # against the unsharded pipeline
+    ecfg = ExecutorConfig(model=EXACT_MODEL)
+    emodel = detection_params(torch.Generator().manual_seed(0), EXACT_MODEL,
+                              device=DEVICE)
+    tp = build_serving_pipeline(ecfg, emodel,
+                                make_mesh((1, 2), devices=[dev] * 2),
+                                batch=4, frame_hw=FRAME_HW,
+                                tp_min_channels=256).warmup()
+    sliced = sum(type(m).__name__ == "_SlicedConv"
+                 for m in tp.params[0].modules())
+    check(sliced > 0, "TP: no conv reaches 256 output channels")
+    ref4 = build_pipeline(ecfg, emodel, frame_hw=FRAME_HW,
+                          batch=4, device=DEVICE).warmup()(frames[:4])
+    det = counted(launches, "parallel tp", lambda: tp(frames[:4]))
+    only(launches["parallel tp"], {k1: 1}, "DP+TP")
+    numbers["tp_sliced_convs"] = sliced
+    numbers["tp_scores_max_err"] = scores_close(det, ref4, "DP+TP")
+    edp = build_serving_pipeline(ecfg, emodel, mesh2, batch=8,
+                                 frame_hw=FRAME_HW).warmup()
+    e8 = build_pipeline(ecfg, emodel, frame_hw=FRAME_HW, batch=8,
+                        device=DEVICE).warmup()
+    det = counted(launches, "parallel dp highest", lambda: edp(frames))
+    only(launches["parallel dp highest"], {k1: 2}, "DP b=8 highest")
+    numbers["dp_scores_max_err"] = scores_close(det, e8(frames),
+                                                "DP b=8 highest")
+    sp_fn, sp_reps = build_spatial_pipeline(ecfg, emodel, mesh2, batch=1,
+                                            frame_hw=FRAME_HW)
+    e1 = build_pipeline(ecfg, emodel, frame_hw=FRAME_HW, batch=1,
+                        device=DEVICE).warmup()
+    ref1 = e1(frames[:1])
+    sp_fn(sp_reps, frames[:1])
+    det = counted(launches, "parallel sp",
+                  lambda: sp_fn(sp_reps, frames[:1]))
+    only(launches["parallel sp"], {k1: 1}, "SP")
+    numbers["sp_scores_max_err"] = scores_close(det, ref1, "SP")
+    numbers["sp_b1_ms"] = median_ms(
+        lambda: sp_fn(sp_reps, frames[:1])["slate"].cpu())
+    numbers["unsharded_f32_b1_ms"] = median_ms(
+        lambda: e1(frames[:1])["slate"].cpu())
+
+    # PP over [cuda:0, cuda:0]: run_stream against the direct pipeline
+    pp = PipelinedRunner(cfg, model, devices=[dev, dev],
+                         frame_hw=FRAME_HW).warmup()
+    b1 = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=1,
+                        device=DEVICE).warmup()
+    stream = [rng.integers(0, 256, (1,) + FRAME_HW + (3,), np.uint8)
+              for _ in range(PAR_STREAM_FRAMES)]
+    want = [b1(f)["slate"] for f in stream]
+    t = time.perf_counter()
+    outs = counted(launches, "parallel pp",
+                   lambda: pp.run_stream(iter(stream), max_inflight=2))
+    numbers["pp_stream_frames_per_s"] = len(stream) / (
+        time.perf_counter() - t)
+    only(launches["parallel pp"], {k1: PAR_STREAM_FRAMES}, "PP")
+    check(len(outs) == len(stream) and all(
+        torch.equal(o["slate"], w) for o, w in zip(outs, want)),
+        "PP: a run_stream slate differs from the direct pipeline's")
+    t = time.perf_counter()
+    for f in stream:
+        b1(f)
+    torch.cuda.synchronize()
+    numbers["direct_b1_frames_per_s"] = len(stream) / (
+        time.perf_counter() - t)
+
+    # MultiStreamRunner: 2 streams on (2, 1)
+    ms = MultiStreamRunner(cfg, model, mesh2, n_streams=2, frame_hw=FRAME_HW)
+    ms(frames[:2])
+    det = counted(launches, "parallel multistream", lambda: ms(frames[:2]))
+    only(launches["parallel multistream"], {k1: 2}, "MultiStreamRunner")
+    rows_equal(det, [b1(frames[i:i + 1]) for i in range(2)], 1,
+               "MultiStreamRunner")
+
+    # obb over DP (2, 1): K3 once a shard
+    ocfg = ExecutorConfig(model=OBB_MODEL)
+    omodel = detection_params(torch.Generator().manual_seed(0), OBB_MODEL,
+                              device=DEVICE)
+    oframes = rng.integers(0, 256, (4,) + OBB_FRAME_HW + (3,), np.uint8)
+    odp = build_serving_pipeline(ocfg, omodel, mesh2, batch=4,
+                                 frame_hw=OBB_FRAME_HW).warmup()
+    oshard = build_pipeline(ocfg, omodel, frame_hw=OBB_FRAME_HW,
+                            batch=2, device=DEVICE).warmup()
+    orefs = [oshard(oframes[2 * i:2 * i + 2]) for i in range(2)]
+    det = counted(launches, "parallel obb dp", lambda: odp(oframes))
+    only(launches["parallel obb dp"], {k3: 2}, "obb DP")
+    check_obb_det(det, 4, "obb DP")
+    rows_equal(det, orefs, 2, "obb DP")
+
+    # the server over mesh {"data": 1}
+    srv = InferenceServer(cfg, params=model, frame_hw=FRAME_HW, port=0,
+                          mesh_shape={"data": 1}, device=DEVICE).start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/healthz",
+                timeout=SERVE_TIMEOUT_S) as r:
+            health = json.loads(r.read())
+        check(health.get("mesh") == {"data": 1, "model": 1},
+              f"/healthz: {health}")
+        ref = direct_answers(srv, b1, frames[:4])
+        http(srv.port, npy_bytes(frames[0]))        # warm the thread
+        results = counted(launches, "parallel serve", lambda: [
+            (i, *http(srv.port, npy_bytes(frames[i])), 0.0)
+            for i in range(4)])
+        only(launches["parallel serve"], {k1: 4}, "mesh server")
+        numbers["serve"] = answers_match(results, ref, "mesh server")
+    finally:
+        srv.close()
+
+    # multihost at world size 1 over nccl
+    mh.initialize(f"localhost:{free_port()}", num_processes=1, process_id=0,
+                  device=DEVICE)
+    try:
+        gmesh = mh.global_mesh()
+        fn, params = build_sharded_pipeline(
+            cfg, mh.replicate_params(model, gmesh), gmesh, batch=2,
+            frame_hw=FRAME_HW)
+        local = mh.shard_host_batch(frames[:2], gmesh, global_batch=2)
+        fn(params, local)
+        slate = counted(launches, "parallel multihost",
+                        lambda: mh.gather_to_hosts(fn(params, local)
+                                                   ["slate"]))
+        only(launches["parallel multihost"], {k1: 1}, "multihost")
+        b2 = build_pipeline(cfg, model, frame_hw=FRAME_HW, batch=2,
+                            device=DEVICE)
+        check(np.array_equal(slate, b2(frames[:2])["slate"].cpu().numpy()),
+              "multihost: the gathered slate differs from the b=2 "
+              "pipeline's")
+        numbers["multihost_world"] = torch.distributed.get_world_size()
+        numbers["multihost_backend"] = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+
+    scripts = parallel_scripts(model, launches)
+    numbers["scripts_s"] = scripts["seconds"]
+    numbers["task_report"] = scripts["task_report"]
+    numbers["task_report_highest"] = scripts["task_report_highest"]
+    seconds = time.perf_counter() - t0
+    print("parallel: " + json.dumps({
+        "card": smi, "note": "one card: DP, PP and SP times are the host "
+        "cost of sharding, not a speed-up", **numbers,
+        "launches": {p: {k: v for k, v in c.items() if v}
+                     for p, c in launches.items()},
+        "seconds": round(seconds, 2)}), flush=True)
+    print(f"parallel: card {smi}: phase 12 took {seconds:.1f} s", flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -3441,6 +3821,13 @@ def main() -> int:
         for path, n in le.items():
             kernels[0]["launches"] += n
             kernels[0]["launches_by_path"][path] = n
+        par = phase_parallel(smi)["launches"]
+        seconds["parallel"] = time.perf_counter() - t0 - sum(seconds.values())
+        for k in (kernels[0], kernels[2]):
+            for path, counts in par.items():
+                if counts[k["name"]]:
+                    k["launches"] += counts[k["name"]]
+                    k["launches_by_path"][path] = counts[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

@@ -1006,3 +1006,68 @@ def test_transfer_from_a_card_donor(card):
     assert next(got.parameters()).device.type == "cpu"
     for a, b in zip(got.parameters(), want.parameters(), strict=True):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# parallel/ on the card: a mesh over [cuda:0] * n (one card)
+# ---------------------------------------------------------------------------
+
+def test_dp_shards_equal_per_shard_pipelines(card):
+    """DP over [cuda:0] * 2 at b=4: K1 once a shard, and each shard's rows
+    bit-equal to build_pipeline at the shard's own batch (2)."""
+    from xrseg_tpu_torch.parallel import batch as pbatch
+    from xrseg_tpu_torch.parallel.mesh import make_mesh
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    frames = np.random.default_rng(0).integers(0, 256, (4, 96, 128, 3),
+                                               np.uint8)
+    mesh = make_mesh((2, 1), devices=[card] * 2)
+    fn, sp = pbatch.build_sharded_pipeline(cfg, model, mesh, batch=4,
+                                           frame_hw=(96, 128))
+    fn(sp, frames)                       # warm: cuDNN picks its algorithms
+    before = tk.nms_select_batched_cuda.launches
+    det = fn(sp, frames)
+    torch.cuda.synchronize()
+    assert tk.nms_select_batched_cuda.launches == before + 2
+    shard = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)
+    for i in range(2):
+        ref = shard(frames[2 * i:2 * i + 2])
+        for k in ref:
+            assert torch.equal(det[k][2 * i:2 * i + 2], ref[k]), k
+    assert int(det["count"].min()) == 50
+
+
+def test_pp_run_stream_equals_direct(card):
+    """PP over [cuda:0, cuda:0]: run_stream over 6 frames equals the direct
+    pipeline frame for frame, K1 once a frame."""
+    from xrseg_tpu_torch.parallel.pipeline import PipelinedRunner
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=card)
+    runner = PipelinedRunner(cfg, model, devices=[card, card],
+                             frame_hw=(96, 128)).warmup()
+    direct = build_pipeline(cfg, model, frame_hw=(96, 128), batch=1)
+    frames = [np.random.default_rng(i).integers(0, 256, (1, 96, 128, 3),
+                                                np.uint8) for i in range(6)]
+    before = tk.nms_select_batched_cuda.launches
+    outs = runner.run_stream(iter(frames), max_inflight=2)
+    assert tk.nms_select_batched_cuda.launches == before + 6
+    for f, o in zip(frames, outs, strict=True):
+        assert torch.equal(o["slate"], direct(f)["slate"])
+
+
+def test_mesh_of_more_cards_than_there_are_raises(card):
+    """A server mesh of data*model distinct cards, one more than the
+    machine has, is refused; so is PP on one device."""
+    from xrseg_tpu_torch.parallel.pipeline import PipelinedRunner
+    from xrseg_tpu_torch.runtime.server import InferenceServer
+    n = torch.cuda.device_count()
+    data = 1 << n.bit_length()                   # a power of two > n
+    with pytest.raises(ValueError, match="needs"):
+        InferenceServer(ExecutorConfig(), port=0,
+                        mesh_shape={"data": data})
+    with pytest.raises(ValueError, match=">= 2 devices"):
+        PipelinedRunner(ExecutorConfig(), detection_params(
+            torch.Generator().manual_seed(0), ModelConfig(), device=card),
+            devices=[card])

@@ -86,8 +86,8 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
 # the subpackages re-export what their JAX twins do
 # ---------------------------------------------------------------------------
 
-SUBPACKAGES = ("io", "models", "ops", "perception", "runtime", "train",
-               "viz")
+SUBPACKAGES = ("io", "models", "ops", "parallel", "perception", "runtime",
+               "train", "viz")
 # JAX-only names with no counterpart in the port, each with its reason
 NO_COUNTERPART = {
     # the port's network is a module: JAX's free forward(params, x, cfg)

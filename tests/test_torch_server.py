@@ -357,11 +357,14 @@ def test_overload_sheds_unbatched_path(weights):
 
 
 def test_mesh_and_unported_tasks_refused(weights):
-    """The mesh is still refused (ROADMAP item 10); pose and classify,
-    refused until the task family was ported, now serve."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        InferenceServer(_cfg(), params=weights[1], port=0,
-                        mesh_shape={"data": 2}, device="cpu")
+    """The mesh serves now (tests/test_torch_server_mesh.py); what it
+    still refuses, as the JAX server does, is a data axis that is not a
+    power of two. Pose and classify, refused until the task family was
+    ported, serve."""
+    for bad in ({"data": 3}, {"data": 0}):
+        with pytest.raises(ValueError, match="power of two"):
+            InferenceServer(_cfg(), params=weights[1], port=0,
+                            mesh_shape=bad, device="cpu")
     for task in ("pose", "classify"):
         srv = InferenceServer(_cfg(task=task), port=0, device="cpu").start()
         try:

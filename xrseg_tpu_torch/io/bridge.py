@@ -30,6 +30,17 @@ _LEAVES = {"w": ("weight", (3, 2, 0, 1)), "b": ("bias", None),
            "lin_w": ("lin_w", None), "lin_b": ("lin_b", None)}
 
 
+def jax_dims(leaf: str, ndim: int) -> tuple:
+    """For a port parameter named `leaf` ("weight", "up_w", "bias", ...)
+    of `ndim` dims: the JAX leaf's dim behind each of its dims (OIHW
+    "weight" -> (3, 2, 0, 1): its dim 0 is JAX's dim 3, the output
+    channels)."""
+    for name, perm in _LEAVES.values():
+        if name == leaf and perm is not None:
+            return perm
+    return tuple(range(ndim))
+
+
 def state_dict_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """Flatten a JAX params (sub)tree into a torch state dict (float32)."""
     out: Dict[str, torch.Tensor] = {}

@@ -37,13 +37,7 @@ class Conv(nn.Module):
         self.stride, self.groups, self.act, self.dtype = s, groups, act, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[-1]
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
-                     self.stride, k // 2, 1, self.groups)
-        y = y.float() + self.bias.float()[:, None, None]
-        if self.act:
-            y = F.silu(y)
-        return y.to(self.dtype)
+        return conv_apply(self, x, self.weight, self.bias, self.groups)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Kaiming-uniform weight, zero bias (a fresh BN folds to identity)."""
@@ -52,6 +46,29 @@ class Conv(nn.Module):
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=gen)
             self.bias.zero_()
+
+
+def conv_apply(conv: Conv, x: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor, groups: int) -> torch.Tensor:
+    """`conv`'s function (stride, activation, dtype) with the given weight,
+    bias and group count: Conv.forward, and parallel/batch.py's tensor
+    parallelism, which runs a conv on a slice of its channels."""
+    k = weight.shape[-1]
+    y = F.conv2d(x.to(conv.dtype), weight.to(conv.dtype), None,
+                 conv.stride, k // 2, 1, groups)
+    y = y.float() + bias.float()[:, None, None]
+    if conv.act:
+        y = F.silu(y)
+    return y.to(conv.dtype)
+
+
+def conv_transpose_apply(proto: "Proto", y: torch.Tensor,
+                         up_w: torch.Tensor, up_b: torch.Tensor
+                         ) -> torch.Tensor:
+    """The Proto's k=2 s=2 transposed conv with the given weight [in,
+    out, 2, 2] and bias (a slice of its output channels, for parallel/)."""
+    y = F.conv_transpose2d(y, up_w.to(proto.dtype), None, stride=2)
+    return (y.float() + up_b.float()[:, None, None]).to(proto.dtype)
 
 
 class HeadConv(Conv):
@@ -253,9 +270,7 @@ class Proto(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        y = self.cv1(x)
-        y = F.conv_transpose2d(y, self.up_w.to(self.dtype), None, stride=2)
-        y = (y.float() + self.up_b.float()[:, None, None]).to(self.dtype)
+        y = conv_transpose_apply(self, self.cv1(x), self.up_w, self.up_b)
         return self.cv3(self.cv2(y))
 
     def reset_parameters(self, gen: torch.Generator) -> None:

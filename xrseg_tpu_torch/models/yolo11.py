@@ -247,6 +247,10 @@ def decode_rbox(ltrb: torch.Tensor, angle: torch.Tensor,
     return torch.cat([xy, wh, angle[..., None]], -1)
 
 
+def _call(module: nn.Module, x):
+    return module(x)
+
+
 def _flatten(maps, c: int) -> torch.Tensor:
     """Per-level NCHW maps -> [B, A, c] in anchor order (channels last)."""
     return torch.cat([m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, c)
@@ -365,23 +369,30 @@ class YOLO11(nn.Module):
 
     def backbone_neck(self, x: torch.Tensor):
         """NCHW input -> (P3, P4, P5) features."""
-        x4, x6, x10 = self.backbone(x)
+        return self.neck(self.backbone(x))
+
+    def neck(self, feats):
+        """The backbone's (x4, x6, x10) -> (P3, P4, P5) features: the stage
+        boundary of parallel/pipeline.PipelinedRunner."""
+        x4, x6, x10 = feats
         x13 = self.h13(torch.cat([L.upsample2x_nearest(x10), x6], 1))
         x16 = self.h16(torch.cat([L.upsample2x_nearest(x13), x4], 1))
         x19 = self.h19(torch.cat([self.h17(x16), x13], 1))
         x22 = self.h22(torch.cat([self.h20(x19), x10], 1))
         return x16, x19, x22
 
-    def _detect(self, head: DetectHead, feats, anchors=None, strides=None):
+    def _detect(self, head: DetectHead, feats, anchors=None, strides=None,
+                apply=_call):
         """One detect head: (box logits [B,A,4*reg_max] and class logits
         [B,A,nc] in the compute dtype, DFL ltrb [B,A,4], xywh [B,A,4] in
-        input pixels). The anchors default to those of cfg.input_size."""
+        input pixels). The anchors default to those of cfg.input_size.
+        `apply(branch, feat)` runs one branch on one level's features."""
         cfg = self.cfg
         anchors = self.anchors if anchors is None else anchors
         strides = self.strides if strides is None else strides
-        box_flat = _flatten([b(f) for b, f in zip(head.cv2, feats)],
+        box_flat = _flatten([apply(b, f) for b, f in zip(head.cv2, feats)],
                             4 * cfg.reg_max)
-        cls_flat = _flatten([c(f) for c, f in zip(head.cv3, feats)],
+        cls_flat = _flatten([apply(c, f) for c, f in zip(head.cv3, feats)],
                             cfg.num_classes)
         ltrb = dfl_decode(box_flat, cfg.reg_max)
         x1y1 = anchors - ltrb[..., :2]
@@ -390,24 +401,26 @@ class YOLO11(nn.Module):
                           (x2y2 - x1y1) * strides], -1)
         return box_flat, cls_flat, ltrb, xywh
 
-    def _task_outputs(self, feats, ltrb, anchors, strides
+    def _task_outputs(self, feats, ltrb, anchors, strides, apply=_call
                       ) -> Dict[str, torch.Tensor]:
         """The task head's float32 outputs: protos and mask_coefs
         (segment), decoded kpts (pose), boxes_xywhr and angle (obb)."""
         cfg = self.cfg
         if cfg.task == "segment":
-            protos = self.proto(feats[0])
-            mc = _flatten([m(f) for m, f in zip(self.seg_cv4, feats)],
+            protos = apply(self.proto, feats[0])
+            mc = _flatten([apply(m, f) for m, f in zip(self.seg_cv4, feats)],
                           cfg.num_masks)
             return {"mask_coefs": mc.float(),
                     "protos": protos.permute(0, 2, 3, 1).float().contiguous()}
         if cfg.task == "pose":
             nk = cfg.kpt_shape[0] * cfg.kpt_shape[1]
-            kf = _flatten([m(f) for m, f in zip(self.pose_cv4, feats)], nk)
+            kf = _flatten([apply(m, f) for m, f in zip(self.pose_cv4, feats)],
+                          nk)
             return {"kpts": decode_kpts(kf.float(), anchors, strides,
                                         cfg.kpt_shape)}
         if cfg.task == "obb":
-            raw = _flatten([m(f) for m, f in zip(self.obb_cv4, feats)], 1)
+            raw = _flatten([apply(m, f) for m, f in zip(self.obb_cv4, feats)],
+                           1)
             # ultralytics OBB: angle = (sigmoid(raw) - 0.25) * pi, decoded
             # before the box (the ltrb offsets rotate by it)
             angle = (torch.sigmoid(raw[..., 0].float()) - 0.25) * math.pi
@@ -415,17 +428,20 @@ class YOLO11(nn.Module):
                                                strides), "angle": angle}
         return {}
 
-    def head_outputs(self, feats, concat_preds: bool = True
+    def head_outputs(self, feats, concat_preds: bool = True, apply=_call
                      ) -> Dict[str, torch.Tensor]:
+        """(P3, P4, P5) -> the raw-head dict. `apply(branch, feat)` runs
+        each per-level branch (and the Proto) and returns its NCHW map;
+        parallel/spatial.py passes one that runs it on row bands."""
         cfg = self.cfg
-        _, cls_flat, ltrb, xywh = self._detect(self.det, feats)
+        _, cls_flat, ltrb, xywh = self._detect(self.det, feats, apply=apply)
         scores = torch.sigmoid(cls_flat.float())
         out = {"boxes_xywh": xywh, "scores": scores, "cls_logits": cls_flat}
         if cfg.o2o:
             _, out["o2o_cls_logits"], _, out["o2o_boxes_xywh"] = self._detect(
-                self.det_o2o, feats)
+                self.det_o2o, feats, apply=apply)
         out.update(self._task_outputs(feats, ltrb, self.anchors,
-                                      self.strides))
+                                      self.strides, apply))
         if not concat_preds:
             return out
         if cfg.task == "segment":

@@ -39,6 +39,14 @@ every request is a batch of one. A batch's slates come back in one copy
 through the pipeline's pinned readback; the pose keypoints and the served
 masks of the batch's survivors in one more copy each.
 
+Multi-device serving (mesh_shape, CLI --mesh data=N[,model=M]): the
+pipeline is parallel/batch.build_serving_pipeline over a (data, model)
+mesh; buckets start at the data axis and double, so each stays divisible
+by it, a request pads its bucket, and each data shard runs K1 on its own
+rows. On device="cpu" the mesh repeats the CPU device; on CUDA it takes
+data*model distinct cards. /reload re-places the new weights on the mesh
+(ShardedPipeline.reshard), /healthz reports the mesh.
+
 Overload: pending work is bounded (max_pending); excess requests get an
 immediate 503 with Retry-After instead of waiting in the queue. Bodies
 larger than max_request_mb get a 413 before they are read.
@@ -46,7 +54,8 @@ larger than max_request_mb get a 413 before they are read.
 CLI: python -m xrseg_tpu_torch.runtime.server --port 8000 \\
         [--weights w.npz] [--arch yolo11|yolov8] [--scale n] \\
         [--task segment|detect|obb|pose|classify] [--frame-hw 480 640] \\
-        [--micro-batch 8 --batch-window-ms 3] [--device cuda|cpu]
+        [--micro-batch 8 --batch-window-ms 3] [--device cuda|cpu] \\
+        [--mesh data=2[,model=2] --tp-min-channels 256]
 """
 from __future__ import annotations
 
@@ -60,12 +69,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from xrseg_tpu_torch.compile import build_pipeline, load_model, unpack_slate
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
 from xrseg_tpu_torch.device import resolve_device
 from xrseg_tpu_torch.io.weights import cast_params, load_params_auto
+from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.models.yolo11 import count_params
+from xrseg_tpu_torch.parallel import mesh as mesh_lib
+from xrseg_tpu_torch.parallel.batch import build_serving_pipeline
 from xrseg_tpu_torch.ops.preprocess import boxes_to_frame_space
 from xrseg_tpu_torch.runtime.tracing import Tracer
 from xrseg_tpu_torch.viz.labels import COCO_LABELS
@@ -115,15 +128,18 @@ class InferenceServer:
                  serve_masks: bool = False,
                  mask_res: str = "proto",
                  mesh_shape: Optional[Dict[str, int]] = None,
+                 tp_min_channels: int = 100000,
                  max_request_mb: float = 64.0,
                  max_pending: Optional[int] = None,
                  device="cuda"):
-        if mesh_shape:
-            raise NotImplementedError(
-                "multi-device serving (mesh_shape) is not ported yet "
-                "(ROADMAP queue 1, item 10: parallel/)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = None
+        self._data_axis = 1
+        self.tp_min_channels = int(tp_min_channels)
+        if mesh_shape:
+            self.mesh = self._make_mesh(mesh_shape)
+            self._data_axis = self.mesh.shape["data"]
         self.frame_hw = tuple(frame_hw or cfg.model.input_size)
         self.labels = list(labels) if labels is not None else list(COCO_LABELS)
         self.tracer = Tracer()
@@ -250,6 +266,28 @@ class InferenceServer:
         self._serving = False    # shutdown() waits for a serve loop to end
 
     # ------------------------------------------------------------------
+
+    def _make_mesh(self, mesh_shape: Dict[str, int]) -> mesh_lib.Mesh:
+        """The serving mesh: data a power of two (buckets are powers of two
+        and must stay divisible by it); data*model devices, the CPU
+        repeated on device="cpu", distinct cards on CUDA."""
+        d = int(mesh_shape.get("data", 1))
+        m = int(mesh_shape.get("model", 1))
+        if d < 1 or (d & (d - 1)):
+            raise ValueError(
+                f"mesh data axis {d} must be a power of two (batch "
+                "buckets are powers of two and must stay divisible)")
+        if m < 1:
+            raise ValueError(f"mesh model axis {m} must be at least 1")
+        if self.device.type == "cpu":
+            devices = [self.device] * (d * m)
+        else:
+            have = torch.cuda.device_count()
+            if d * m > have:
+                raise ValueError(f"mesh {d}x{m} needs {d * m} devices, "
+                                 f"have {have}")
+            devices = [torch.device("cuda", i) for i in range(d * m)]
+        return mesh_lib.make_mesh((d, m), devices=devices)
 
     def _decode(self, data: bytes) -> np.ndarray:
         """Image bytes -> [H,W,3] uint8 at the server's frame geometry."""
@@ -380,25 +418,45 @@ class InferenceServer:
         first use (on the dispatch thread, device lock held)."""
         if b not in self._pipelines:
             with self.tracer.section(f"compile_b{b}"):
-                self._pipelines[b] = build_pipeline(
-                    self.cfg, self.pipeline.params, frame_hw=self.frame_hw,
-                    batch=b, mask_display_hw=self._mask_display_hw,
-                    device=self.device).warmup()
+                self._pipelines[b] = self._build(b, self.pipeline.params)
         return self._pipelines[b]
 
+    def _build(self, b: int, params):
+        """A warmed-up pipeline of batch b over `params`: the serving
+        module on the device, or over the mesh the host weights (placed on
+        the first build) or the rows every bucket shares."""
+        if self.mesh is None:
+            return build_pipeline(
+                self.cfg, params, frame_hw=self.frame_hw,
+                batch=b, mask_display_hw=self._mask_display_hw,
+                device=self.device).warmup()
+        return build_serving_pipeline(
+            self.cfg, params, self.mesh, batch=b,
+            frame_hw=self.frame_hw, tp_min_channels=self.tp_min_channels,
+            mask_display_hw=self._mask_display_hw).warmup()
+
     def _dispatch_loop(self, params, seed, ready, failed) -> None:
-        """Build the b=1 pipeline, then: collect requests for up to
-        batch_window_ms, run ONE batched pipeline call, fan the results
-        back out."""
+        """Build the first bucket's pipeline, then: collect requests for
+        up to batch_window_ms, run ONE batched pipeline call, fan the
+        results back out."""
         try:
             with self.tracer.section("load_model"):
-                self.pipeline = load_model(
-                    self.cfg, params=params, seed=seed,
-                    frame_hw=self.frame_hw, batch=1,
-                    params_dtype=self.params_dtype,
-                    mask_display_hw=self._mask_display_hw,
-                    device=self.device)
-            self._pipelines[1] = self.pipeline
+                if self.mesh is None:
+                    self.pipeline = load_model(
+                        self.cfg, params=params, seed=seed,
+                        frame_hw=self.frame_hw, batch=1,
+                        params_dtype=self.params_dtype,
+                        mask_display_hw=self._mask_display_hw,
+                        device=self.device)
+                else:
+                    if params is None:
+                        params = yolo11.init_params(
+                            torch.Generator().manual_seed(seed),
+                            self.cfg.model)
+                    if self.params_dtype is not None:
+                        params = cast_params(params, self.params_dtype)
+                    self.pipeline = self._build(self._data_axis, params)
+            self._pipelines[self._data_axis] = self.pipeline
         except Exception as e:        # raised again by the constructor
             failed.append(e)
             return
@@ -418,7 +476,7 @@ class InferenceServer:
                     items.append(self._q.get(timeout=rem))
                 except queue.Empty:
                     break
-            b = 1
+            b = self._data_axis       # buckets stay data-axis divisible
             while b < len(items):
                 b *= 2
             try:
@@ -457,12 +515,16 @@ class InferenceServer:
                              f"{self.cfg.model.task}): {e}") from e
         if self.params_dtype is not None:
             new = cast_params(new, self.params_dtype)
+        n_params = count_params(new)
         with self._lock:
-            new = new.to(self.device).eval()
+            if self.mesh is None:
+                placed = new.to(self.device).eval()
+            else:                         # re-place on the mesh
+                placed = self.pipeline.reshard(new)
             for b, pipe in list(self._pipelines.items()):
-                self._pipelines[b] = dataclasses.replace(pipe, params=new)
-            self.pipeline = self._pipelines[1]
-        return {"ok": True, "path": path, "n_params": count_params(new)}
+                self._pipelines[b] = dataclasses.replace(pipe, params=placed)
+            self.pipeline = self._pipelines[self._data_axis]
+        return {"ok": True, "path": path, "n_params": n_params}
 
     def metrics_text(self) -> str:
         """Prometheus text exposition of the /stats counters."""
@@ -490,10 +552,13 @@ class InferenceServer:
         return "\n".join(lines) + "\n"
 
     def health(self) -> dict:
-        return {"ok": True, "scale": self.cfg.model.scale,
-                "task": self.cfg.model.task,
-                "frame_hw": list(self.frame_hw),
-                "input_size": list(self.cfg.model.input_size)}
+        out = {"ok": True, "scale": self.cfg.model.scale,
+               "task": self.cfg.model.task,
+               "frame_hw": list(self.frame_hw),
+               "input_size": list(self.cfg.model.input_size)}
+        if self.mesh is not None:
+            out["mesh"] = self.mesh.shape
+        return out
 
     def stats(self) -> dict:
         out = {"requests": self._requests, "errors": self._errors,
@@ -543,7 +608,7 @@ class InferenceServer:
             it.event.set()
 
 
-def _main() -> int:
+def _main(argv: Optional[List[str]] = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -582,14 +647,23 @@ def _main() -> int:
     ap.add_argument("--max-request-mb", type=float, default=64.0,
                     help="reject request bodies larger than this (413)")
     ap.add_argument("--mesh", default=None,
-                    help="multi-device serving mesh: not ported yet")
+                    help="multi-device serving mesh, e.g. 'data=4' or "
+                         "'data=4,model=2' (data must be a power of two)")
+    ap.add_argument("--tp-min-channels", type=int, default=100000,
+                    help="shard conv output channels >= this over the "
+                         "mesh model axis (TP; default effectively off)")
     ap.add_argument("--max-pending", type=int, default=None,
                     help="overload shedding: max requests pending before "
                          "503 + Retry-After (default 8*micro_batch)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    mesh_shape = None
     if args.mesh:
-        ap.error("--mesh: multi-device serving is not ported yet (ROADMAP "
-                 "queue 1, item 10: parallel/)")
+        mesh_shape = {}
+        for part in args.mesh.split(","):
+            k, _, v = part.partition("=")
+            if k.strip() not in ("data", "model") or not v.strip().isdigit():
+                ap.error(f"--mesh: bad spec {part!r} (want data=N[,model=M])")
+            mesh_shape[k.strip()] = int(v)
 
     mcfg = ModelConfig(arch=args.arch, scale=args.scale, task=args.task,
                        num_classes=args.classes)
@@ -608,11 +682,14 @@ def _main() -> int:
                           params_dtype=args.params_dtype,
                           serve_masks=args.serve_masks,
                           mask_res=args.mask_res,
+                          mesh_shape=mesh_shape,
+                          tp_min_channels=args.tp_min_channels,
                           max_request_mb=args.max_request_mb,
                           max_pending=args.max_pending,
                           device=args.device)
-    print(f"serving on http://{args.host}:{srv.port} ({srv.device}; "
-          "POST /infer, GET /healthz, GET /stats)", flush=True)
+    mesh_note = f"; mesh {srv.mesh.shape}" if srv.mesh is not None else ""
+    print(f"serving on http://{args.host}:{srv.port} ({srv.device}"
+          f"{mesh_note}; POST /infer, GET /healthz, GET /stats)", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
