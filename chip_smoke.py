@@ -269,13 +269,40 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    host work, not a speed-up. One line "parallel: {...}" gives them, the
    launches and the phase's seconds beside the card's name and power
    limit.
-13. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+13. training over a mesh (lines starting `mesh_train:`), YOLO11n-seg at
+   full width (640x640, 80 classes) at b=8 on 480x640 synthetic images,
+   over meshes that repeat the one card:
+   - DP (2, 1) and TP (1, 2) with tp_min_channels=256, float32
+     "highest": one step against the unsharded step on the same batch
+     (sample weights unequal across the shards, one padding row): loss
+     and grad norm within rtol 1e-4, every param within atol 2e-5, rtol
+     2e-4 (tests/test_train.py's bounds);
+   - FSDP (2, 1) at the default fsdp_min_size: 3 steps against DP, loss
+     within rtol 2e-4, params as above; the slices' shapes before and
+     after (halves of the split dim, the module's leaf empty);
+   - ms a step, device ms and launches a step of the bf16 remat step,
+     unsharded, DP, TP and FSDP (on one card: the host work of a split,
+     not a speed-up);
+   - Trainer.fit over DP (2, 1): bf16, remat, one epoch of 16 images, the
+     memory preflight on one shard, validation of 8 images (the counters
+     zeroed around it: K1 once at B=8), save() and a resumed epoch;
+   - the DP distill step (YOLO11s-seg -> YOLO11n-seg) against the
+     unsharded one, float32 "highest";
+   - YOLO11n-obb at 1024x1024: 2 DP steps against the unsharded ones,
+     then a DP fit whose validation launches K3 once;
+   - the step across processes at world size 1 over nccl, from
+     shard_host_batch, within 1e-3 of the unsharded step;
+   - examples.train --mesh 1 --fsdp and examples.distill --mesh 1.
+   One line "mesh_train: {...}" gives the readings, the launches and the
+   phase's seconds beside the card's name and power limit.
+14. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
    segment and pose evals, the training validations, the transferred
-   fit's validation, the pseudo-labels and both rankings, and phase 12's
-   parallel paths and scripts, K3's over the obb, obb-TTA, obb eval, obb
-   training-validation, obb DP and task-report paths, K5's and K6's over
+   fit's validation, the pseudo-labels and both rankings, phase 12's
+   parallel paths and scripts and phase 13's mesh fit validation, K3's
+   over the obb, obb-TTA, obb eval, obb training-validation, obb DP,
+   task-report and obb mesh fit validation paths, K5's and K6's over
    phase 8's WBF paths; no path runs K4, as in the JAX package), then the
    last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -505,6 +532,15 @@ PAR_TIMED = 5
 TASK_REPORT_SIZE = 640             # the report script's own default
 TASK_REPORT_MIN_MAP = 0.95         # pose/obb under TF32 (see phase 12)
 TASK_REPORT_PROB_TOL = 1e-6        # classify probabilities, card vs CPU
+# phase 13: training over a mesh
+MESH_BATCH = 8
+MESH_FIT_N = 16
+MESH_TIMED = 3                     # steps a turn, two turns a config
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh_train"
+MESH_LOSS_RTOL = 1e-4              # tests/test_train.py's sharded bound
+FSDP_LOSS_RTOL = 2e-4              # tests/test_train.py's FSDP bounds
+MESH_PARAM_ATOL = 2e-5
+MESH_PARAM_RTOL = 2e-4
 K1_GLOBAL = "greedy_nms_kernel"
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
@@ -2735,6 +2771,7 @@ class StepRecorder:
             return state, m
 
         recorded.compute_grads = step.compute_grads
+        recorded.shard_step = getattr(step, "shard_step", step)
         return recorded
 
     def __enter__(self) -> "StepRecorder":
@@ -3705,6 +3742,378 @@ def phase_parallel(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13. training over a mesh
+# ---------------------------------------------------------------------------
+
+def mesh_of(data: int, model: int = 1):
+    """A (data, model) mesh that repeats the one card."""
+    return make_mesh((data, model), devices=[torch.device(DEVICE)]
+                     * (data * model))
+
+
+def run_steps(cfg, opt, host, batches, mesh=None, **kw):
+    """Steps of the train step (no remat) from a copy of `host` on the card:
+    the state and each step's metrics as floats."""
+    model = copy.deepcopy(host).to(DEVICE)
+    state = train_ts.TrainState(model, opt.init(model), 0)
+    step = train_ts.make_train_step(cfg, opt, mesh=mesh, use_remat=False,
+                                    device=DEVICE, **kw)
+    rows = []
+    for b in batches:
+        state, m = step(state, b)
+        rows.append({k: float(v) for k, v in m.items()})
+    return state, rows
+
+
+def same_steps(got, want, rtol: float, what: str) -> float:
+    """Each step's loss and grad norm within rtol of the reference's;
+    returns the worst relative gap."""
+    check(len(got) == len(want), f"{what}: {len(got)} steps, {len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "grad_norm"):
+            err = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            worst = max(worst, err)
+            check(np.isfinite(g[k]) and err <= rtol,
+                  f"{what}: step {i} {k} {g[k]} against {w[k]} (rtol "
+                  f"{rtol})")
+    return worst
+
+
+def same_params(got, want, what: str) -> float:
+    """Every full parameter within MESH_PARAM_ATOL and MESH_PARAM_RTOL of
+    the reference's; returns the worst absolute gap."""
+    names = [n for n, _ in want.params.named_parameters()]
+    worst = 0.0
+    for n, a, b in zip(names, train_ts.full_parameters(got),
+                       train_ts.full_parameters(want)):
+        a, b = a.detach(), b.detach()
+        worst = max(worst, float((a - b).abs().max()))
+        check(torch.allclose(a, b, atol=MESH_PARAM_ATOL,
+                             rtol=MESH_PARAM_RTOL),
+              f"{what}: {n} differs beyond atol {MESH_PARAM_ATOL}, rtol "
+              f"{MESH_PARAM_RTOL}")
+    return worst
+
+
+def fsdp_slices(state, rules, what: str) -> int:
+    """The FSDP placement by shapes (one card holds every slice): each
+    leaf the rule splits lives as halves of its split dim, with an empty
+    tensor in the module; every other leaf whole. Returns the split
+    leaves' count."""
+    split = state.placement.split
+    want = {n for n, r in rules.params.items() if r.axis is not None}
+    check(split and set(split) == want,
+          f"{what}: split {sorted(split)[:4]}..., the rule splits "
+          f"{sorted(want)[:4]}...")
+    for n, t in state.params.named_parameters():
+        if n in split:
+            sh, d = split[n], rules.params[n].dim
+            check(sh.dim == d and t.numel() == 0 and all(
+                p.shape[d] * len(sh.parts) == sh.shape[d]
+                and isinstance(state.opt_state["mu"][n], train_ts.Shards)
+                for p in sh.parts),
+                f"{what}: {n} is not held as {len(sh.parts)} slices of dim "
+                f"{d}")
+        else:
+            check(t.numel() > 0, f"{what}: {n} was freed but not split")
+    return len(split)
+
+
+def timed_mesh_steps(opt, host, batch, configs: dict) -> dict:
+    """The bf16 remat step at MESH_BATCH for each config (name -> (mesh,
+    make_train_step's keywords)), timed in turns (the configs in order,
+    then in reverse, MESH_TIMED steps each time, each step ended by the
+    trainer's one host copy of its metrics): the median, least and most
+    ms a step; then device ms and launches from a one-step profile."""
+    runs = {}
+    for name, (mesh, kw) in configs.items():
+        model = copy.deepcopy(host).to(DEVICE)
+        box = [train_ts.TrainState(model, opt.init(model), 0)]
+        step = train_ts.make_train_step(MODEL, opt, mesh=mesh,
+                                        device=DEVICE, **kw)
+
+        def one(step=step, box=box):
+            box[0], m = step(box[0], batch)
+            torch.stack(list(m.values())).tolist()
+
+        one()                           # places the state; warms up
+        runs[name] = one
+    times = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            for _ in range(MESH_TIMED):
+                t0 = time.perf_counter()
+                runs[name]()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for name, one in runs.items():
+        prof = profile_batch(one, MESH_BATCH, 1, top=3)
+        out[name] = {"ms": statistics.median(times[name]),
+                     "ms_least": min(times[name]),
+                     "ms_most": max(times[name]),
+                     "device_ms": prof["device_ms"],
+                     "launches": prof["launches"]}
+    return out
+
+
+def mesh_scripts(donor) -> dict:
+    """examples.train --mesh 1 --fsdp and examples.distill --mesh 1 with
+    --device cuda for 2 steps each: the scripts' mesh path over a (1, 1)
+    mesh (one card; a mesh of 2 would rightly raise)."""
+    root = MESH_DIR / "scripts"
+    (root / "data" / "images").mkdir(parents=True)
+    (root / "data" / "labels").mkdir(parents=True)
+    rng = np.random.default_rng(13)
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3), np.uint8)).save(
+            root / "data" / "images" / f"f{i}.png")
+        (root / "data" / "labels" / f"f{i}.txt").write_text(
+            f"{i % 3} 0.5 0.5 0.3 0.4\n1 0.3 0.6 0.2 0.2\n")
+    det3 = detection_params(torch.Generator().manual_seed(2), dataclasses.
+                            replace(MODEL, task="detect", num_classes=3),
+                            label=1, device=DEVICE)
+    save_npz(str(root / "det3.npz"), det3)
+    done = {}
+    t = time.perf_counter()
+    text = run_script(ex_train.main, [
+        "--data", str(root / "data"), "--classes", "3", "--epochs", "1",
+        "--batch", "2", "--size", "128", "--no-mosaic", "--mesh", "1",
+        "--fsdp", "--out", str(root / "train"), "--device", DEVICE],
+        "examples.train --mesh 1 --fsdp")
+    check("done: 1 epochs" in text and (root / "train" / "state.pt").exists(),
+          f"examples.train --mesh 1 --fsdp: {text[-800:]}")
+    done["train --mesh 1 --fsdp"] = time.perf_counter() - t
+    t = time.perf_counter()
+    text = run_script(ex_distill.main, [
+        "--teacher", str(root / "det3.npz"), "--teacher-task", "detect",
+        "--images", str(root / "data" / "images"), "--size", "64",
+        "--steps", "2", "--batch", "2", "--mesh", "1",
+        "--out", str(root / "distill"), "--device", DEVICE],
+        "examples.distill --mesh 1")
+    summary = json.loads(text.strip().splitlines()[-1])
+    check(summary["steps"] == 2 and np.isfinite(summary["final_loss"]),
+          f"examples.distill --mesh 1: {summary}")
+    done["distill --mesh 1"] = time.perf_counter() - t
+    return done
+
+
+def phase_mesh_train(smi: str) -> dict:
+    """Phase 13: the train step over DP, TP and FSDP meshes of the one card
+    against the unsharded step, Trainer.fit over DP with validation
+    through K1, save and resume, the DP distill step, obb over DP with
+    validation through K3, the step across processes at world size 1 over
+    nccl, and the scripts' --mesh."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    seconds, numbers, launches = {}, {}, {}
+    exact = dataclasses.replace(MODEL, dtype="float32",
+                                matmul_precision="highest")
+    host = yolo11.init_params(torch.Generator().manual_seed(13), exact)
+    ds = data_lib.SyntheticShapesDataset(n=MESH_FIT_N, hw=FRAME_HW,
+                                         n_classes=3)
+    hb = next(data_lib.Loader(ds, exact, MESH_BATCH, max_gt=16,
+                              device="cpu")._host_batches(0))
+    # unequal weights across the shards, one row of padding
+    hb["sample_weight"] = np.asarray([1.0, 0.5, 2.0, 1.0, 0.25, 1.5, 1.0,
+                                      0.0], np.float32)
+    opt = train_ts.make_optimizer(lr=1e-5, warmup_steps=0, total_steps=10)
+    ref_state, ref = run_steps(exact, opt, host, [hb])
+    for name, mesh, kw in (("DP (2,1)", mesh_of(2), {}),
+                           ("TP (1,2)", mesh_of(1, 2),
+                            {"tp_min_channels": 256})):
+        st, rows = run_steps(exact, opt, host, [hb], mesh, **kw)
+        if name.startswith("TP"):
+            check(any(type(m).__name__ == "_TrainSlicedConv"
+                      for m in st.placement.rows[0].modules()),
+                  "TP (1,2): no convolution runs as slices")
+        numbers[name] = {"loss": rows[0]["loss"], "loss_unsharded":
+                         ref[0]["loss"],
+                         "worst_rel": same_steps(rows, ref, MESH_LOSS_RTOL,
+                                                 name),
+                         "worst_param_abs": same_params(st, ref_state, name)}
+    seconds["DP and TP against unsharded"] = time.perf_counter() - t0
+
+    # FSDP (2,1), default fsdp_min_size: 3 steps against DP
+    mesh = mesh_of(2)
+    rules = train_ts.train_state_shardings(exact, opt, mesh)
+    loader = data_lib.Loader(ds, exact, MESH_BATCH, max_gt=16, device="cpu")
+    batches = [hb] + list(loader._host_batches(1))[:2]
+    fstate = train_ts.shard_train_state(
+        train_ts.TrainState(copy.deepcopy(host).to(DEVICE),
+                            opt.init(host), 0), mesh, fsdp=True)
+    n_split = fsdp_slices(fstate, rules, "FSDP before the steps")
+    fstep = train_ts.make_train_step(exact, opt, mesh=mesh, use_remat=False,
+                                     fsdp=True)
+    frows = []
+    for b in batches:
+        fstate, m = fstep(fstate, b)
+        frows.append({k: float(v) for k, v in m.items()})
+    fsdp_slices(fstate, rules, "FSDP after the steps")
+    dstate, drows = run_steps(exact, opt, host, batches, mesh)
+    numbers["FSDP (2,1)"] = {
+        "split_leaves": n_split, "losses": [r["loss"] for r in frows],
+        "worst_rel": same_steps(frows, drows, FSDP_LOSS_RTOL, "FSDP"),
+        "worst_param_abs": same_params(fstate, dstate, "FSDP")}
+    seconds["FSDP against DP"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # ms, device ms and launches a bf16 remat step, unsharded and split
+    cuda_batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in hb.items()}
+    numbers["timed"] = timed_mesh_steps(
+        train_ts.make_optimizer(lr=1e-4, warmup_steps=0, total_steps=100),
+        yolo11.init_params(torch.Generator().manual_seed(13), MODEL),
+        cuda_batch, {"unsharded": (None, {}), "DP (2,1)": (mesh, {}),
+                     "TP (1,2)": (mesh_of(1, 2), {"tp_min_channels": 256}),
+                     "FSDP (2,1)": (mesh, {"fsdp": True})})
+    seconds["timed steps"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # Trainer.fit over DP (2,1): bf16, remat; validation through K1; save
+    # and resume
+    seg = detection_params(torch.Generator().manual_seed(0), MODEL,
+                           device=DEVICE)
+    val_ds = data_lib.SyntheticShapesDataset(n=MESH_BATCH, hw=FRAME_HW,
+                                             n_classes=3, seed=1)
+    tcfg = TrainConfig(epochs=1, batch=MESH_BATCH, max_gt=16, lr=1e-3,
+                       warmup_steps=1, log_every=0,
+                       ckpt_dir=str(MESH_DIR / "fit"),
+                       val_max_images=MESH_BATCH)
+    tr = Trainer(MODEL, tcfg, mesh=mesh, params=seg)
+    val_counts = counted_evaluate(tr)
+    with StepRecorder() as rec:
+        hist = tr.fit(ds, val_dataset=val_ds, verbose=False)
+    per_epoch = MESH_FIT_N // MESH_BATCH
+    finite_steps(rec.rows, per_epoch, "mesh fit")
+    check(tr.preflight_bytes is not None,
+          "mesh fit: the memory preflight did not run")
+    check(len(val_counts) == 1 and val_counts[0][0][K1["name"]] == 1
+          and sum(val_counts[0][0].values()) == 1
+          and val_counts[0][1] == {MESH_BATCH: 1},
+          f"mesh fit validation launches {val_counts}; expected K1 once at "
+          f"B={MESH_BATCH} and nothing else")
+    launches["mesh train validation"] = val_counts[0][0][K1["name"]]
+    check(tr.save() is not None, "mesh fit: save() wrote nothing")
+    tr2 = Trainer(MODEL, tcfg, mesh=mesh)
+    with StepRecorder() as rec2:
+        tr2.fit(ds, resume=True, epochs=1, verbose=False)
+    finite_steps(rec2.rows, per_epoch, "mesh resumed fit")
+    check(tr2.state.step == 2 * per_epoch and len(tr2.history) == 2,
+          f"mesh resume: step {tr2.state.step}, {len(tr2.history)} epochs")
+    numbers["fit"] = {"history": hist, "steps": rec.rows,
+                      "resumed_steps": rec2.rows,
+                      "preflight_gb": (tr.preflight_bytes or 0) / 1e9}
+    seconds["fit, validation, resume"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+
+    # the DP distill step (YOLO11s-seg -> YOLO11n-seg) against the
+    # unsharded one, float32 "highest"
+    s_exact = dataclasses.replace(S_MODEL, dtype="float32",
+                                  matmul_precision="highest")
+    teacher = detection_params(torch.Generator().manual_seed(1), s_exact,
+                               device=DEVICE).requires_grad_(False)
+    images = {"images": np.random.default_rng(14).uniform(
+        0, 1, (MESH_BATCH,) + MODEL.input_size + (3,)).astype(np.float32)}
+    runs = []
+    for m in (None, mesh):
+        model = copy.deepcopy(host).to(DEVICE)
+        state = train_ts.TrainState(model, opt.init(model), 0)
+        step = make_distill_step(exact, s_exact, opt, mesh=m,
+                                 use_remat=False, device=DEVICE)
+        state, out = step(state, teacher, images)
+        runs.append((state, [{k: float(v) for k, v in out.items()}]))
+    numbers["distill DP (2,1)"] = {
+        "loss": runs[1][1][0]["loss"],
+        "worst_rel": same_steps(runs[1][1], runs[0][1], MESH_LOSS_RTOL,
+                                "distill DP"),
+        "worst_param_abs": same_params(runs[1][0], runs[0][0],
+                                       "distill DP")}
+    seconds["distill"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # obb over DP (2,1): 2 steps against the unsharded step, then a fit
+    # whose validation goes through K3
+    obb_exact = dataclasses.replace(OBB_MODEL, dtype="float32",
+                                    matmul_precision="highest")
+    obb_ds = data_lib.SyntheticOBBDataset(n=8, hw=OBB_FRAME_HW)
+    obb_batches = list(data_lib.Loader(obb_ds, obb_exact, 4, max_gt=8,
+                                       device="cpu")._host_batches(0))
+    # seeded init weights: detection_params makes every anchor fire alike,
+    # and the rotated assigner's ties then turn rounding into another
+    # assignment
+    obb_init = yolo11.init_params(torch.Generator().manual_seed(15),
+                                  obb_exact)
+    ref_obb, ref_rows = run_steps(obb_exact, opt, obb_init, obb_batches)
+    got_obb, got_rows = run_steps(obb_exact, opt, obb_init, obb_batches,
+                                  mesh)
+    numbers["obb DP (2,1)"] = {
+        "losses": [r["loss"] for r in got_rows],
+        "worst_rel": same_steps(got_rows, ref_rows, MESH_LOSS_RTOL,
+                                "obb DP"),
+        "worst_param_abs": same_params(got_obb, ref_obb, "obb DP")}
+    tt = Trainer(OBB_MODEL, TrainConfig(epochs=1, batch=4, max_gt=8,
+                                        warmup_steps=1, log_every=0,
+                                        val_max_images=4),
+                 mesh=mesh, params=detection_params(
+                     torch.Generator().manual_seed(0), OBB_MODEL,
+                     device=DEVICE))
+    counts = counted_evaluate(tt)
+    with StepRecorder() as r:
+        tt.fit(obb_ds, val_dataset=data_lib.SyntheticOBBDataset(
+            n=4, hw=OBB_FRAME_HW, seed=1), verbose=False)
+    finite_steps(r.rows, 2, "obb mesh fit")
+    check(len(counts) == 1 and counts[0][0][K3["name"]] == 1
+          and sum(counts[0][0].values()) == 1,
+          f"obb mesh validation launches {counts}; expected K3 once")
+    launches["mesh train obb validation"] = counts[0][0][K3["name"]]
+    seconds["obb"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # the step across processes: world size 1 over nccl, the batch given
+    # as this process's rows
+    mh.initialize(f"localhost:{free_port()}", num_processes=1, process_id=0,
+                  device=DEVICE)
+    try:
+        gmesh = mh.global_mesh()
+        model = copy.deepcopy(host).to(DEVICE)
+        state = train_ts.shard_train_state(
+            train_ts.TrainState(model, opt.init(model), 0), gmesh)
+        step = train_ts.make_train_step(exact, opt, mesh=gmesh,
+                                        use_remat=False)
+        state, m = step(state, mh.shard_host_batch(
+            hb, gmesh, global_batch=MESH_BATCH))
+        got = [{k: float(v) for k, v in m.items()}]
+        check(all(abs(got[0][k] - ref[0][k]) < 1e-3
+                  for k in ("loss", "grad_norm")),
+              f"multihost step {got[0]} against the unsharded {ref[0]} "
+              "(1e-3, tests/mh_worker.py's bound)")
+        numbers["multihost"] = {
+            "world": torch.distributed.get_world_size(),
+            "backend": torch.distributed.get_backend(),
+            "worst_rel": same_steps(got, ref, MESH_LOSS_RTOL, "multihost")}
+    finally:
+        torch.distributed.destroy_process_group()
+    seconds["multihost"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    numbers["scripts"] = mesh_scripts(seg)
+    seconds["scripts"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["whole phase"] = time.perf_counter() - t0
+    timed = numbers["timed"]
+    print(f"mesh_train: card {smi}: bf16 remat step of YOLO11n-seg at "
+          f"b={MESH_BATCH}, {MODEL.input_size[0]}x{MODEL.input_size[1]}, "
+          "on meshes that repeat the one card (host work of the split, not "
+          "a speed-up): " + "; ".join(
+              f"{k} {v['ms']:.2f} ms ({v['ms_least']:.2f}-"
+              f"{v['ms_most']:.2f}), device {v['device_ms']:.2f} ms, "
+              f"{v['launches']:.0f} launches" for k, v in timed.items()),
+          flush=True)
+    print("mesh_train: " + json.dumps({
+        "card": smi, **numbers, "launches": launches,
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}}),
+        flush=True)
+    print(f"mesh_train: card {smi}: phase 13 took "
+          f"{seconds['whole phase']:.1f} s", flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -3828,6 +4237,13 @@ def main() -> int:
                 if counts[k["name"]]:
                     k["launches"] += counts[k["name"]]
                     k["launches_by_path"][path] = counts[k["name"]]
+        mt = phase_mesh_train(smi)["launches"]
+        seconds["mesh train"] = time.perf_counter() - t0 - sum(
+            seconds.values())
+        for k, path in ((kernels[0], "mesh train validation"),
+                        (kernels[2], "mesh train obb validation")):
+            k["launches"] += mt[path]
+            k["launches_by_path"][path] = mt[path]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

@@ -252,8 +252,9 @@ def test_mixed_mode_adds_the_ground_truth_loss(task):
 
 
 def test_distill_refusals(monkeypatch):
-    """The JAX package's validation errors; a mesh is ROADMAP item 10; a
-    card that is not there raises."""
+    """The JAX package's validation errors (a mesh step also refuses a
+    batch its data axis does not divide); a card that is not there
+    raises."""
     opt = TTS.make_optimizer()
     _, a = _cfgs()
     with pytest.raises(ValueError, match="class-count"):
@@ -268,8 +269,13 @@ def test_distill_refusals(monkeypatch):
     with pytest.raises(ValueError, match="det_weight"):
         TD.make_distill_step(a, a, opt, TD.DistillConfig(det_weight=-1.0),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TD.make_distill_step(a, a, opt, mesh=object(), device="cpu")
+    from xrseg_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+    model = TTS.init_train_state(torch.Generator(), a, opt, device="cpu")
+    with pytest.raises(ValueError, match="not divisible by data axis"):
+        TD.make_distill_step(a, a, opt, mesh=mesh)(
+            model, model.params, {"images": np.zeros((3,) + HW + (3,),
+                                                     np.float32)})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TD.make_distill_step(a, a, opt)

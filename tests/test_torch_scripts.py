@@ -15,7 +15,8 @@ steps, on npz and PNG files written to a temp directory.
 - tools.pseudo_label's JSON reads back through CocoDataset with the
   labels generate_pseudo_samples gives; tools.select_frames ranks every
   frame;
-- --mesh raises naming ROADMAP item 10, a .sentis file naming item 13.
+- --mesh 2 (and train.py's --fsdp) train over a mesh of the CPU repeated
+  twice, a .sentis file raises naming item 13.
 """
 import importlib.util
 import json
@@ -210,15 +211,34 @@ def test_select_frames(files, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("script", ["train", "train_toy", "distill"])
-def test_mesh_is_item_10(files, tmp_path, script):
-    argv = {"train": ["--synthetic", "--mesh", "2"],
-            "train_toy": ["--mesh", "2"],
-            "distill": ["--teacher", str(files / "det3.npz"), "--synthetic",
-                        "--mesh", "2"]}[script]
+def test_mesh_is_item_10(files, tmp_path, script, capsys):
+    """--mesh 2 (the training half of ROADMAP item 10) runs each script
+    over a (2, 1) mesh of the CPU; train.py with --fsdp too."""
+    argv = {"train": ["--data", str(files), "--epochs", "1", "--batch", "2",
+                      "--classes", "3", "--no-mosaic", "--mesh", "2",
+                      "--fsdp"],
+            "train_toy": ["--steps", "2", "--batch", "2", "--mesh", "2"],
+            "distill": ["--teacher", str(files / "det3.npz"),
+                        "--teacher-task", "detect", "--synthetic",
+                        "--steps", "2", "--batch", "2", "--mesh", "2"]
+            }[script]
     main = {"train": train.main, "train_toy": train_toy.main,
             "distill": distill.main}[script]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        main(argv + ["--out", str(tmp_path), *SIZE])
+    rc = main(argv + ["--out", str(tmp_path), *SIZE])
+    text = capsys.readouterr().out
+    if script == "train":
+        assert rc == 0 and "done: 1 epochs" in text
+        W.load_npz(str(tmp_path / "ema.npz"), ModelConfig(
+            num_classes=3, input_size=(64, 64)))
+    elif script == "train_toy":
+        assert "training over mesh {'data': 2, 'model': 1}" in text
+        assert "2 steps in" in text
+        W.load_npz(str(tmp_path / "toy_ckpt.npz"), ModelConfig(
+            num_classes=3, input_size=(64, 64)))
+    else:
+        assert rc == 0
+        assert np.isfinite(json.loads(text.strip().splitlines()[-1])[
+            "final_loss"])
 
 
 def test_sentis_is_item_13(files, tmp_path):

@@ -22,8 +22,8 @@ scale n, float32 with matmul_precision "highest".
 - the optimizer's schedule against optax's, grad_accum=2 against one
   batch, remat on against off, o2o and label smoothing against JAX, bf16
   gradients against JAX's bf16 gradients (tests/test_train.py's bound),
-  checkpoint resume, and the refusals (mesh, fsdp, a card that is not
-  there).
+  checkpoint resume, and the refusals (JAX's over a mesh, a card that is
+  not there; training over a mesh itself is tests/test_torch_train_mesh.py).
 """
 import dataclasses
 import functools
@@ -617,8 +617,11 @@ def test_train_state_checkpoint_resume(tmp_path):
 @pytest.mark.parametrize("call", ["mesh", "fsdp", "shard", "shardings",
                                   "cuda"])
 def test_train_step_refusals(call, monkeypatch):
-    """Multi-device training is ROADMAP item 10; a card that is not there
-    raises instead of falling back to the CPU."""
+    """The JAX package's refusals over a mesh: a batch the data axis does
+    not divide, fsdp without a mesh, FSDP across processes (a mesh whose
+    rows belong to two ranks), a microbatch the data axis does not
+    divide; and a card that is not there raises instead of falling back
+    to the CPU."""
     _, tcfg = _cfgs()
     opt = TTS.make_optimizer()
     if call == "cuda":
@@ -628,12 +631,26 @@ def test_train_step_refusals(call, monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TTS.init_train_state(torch.Generator(), tcfg, opt)
         return
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if call == "mesh":
-            TTS.make_train_step(tcfg, opt, mesh=object(), device="cpu")
-        elif call == "fsdp":
+    from xrseg_tpu_torch.parallel.mesh import Mesh, make_mesh
+    cpu = torch.device("cpu")
+    mesh = make_mesh((2, 1), devices=[cpu] * 2)
+    batch = _batch("segment", np.random.default_rng(0), B=3)
+    state = TTS.TrainState(*(lambda m: (m, opt.init(m), 0))(
+        params_from_jax(seeded_tree(_cfgs()[0]), tcfg)))
+    if call == "mesh":
+        with pytest.raises(ValueError, match="not divisible by data axis"):
+            TTS.make_train_step(tcfg, opt, mesh=mesh)(state, batch)
+    elif call == "fsdp":
+        with pytest.raises(ValueError, match="requires a mesh"):
             TTS.make_train_step(tcfg, opt, fsdp=True, device="cpu")
-        elif call == "shard":
-            TTS.shard_train_state(None, object())
-        else:
-            TTS.train_state_shardings(tcfg, opt, object())
+    elif call == "shard":
+        two = Mesh(mesh.devices, ranks=np.asarray([[0], [1]]))
+        with pytest.raises(ValueError, match="fsdp across processes"):
+            TTS.shard_train_state(state, two, fsdp=True)
+        with pytest.raises(ValueError, match="fsdp across processes"):
+            TTS.make_train_step(tcfg, opt, mesh=two, fsdp=True)
+    else:
+        batch = _batch("segment", np.random.default_rng(0), B=4)
+        with pytest.raises(ValueError, match="must stay divisible"):
+            TTS.make_train_step(tcfg, opt, mesh=mesh, grad_accum=4)(
+                state, batch)

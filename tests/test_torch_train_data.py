@@ -273,8 +273,10 @@ def test_loader_refusals(case, monkeypatch):
         with pytest.raises(ValueError):
             TD.Loader(ds, cfg, batch=2, scales=[(50, 64)], device="cpu")
     elif case == "mesh":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TD.Loader(ds, cfg, batch=2, mesh=object(), device="cpu")
+        from xrseg_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+        with pytest.raises(ValueError, match="not divisible by the mesh"):
+            TD.Loader(ds, cfg, batch=3, mesh=mesh, device="cpu")
     else:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -317,16 +317,26 @@ def test_preflight_that_cannot_measure_never_stops_a_run(capsys):
 
 @pytest.mark.parametrize("case", ["mesh", "fsdp", "cuda"])
 def test_trainer_refusals(case, monkeypatch):
+    """JAX's refusals: a batch the mesh's data axis does not divide, fsdp
+    without a mesh (at fit, when the step is built); a card that is not
+    there raises."""
     if case == "cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(CFG64)
         return
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if case == "mesh":
-            Trainer(CFG64, mesh=object(), device="cpu")
-        else:
-            Trainer(CFG64, TrainConfig(fsdp=True), device="cpu")
+    from xrseg_tpu_torch.parallel.mesh import make_mesh
+    ds = D.SyntheticShapesDataset(n=4, hw=(64, 64))
+    tcfg = TrainConfig(epochs=1, batch=3, max_gt=4, log_every=0,
+                       ema_decay=0.0, fsdp=case == "fsdp",
+                       aug=D.AugmentConfig(mosaic=0.0))
+    if case == "mesh":
+        mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+        with pytest.raises(ValueError, match="divisible"):
+            Trainer(CFG64, tcfg, mesh=mesh).fit(ds, verbose=False)
+    else:
+        with pytest.raises(ValueError, match="requires a mesh"):
+            Trainer(CFG64, tcfg, device="cpu").fit(ds, verbose=False)
 
 
 def test_train_config_fields_and_defaults_match_jax():

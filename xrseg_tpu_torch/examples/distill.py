@@ -14,8 +14,9 @@ so unlabelled frames work.
 The student lands at <out>/student.npz in the JAX package's npz layout
 (every CLI of either package reads it). An .npz teacher carries no
 config: --teacher-arch/--teacher-scale/--teacher-task name it, its class
-count is read from its head. --mesh is ROADMAP item 10 and raises;
-.sentis and orbax teachers raise (item 13).
+count is read from its head. --mesh N distills data-parallel over N
+devices (on --device cpu the CPU repeated N times); .sentis and orbax
+teachers raise (item 13).
 """
 from __future__ import annotations
 
@@ -63,8 +64,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--teacher-scale", default=None)
     ap.add_argument("--teacher-task", default=None)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="DP mesh size (0 = single device; more is "
-                         "ROADMAP item 10 and raises)")
+                    help="DP mesh size (0 = single device)")
     ap.add_argument("--out", default="/tmp/xrseg_distill")
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--device", default="cuda")
@@ -85,12 +85,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from xrseg_tpu_torch.io.bridge import params_from_jax
     from xrseg_tpu_torch.train import data as D
     from xrseg_tpu_torch.train.distill import DistillConfig, make_distill_step
-    from xrseg_tpu_torch.train.train_step import (ITEM_10, TrainState,
+    from xrseg_tpu_torch.train.train_step import (TrainState,
                                                   init_train_state,
                                                   make_optimizer)
 
-    if args.mesh:
-        raise NotImplementedError(ITEM_10)
     hw = (args.size, args.size)
     if args.teacher.endswith(".npz"):     # metadata-free npz teacher
         with np.load(args.teacher) as z:
@@ -129,7 +127,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dcfg = DistillConfig(temperature=args.temp, cls_weight=args.cls_weight,
                          box_weight=args.box_weight,
                          fg_power=args.fg_power, det_weight=args.det_weight)
-    step = make_distill_step(scfg, tcfg, opt, dcfg, device=device)
+    mesh = None
+    if args.mesh:
+        from xrseg_tpu_torch.parallel.mesh import device_mesh
+        mesh = device_mesh((args.mesh, 1), device)
+    step = make_distill_step(scfg, tcfg, opt, dcfg, mesh=mesh, device=device)
 
     # --- batch source ---
     rng = np.random.default_rng(0)

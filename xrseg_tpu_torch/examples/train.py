@@ -13,8 +13,9 @@ procedural shapes dataset instead (no data needed). --weights whose head
 does not fit --classes/--task are transfer-grafted
 (io/weights.transfer_params: backbone, neck and box branch kept, the class
 conv drawn anew); an .npz is read as a tree whatever head it holds.
---mesh and --fsdp are ROADMAP item 10 and raise; .sentis and orbax
-weights raise (item 13).
+--mesh N trains data-parallel over N devices (on --device cpu the CPU
+repeated N times), with --fsdp its params and optimizer moments sharded
+over them; .sentis and orbax weights raise (item 13).
 """
 from __future__ import annotations
 
@@ -56,11 +57,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="class count of the --weights artifact when it "
                          "differs from --classes (default: 80, COCO)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="data-parallel shards (0 = single device; more is "
-                         "ROADMAP item 10 and raises)")
+                    help="data-parallel over N devices (0 = single device)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard params + optimizer moments (ROADMAP item "
-                         "10; raises)")
+                    help="shard params + optimizer moments over the mesh "
+                         "data axis (ZeRO-3; requires --mesh)")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per optimizer step (batch must "
                          "divide evenly)")
@@ -97,11 +97,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from xrseg_tpu_torch.config import ModelConfig
     from xrseg_tpu_torch.train import data as D
-    from xrseg_tpu_torch.train.train_step import ITEM_10
     from xrseg_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    if args.mesh:
-        raise NotImplementedError(ITEM_10)
     cfg = ModelConfig(arch=args.arch, scale=args.scale, task=args.task,
                       input_size=(args.size, args.size),
                       num_classes=args.classes, dtype=args.dtype)
@@ -137,6 +134,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"reinitialized {len(rep['reinit'])} "
                   f"({', '.join(sorted({k.split('/')[0] for k in rep['reinit']}))})")
 
+    mesh = None
+    if args.mesh:
+        from xrseg_tpu_torch.parallel.mesh import device_mesh
+        mesh = device_mesh((args.mesh, 1), device)
+
     aug = D.AugmentConfig(mosaic=0.0 if args.no_mosaic else 1.0,
                           mixup=args.mixup, copy_paste=args.copy_paste,
                           letterbox=(args.resize_mode == "letterbox"))
@@ -146,7 +148,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        scales=scales, fsdp=args.fsdp,
                        grad_accum=args.grad_accum, tb_dir=args.tb,
                        close_mosaic=args.close_mosaic)
-    tr = Trainer(cfg, tcfg, params=params, device=device)
+    tr = Trainer(cfg, tcfg, mesh=mesh, params=params, device=device)
     tr.fit(train_ds, val_dataset=val_ds, resume=args.resume)
     print(f"done: {len(tr.history)} epochs, checkpoints in {args.out}")
     return 0

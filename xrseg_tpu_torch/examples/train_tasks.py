@@ -13,8 +13,9 @@ per-epoch validation with --eval, checkpoints under --ckpt, --resume)
 instead of the raw step loop. --weights grafts a donor checkpoint
 (backbone, neck and box branches kept, the task head fresh:
 io/weights.transfer_params). Prints the loss per step (and accuracy for
-classify); --out saves the final weights as npz. --fsdp is ROADMAP item
-10 and raises.
+classify); --out saves the final weights as npz. --fsdp (with --epochs)
+shards the Trainer's params and optimizer moments over every visible
+card (on --device cpu, a mesh of the one CPU).
 """
 from __future__ import annotations
 
@@ -104,7 +105,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--cpu", action="store_true", help="--device cpu")
     ap.add_argument("--fsdp", action="store_true",
-                    help="ZeRO-3 state sharding (ROADMAP item 10; raises)")
+                    help="ZeRO-3 state sharding over the devices (with "
+                         "--epochs)")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per optimizer step")
     ap.add_argument("--tb", default=None, metavar="DIR",
@@ -126,8 +128,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from xrseg_tpu_torch.train import data as D
     from xrseg_tpu_torch.train import train_step as ts
 
-    if args.fsdp:
-        raise NotImplementedError(ts.ITEM_10)
     hw = (args.size, args.size)
     if args.task == "pose":
         kpt = tuple(args.kpt_shape or ((17, 3) if args.data else (5, 3)))
@@ -181,10 +181,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             epochs=args.epochs, batch=args.batch, lr=args.lr,
             warmup_steps=2, use_remat=False, ckpt_dir=args.ckpt,
             val_max_images=args.eval or 8, kpt_flip_idx=flip_idx,
-            grad_accum=args.grad_accum, tb_dir=args.tb,
+            fsdp=args.fsdp, grad_accum=args.grad_accum, tb_dir=args.tb,
             label_smoothing=args.label_smoothing,
             aug=D.AugmentConfig(mosaic=0.0, scale=0.0, translate=0.0))
-        tr = Trainer(cfg, tcfg, params=_donor_params(args, cfg),
+        mesh = None
+        if args.fsdp:
+            from xrseg_tpu_torch.parallel import mesh as mesh_lib
+            mesh = (mesh_lib.make_mesh(devices=[torch.device("cpu")])
+                    if torch.device(device).type == "cpu"
+                    else mesh_lib.make_mesh())
+        tr = Trainer(cfg, tcfg, mesh=mesh, params=_donor_params(args, cfg),
                      device=device)
         t0 = time.perf_counter()
         tr.fit(ds, val_dataset=ds if args.eval else None,

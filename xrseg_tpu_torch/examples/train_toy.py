@@ -5,9 +5,10 @@ save the weights as npz (the JAX package's layout).
   python -m xrseg_tpu_torch.examples.train_toy --steps 60 \
       --out /tmp/xrseg_train [--size 160] [--device cuda]
 
-Exits 0 when the last logged loss is below the first. --mesh above 1 is
-ROADMAP item 10 and raises. --size (default 160, the JAX script's fixed
-size) is the port's addition.
+Exits 0 when the last logged loss is below the first. --mesh N above 1
+trains data-parallel over N devices (on --device cpu the CPU repeated N
+times). --size (default 160, the JAX script's fixed size) is the port's
+addition.
 """
 from __future__ import annotations
 
@@ -54,8 +55,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--size", type=int, default=160)
     ap.add_argument("--out", default="/tmp/xrseg_train")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="data-parallel shards (0 = single device; more is "
-                         "ROADMAP item 10 and raises)")
+                    help="data-parallel shards (0 = single device)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -63,10 +63,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from xrseg_tpu_torch.config import ModelConfig
     from xrseg_tpu_torch.io.weights import save_npz
+    from xrseg_tpu_torch.parallel import mesh as mesh_lib
     from xrseg_tpu_torch.train import train_step as ts
 
-    if args.mesh > 1:
-        raise NotImplementedError(ts.ITEM_10)
     os.makedirs(args.out, exist_ok=True)
     cfg = ModelConfig(scale="n", input_size=(args.size, args.size),
                       num_classes=3, dtype="float32")
@@ -74,15 +73,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                             total_steps=args.steps)
     state = ts.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
                                 device=args.device)
-    step_fn = ts.make_train_step(cfg, opt, use_remat=False,
+    mesh = None
+    if args.mesh > 1:
+        mesh = mesh_lib.device_mesh((args.mesh, 1), args.device)
+        state = ts.shard_train_state(state, mesh)
+        print(f"training over mesh {dict(mesh.shape)}")
+    step_fn = ts.make_train_step(cfg, opt, mesh=mesh, use_remat=False,
                                  device=args.device)
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     first = last = None
     for i in range(args.steps):
-        state, metrics = step_fn(state, make_batch(rng, args.batch,
-                                                   args.size))
+        batch = make_batch(rng, args.batch, args.size)
+        if mesh is not None:
+            batch = mesh_lib.shard_batch(batch, mesh)
+        state, metrics = step_fn(state, batch)
         if i % 10 == 0 or i == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             print(f"step {i:4d}  loss={m['loss']:8.3f}  box={m['box']:.3f} "
@@ -97,7 +103,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"loss {first:.2f} -> {last:.2f}")
 
     ckpt = os.path.join(args.out, "toy_ckpt.npz")
-    save_npz(ckpt, state.params)
+    save_npz(ckpt, ts.gathered_params(state))
     print(f"checkpoint -> {ckpt}")
     return 0 if last < first else 1
 

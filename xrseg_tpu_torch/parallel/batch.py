@@ -17,7 +17,9 @@ Here the host drives every device itself:
 - TP: a conv whose output channels reach tp_min_channels becomes a
   `_SlicedConv`, each device computing its slice (bias sliced with the
   weight; a depthwise conv takes the matching slice of its input
-  channels), the slices concatenated on the row's first device;
+  channels), the slices concatenated on the row's first device (the
+  train step's rows use `_TrainSlicedConv`, which slices the trained
+  parameter itself in each forward);
 - the outputs are gathered in batch order onto the mesh's first device.
   JAX returns a global array sharded on `data`; the port returns the
   gathered dict (one readback, as build_pipeline's).
@@ -123,21 +125,90 @@ class _SlicedProto(nn.Module):
         return self.cv3(self.cv2(torch.cat(outs, 1)))
 
 
+class _TrainSlicedConv(nn.Module):
+    """The training form of _SlicedConv: each slice is taken inside the
+    forward from the conv's own full weight and bias (narrow, then .to
+    the slice's device), so autograd routes every slice's gradient back
+    to the named parameter. The conv is held, not registered: the wrapper
+    owns no parameter."""
+
+    def __init__(self, conv: L.Conv, devices: List[torch.device]):
+        super().__init__()
+        c2 = conv.weight.shape[0]
+        self.depthwise = conv.groups > 1
+        if self.depthwise and conv.groups != c2:
+            raise ValueError(f"grouped conv ({conv.groups} groups of {c2}) "
+                             "has no channel-slice form")
+        self.__dict__["conv"] = conv
+        self.bounds = _slices(c2, len(devices))
+        self.devices = devices[:len(self.bounds)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, home, outs = self.conv, x.device, []
+        for (lo, hi), dev in zip(self.bounds, self.devices):
+            xi = x[:, lo:hi] if self.depthwise else x
+            w = conv.weight.narrow(0, lo, hi - lo).to(dev)
+            b = conv.bias.narrow(0, lo, hi - lo).to(dev)
+            with on_device(dev):
+                y = L.conv_apply(conv, xi.to(dev), w, b,
+                                 hi - lo if self.depthwise else 1)
+            outs.append(y.to(home))
+        return torch.cat(outs, 1)
+
+
+class _TrainSlicedProto(nn.Module):
+    """The training form of _SlicedProto: the up-conv's slices taken in
+    the forward from the held Proto's up_w and up_b."""
+
+    def __init__(self, proto: L.Proto, devices: List[torch.device]):
+        super().__init__()
+        self.__dict__["proto"] = proto
+        self.bounds = _slices(proto.up_w.shape[1], len(devices))
+        self.devices = devices[:len(self.bounds)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.proto
+        y = p.cv1(x)
+        outs = []
+        for (lo, hi), dev in zip(self.bounds, self.devices):
+            w = p.up_w.narrow(1, lo, hi - lo).to(dev)
+            b = p.up_b.narrow(0, lo, hi - lo).to(dev)
+            with on_device(dev):
+                up = L.conv_transpose_apply(p, y.to(dev), w, b)
+            outs.append(up.to(y.device))
+        return p.cv3(p.cv2(torch.cat(outs, 1)))
+
+
 def place_row(model: yolo11.YOLO11, devices: List[torch.device],
-              shardings: Dict[str, mesh_lib.Sharding]) -> yolo11.YOLO11:
+              shardings: Dict[str, mesh_lib.Sharding],
+              train: bool = False) -> yolo11.YOLO11:
     """A copy of `model` on devices[0] with every conv (and Proto up-conv)
     that `shardings` splits over "model" replaced by its sliced form over
-    `devices`. The caller's module is untouched."""
-    row = copy.deepcopy(model).to(devices[0]).eval()
-    if len(devices) == 1:
-        return row
+    `devices`. The caller's module is untouched.
+
+    train=True (train/train_step.shard_train_state): `model` already lies
+    on devices[0] and the row is a view of it: the same parameters and
+    buffers (a copy of the modules around them), with the training
+    slices; with one device, `model` itself."""
+    if train:
+        if len(devices) == 1:
+            return model
+        shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
+        row = copy.deepcopy(model, shared)
+        wraps = ((L.Conv, "weight", _TrainSlicedConv),
+                 (L.Proto, "up_w", _TrainSlicedProto))
+    else:
+        row = copy.deepcopy(model).to(devices[0]).eval()
+        if len(devices) == 1:
+            return row
+        wraps = ((L.Conv, "weight", _SlicedConv),
+                 (L.Proto, "up_w", _SlicedProto))
 
     def split(name: str, leaf: str) -> bool:
         return shardings[f"{name}.{leaf}"].axis == "model"
 
     named = list(row.named_modules())
-    for cls, leaf, wrap in ((L.Conv, "weight", _SlicedConv),
-                            (L.Proto, "up_w", _SlicedProto)):
+    for cls, leaf, wrap in wraps:
         for name, m in named:
             if isinstance(m, cls) and split(name, leaf):
                 parent, _, attr = name.rpartition(".")

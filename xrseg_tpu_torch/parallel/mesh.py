@@ -101,6 +101,24 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     return Mesh(arr.reshape(shape), tuple(axis_names))
 
 
+def device_mesh(shape: Tuple[int, int], device="cuda") -> Mesh:
+    """A (data, model) mesh for an entry point's `device` (the server's
+    --mesh, the scripts' --mesh N as (N, 1)): on "cpu" the CPU repeated
+    data * model times (the port's stand-in for JAX's virtual CPU
+    devices), on CUDA the first data * model visible cards, and an error
+    when there are fewer (a card is never repeated here)."""
+    from xrseg_tpu_torch.device import resolve_device
+    d, m = shape
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return make_mesh((d, m), devices=[dev] * (d * m))
+    have = torch.cuda.device_count()
+    if d * m > have:
+        raise ValueError(f"mesh {d}x{m} needs {d * m} devices, have {have}")
+    return make_mesh((d, m), devices=[torch.device("cuda", i)
+                                      for i in range(d * m)])
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where a tensor lives on a mesh: split on tensor dimension `dim`
@@ -163,8 +181,8 @@ def fsdp_param_shardings(tree, mesh: Mesh, axis: str = "data",
     Ties go to the JAX layout's LAST dim (its output channels): the port
     ranks each dim by its size, then by the JAX dim the bridge maps it to,
     so an OIHW weight ties to its dim 0, not to its last (kW). The rule
-    only says where a leaf lives; placing a train state by it belongs to
-    training over a mesh (ROADMAP item 10)."""
+    only says where a leaf lives; train/train_step.shard_train_state
+    places a train state by it."""
     n = mesh.shape[axis]
     out = {}
     for name, t in _named_tensors(tree).items():
@@ -189,13 +207,30 @@ def shard_params(params, mesh: Mesh, tp_min_channels: int = 256) -> list:
 
 
 def shard_batch(batch, mesh: Mesh) -> list:
-    """Split a host batch (leading batch axis) into one shard per data row,
-    each on its row's first device. Every upload is queued before any
-    shard computes (a pageable upload waits for its device's queue)."""
+    """Split a host batch (leading batch axis; an array or a dict of them,
+    as the train step takes) into one shard per data row, each on its
+    row's first device; across processes a row of another process is
+    None. Every upload is queued before any shard computes (a pageable
+    upload waits for its device's queue)."""
     d = mesh.shape["data"]
-    if len(batch) % d:
-        raise ValueError(f"batch {len(batch)} not divisible by data axis {d}")
-    rows = len(batch) // d
+    n = len(next(iter(batch.values())) if isinstance(batch, dict)
+            else batch)
+    if n % d:
+        raise ValueError(f"batch {n} not divisible by data axis {d}")
+    rows = n // d
     from xrseg_tpu_torch.device import to_device
-    return [to_device(batch[i * rows:(i + 1) * rows], mesh.devices[i, 0])
-            for i in range(d)]
+    rank = process_rank()
+
+    def shard(x, i: int):
+        return to_device(x[i * rows:(i + 1) * rows], mesh.first_device
+                         if mesh.multiprocess else mesh.devices[i, 0])
+
+    out = []
+    for i in range(d):
+        if mesh.multiprocess and rank not in mesh.ranks[i]:
+            out.append(None)
+        elif isinstance(batch, dict):
+            out.append({k: shard(v, i) for k, v in batch.items()})
+        else:
+            out.append(shard(batch, i))
+    return out

@@ -18,7 +18,9 @@ holds the whole batch:
 JAX's `jax.distributed` becomes `torch.distributed` over tcp:// with the
 gloo backend on the CPU and nccl on CUDA; XLA's cross-host collectives
 become a broadcast (replicate_params) and an all-gather
-(gather_to_hosts). NCCL refuses two ranks on one GPU, so a one-card
+(gather_to_hosts). The train step over such a mesh
+(train/train_step.make_train_step(mesh=global_mesh())) all-reduces the
+gradients and the loss's denominator the same way. NCCL refuses two ranks on one GPU, so a one-card
 machine runs world size 1 over nccl; two processes run over gloo on the
 CPU (tests/test_torch_multihost.py).
 """
@@ -88,11 +90,14 @@ def _data_row(mesh: Mesh) -> int:
     return int(np.argwhere(mesh.ranks == dist.get_rank())[0][0])
 
 
-def shard_host_batch(local_batch, mesh: Mesh, *, global_batch: int
-                     ) -> ProcessShard:
+def shard_host_batch(local_batch, mesh: Mesh, *, global_batch: int):
     """This process's rows of the global batch, on its device. Its leading
     dim must be global_batch / data (global_batch / world size when the
-    model axis is 1): the rows of its data-axis position."""
+    model axis is 1): the rows of its data-axis position. A dict of arrays
+    (a train batch) gives a dict of ProcessShard."""
+    if isinstance(local_batch, dict):
+        return {k: shard_host_batch(v, mesh, global_batch=global_batch)
+                for k, v in local_batch.items()}
     d = mesh.shape["data"]
     if global_batch % d:
         raise ValueError(f"global batch {global_batch} not divisible by "

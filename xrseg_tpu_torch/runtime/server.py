@@ -279,15 +279,7 @@ class InferenceServer:
                 "buckets are powers of two and must stay divisible)")
         if m < 1:
             raise ValueError(f"mesh model axis {m} must be at least 1")
-        if self.device.type == "cpu":
-            devices = [self.device] * (d * m)
-        else:
-            have = torch.cuda.device_count()
-            if d * m > have:
-                raise ValueError(f"mesh {d}x{m} needs {d * m} devices, "
-                                 f"have {have}")
-            devices = [torch.device("cuda", i) for i in range(d * m)]
-        return mesh_lib.make_mesh((d, m), devices=devices)
+        return mesh_lib.device_mesh((d, m), self.device)
 
     def _decode(self, data: bytes) -> np.ndarray:
         """Image bytes -> [H,W,3] uint8 at the server's frame geometry."""

@@ -844,13 +844,20 @@ class Loader:
         cfg.task selects the sample contract: detect/segment use the
         full augmentation pipeline + `collate`; pose/obb/classify use
         augment_task_sample + their task collate. `kpt_flip_idx`: pose
-        keypoint left/right permutation applied on hflip. A `mesh`
-        (sharded batches) is ROADMAP item 10 and raises."""
+        keypoint left/right permutation applied on hflip.
+
+        `mesh` (parallel/mesh.Mesh): each batch comes split over the data
+        axis, a list of one dict per data row on the row's first device
+        (the train step's sharded form; across processes, None for
+        another process's rows); `device` is then the mesh's."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh (sharded batches) is not ported yet (ROADMAP item "
-                "10); load onto one device")
-        self.device = resolve_device(device)
+            if batch % mesh.shape["data"]:
+                raise ValueError(f"batch {batch} not divisible by the "
+                                 f"mesh's data axis {mesh.shape['data']}")
+            self.device = mesh.first_device
+        else:
+            self.device = resolve_device(device)
         self.ds = dataset
         self.cfg = cfg
         self.batch = batch
@@ -934,14 +941,25 @@ class Loader:
         """A host batch as torch tensors, in pinned memory for a card."""
         out = {k: torch.from_numpy(np.ascontiguousarray(v))
                for k, v in hb.items()}
-        if self.device.type == "cuda":
+        devices = ([self.device] if self.mesh is None
+                   else list(self.mesh.devices.flat))
+        if any(d.type == "cuda" for d in devices):
             out = {k: v.pin_memory() for k, v in out.items()}
         return out
 
-    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
-        """Batches of one epoch as tensors on the Loader's device, made
-        and staged (pinned, on a card) off-thread, copied with
-        non_blocking.
+    def _upload(self, hb: Dict[str, torch.Tensor]):
+        """A staged batch on the Loader's device, or split over the mesh's
+        data axis (parallel/mesh.shard_batch)."""
+        if self.mesh is None:
+            return {k: v.to(self.device, non_blocking=True)
+                    for k, v in hb.items()}
+        from xrseg_tpu_torch.parallel.mesh import shard_batch
+        return shard_batch(hb, self.mesh)
+
+    def epoch(self, epoch: int = 0) -> Iterator:
+        """Batches of one epoch as tensors on the Loader's device (over a
+        mesh, split over its data axis), made and staged (pinned, on a
+        card) off-thread, copied with non_blocking.
 
         Abandoning the generator early (break / next(iter(...))) is safe:
         the finally block signals the producer and drains the queue so the
@@ -984,8 +1002,7 @@ class Loader:
                     if failure:
                         raise failure[0]
                     break
-                yield {k: v.to(self.device, non_blocking=True)
-                       for k, v in hb.items()}
+                yield self._upload(hb)
         finally:
             stop.set()
             while not q.empty():

@@ -25,6 +25,14 @@ whose gradient splits at ties as JAX's does.
 Targets are fixed-size padded: boxes_xywh [B,G,4] (model pixels), labels
 [B,G] (-1 pad), masks [B,G,mh,mw] (segment), kpts [B,G,K,3] (pose),
 boxes_xywhr [B,G,5] (obb), sample_weight [B] (padded batch rows weigh 0).
+
+Both losses reduce the batch by a sum over its rows divided by a
+denominator that depends on the batch alone: the sample weights' sum (the
+row count without them), or the valid labels for classify. A data shard
+of a larger batch passes the WHOLE batch's denominator as `batch_denom`
+(batch_denominator); the loss then returns its rows' share, and the
+shards' shares add up to the unsharded loss. Without it the shard's
+own rows normalise, as in the single-device step.
 """
 from __future__ import annotations
 
@@ -225,18 +233,34 @@ def _kpt_sigmas(k: int) -> np.ndarray:
     return np.full((k,), 1.0 / k, np.float32)
 
 
+def batch_denominator(batch: Dict[str, torch.Tensor], task: str
+                      ) -> torch.Tensor:
+    """The un-clamped denominator of `batch`'s loss (module docstring), a
+    0-dim float32 tensor on the batch's device: shards add theirs up, and
+    the sum is clamped at 1 as the unsharded loss clamps it."""
+    if task == "classify":
+        return (batch["labels"] >= 0).sum().float()
+    sw = batch.get("sample_weight")
+    if sw is not None:
+        return sw.float().sum()
+    images = batch["images"]
+    return torch.tensor(float(len(images)), device=images.device)
+
+
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
-                        label_smoothing: float = 0.0
+                        label_smoothing: float = 0.0,
+                        batch_denom: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Classify task: softmax cross-entropy + top-1 accuracy. logits
     [B,nc], labels [B] int; labels < 0 mark padding rows (Loader
     drop_last=False), excluded from both. label_smoothing eps mixes the
-    one-hot target with uniform 1/nc."""
+    one-hot target with uniform 1/nc. batch_denom: the whole batch's valid
+    labels, clamped (module docstring)."""
     logp = torch.log_softmax(logits, -1)
     nc = logits.shape[-1]
     labels = labels.long()
     valid = (labels >= 0).to(logp.dtype)
-    n = valid.sum().clamp_min(1.0)
+    n = valid.sum().clamp_min(1.0) if batch_denom is None else batch_denom
     # a -1 label one-hots to a zero row, as jax.nn.one_hot does
     tgt = (labels[:, None] == torch.arange(nc, device=labels.device)
            ).to(logp.dtype)
@@ -260,14 +284,17 @@ def detection_loss(out: Dict[str, torch.Tensor],
                    kpt_w: float = 12.0, kobj_w: float = 1.0,
                    assigner: str = "tal",
                    input_hw: Optional[Tuple[int, int]] = None,
-                   assigner_topk: int = 10
+                   assigner_topk: int = 10,
+                   batch_denom: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Batched loss of the training forward (YOLO11.forward_train):
     box_logits [B,A,4*reg_max], cls_logits [B,A,nc], boxes_xywh [B,A,4],
     and mask_coefs/protos (segment), kpts (pose), boxes_xywhr (obb).
     targets: module docstring. input_hw: the batch's (H, W) (multi-scale);
     defaults to cfg.input_size. Returns (loss, aux), each the mean over the
-    batch, or the sample_weight-weighted mean when it is given."""
+    batch, or the sample_weight-weighted mean when it is given. batch_denom:
+    the whole batch's clamped denominator when these rows are a shard of it
+    (module docstring); the rows' weighted sums are divided by it."""
     hw = input_hw or cfg.input_size
     cls_logits = out["cls_logits"]
     dev = cls_logits.device
@@ -385,6 +412,14 @@ def detection_loss(out: Dict[str, torch.Tensor],
         aux["seg"] = l_seg
 
     sw = targets.get("sample_weight")
+    if batch_denom is not None:
+        # a shard's share of the whole batch's (weighted) mean
+        n = batch_denom
+        if sw is not None:
+            sw = sw.to(loss.dtype)
+            return (loss * sw).sum() / n, {k: (v * sw).sum() / n
+                                           for k, v in aux.items()}
+        return loss.sum() / n, {k: v.sum() / n for k, v in aux.items()}
     if sw is not None:
         # padded batch rows (Loader drop_last=False) weigh 0: removed from
         # the loss exactly

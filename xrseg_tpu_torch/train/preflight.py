@@ -57,8 +57,19 @@ def estimate_step_bytes(step_fn, state, batch_shapes) -> int:
     one microbatch at a time as the step runs them, measured on the card,
     plus the optimizer's moments if not yet allocated and its update's
     temporaries. Raises without a card: there is nothing to measure on the
-    CPU."""
-    model = state.params
+    CPU.
+
+    A step over a mesh is measured by its `shard_step` on the first
+    device, with `batch_shapes` one data shard's batch, and with the
+    state's FSDP leaves gathered, as they are during a step."""
+    from xrseg_tpu_torch.train.train_step import full_weights
+
+    step_fn = getattr(step_fn, "shard_step", step_fn)
+    with full_weights(state) as model:
+        return _measure(step_fn, state, model, batch_shapes)
+
+
+def _measure(step_fn, state, model, batch_shapes) -> int:
     params = list(model.parameters())
     dev = params[0].device
     if dev.type != "cuda":

@@ -19,7 +19,13 @@ xrseg_tpu/train/trainer.py), single device.
     JAX's load_npz read them as they are), history.json and best.json.
     (JAX writes orbax directories; orbax is on neither machine the port
     runs on.)
-  - a mesh and fsdp are ROADMAP item 10 and raise.
+  - over a mesh (Trainer(mesh=)): the Loader yields batches split over the
+    data axis, the state is placed after init and resume
+    (train_step.shard_train_state: DP, TP from tp_min_channels, or FSDP
+    from TrainConfig.fsdp), the preflight measures one shard's
+    microbatch, and the EMA, the checkpoints, ema.npz, best.npz and
+    validation read the gathered weights (train_step.gathered_params);
+    validation runs on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -49,8 +55,11 @@ class TrainConfig:
     max_gt: int = 16
     seed: int = 0
     aug: data_lib.AugmentConfig = data_lib.AugmentConfig()
-    tp_min_channels: int = 100000      # TP off (multi-device: item 10)
-    fsdp: bool = False                 # multi-device: item 10
+    tp_min_channels: int = 100000      # TP off by default (DP only)
+    # FSDP/ZeRO-3: params and optimizer moments sharded over the mesh's
+    # data axis (train_step.make_train_step). Requires a mesh; one
+    # process only.
+    fsdp: bool = False
     # split each batch into A sequential microbatches (grads averaged
     # before the one optimizer update): a large effective batch without
     # the full batch's activation memory
@@ -95,15 +104,15 @@ class TrainConfig:
 
 class Trainer:
     """fit()/evaluate() around the train step, on `device` ("cuda" unless
-    the caller asks for the CPU; without a card it raises). `params`: an
-    optional YOLO11 to start from (copied; the caller's module is not
-    trained in place)."""
+    the caller asks for the CPU; without a card it raises), or over `mesh`
+    (its devices stand for `device`). `params`: an optional YOLO11 to start
+    from (copied; the caller's module is not trained in place)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),
                  mesh=None, params=None, device="cuda"):
-        if mesh is not None or tcfg.fsdp:
-            raise NotImplementedError(ts.ITEM_10)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.first_device if mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg
         self.tcfg = tcfg
         self.optimizer: Optional[ts.Optimizer] = None   # built in fit
@@ -150,6 +159,9 @@ class Trainer:
         if resume and path and os.path.exists(path):
             state = ts.load_train_state(path, state)
             self._load_history()
+        if self.mesh is not None:
+            state = ts.shard_train_state(state, self.mesh,
+                                         t.tp_min_channels, fsdp=t.fsdp)
         self.state = state
         if t.ema_decay > 0:
             ema_path = (os.path.join(t.ckpt_dir, "ema.npz")
@@ -157,7 +169,7 @@ class Trainer:
             if resume and ema_path and os.path.exists(ema_path):
                 ema = load_npz(ema_path, self.cfg)
             else:
-                ema = copy.deepcopy(state.params)
+                ema = copy.deepcopy(ts.gathered_params(state))
             self.ema_params = ema.to(self.device).requires_grad_(False)
 
     @torch.no_grad()
@@ -171,7 +183,7 @@ class Trainer:
         ema = list(self.ema_params.parameters())
         torch._foreach_mul_(ema, float(dd))
         torch._foreach_add_(ema, torch._foreach_mul(
-            list(self.state.params.parameters()), float(f32(1) - dd)))
+            ts.full_parameters(self.state), float(f32(1) - dd)))
 
     def save(self) -> Optional[str]:
         from xrseg_tpu_torch.io.weights import save_npz
@@ -191,9 +203,11 @@ class Trainer:
 
     @property
     def params(self):
+        """The trained model with its full weights (under FSDP a gathered
+        copy)."""
         if self.state is None:
             raise RuntimeError("fit() or _init_state() first")
-        return self.state.params
+        return ts.gathered_params(self.state)
 
     @property
     def eval_params(self):
@@ -214,12 +228,15 @@ class Trainer:
             if not budget:
                 return t.grad_accum
             # estimate at the LARGEST configured shape (multi-scale: the
-            # biggest bucket dominates the peak)
+            # biggest bucket dominates the peak); over a mesh, one data
+            # shard's batch on its device
+            shards = self.mesh.shape["data"] if self.mesh else 1
             hw = max(t.scales) if t.scales else self.cfg.input_size
-            sds = pf.batch_shapes(self.cfg, t.batch, t.max_gt, input_hw=hw)
+            sds = pf.batch_shapes(self.cfg, t.batch // shards, t.max_gt,
+                                  input_hw=hw)
             grad_accum, est = pf.auto_grad_accum(
                 build_step, self.state, sds, budget, t.batch,
-                start=t.grad_accum)
+                start=t.grad_accum, data_shards=shards)
             self.preflight_bytes = est
             if verbose:
                 print(f"preflight: estimated step peak {est/1e9:.2f} GB "
@@ -241,7 +258,7 @@ class Trainer:
         epochs = t.epochs if epochs is None else epochs
         loader = data_lib.Loader(dataset, self.cfg, t.batch,
                                  max_gt=t.max_gt, aug=t.aug, seed=t.seed,
-                                 scales=t.scales,
+                                 mesh=self.mesh, scales=t.scales,
                                  kpt_flip_idx=t.kpt_flip_idx,
                                  device=self.device)
         closed_loader = None
@@ -252,8 +269,9 @@ class Trainer:
             closed_aug = dataclasses.replace(t.aug, mosaic=0.0, mixup=0.0)
             closed_loader = data_lib.Loader(
                 dataset, self.cfg, t.batch, max_gt=t.max_gt,
-                aug=closed_aug, seed=t.seed, scales=t.scales,
-                kpt_flip_idx=t.kpt_flip_idx, device=self.device)
+                aug=closed_aug, seed=t.seed, mesh=self.mesh,
+                scales=t.scales, kpt_flip_idx=t.kpt_flip_idx,
+                device=self.device)
         steps_per_epoch = loader.steps_per_epoch()
         if self.state is None:
             # On resume the restored step continues from the prior run, so
@@ -266,7 +284,9 @@ class Trainer:
 
         def build_step(accum: int):
             return ts.make_train_step(self.cfg, self.optimizer,
-                                      use_remat=t.use_remat,
+                                      mesh=self.mesh,
+                                      tp_min_channels=t.tp_min_channels,
+                                      use_remat=t.use_remat, fsdp=t.fsdp,
                                       grad_accum=accum,
                                       label_smoothing=t.label_smoothing,
                                       device=self.device)
