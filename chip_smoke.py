@@ -127,6 +127,13 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      gate): every output EQUAL to the plain scan's, timed beside the plain
      scan (run once) and the bound, with the microseconds per step of the
      live chain;
+   - the split schedule (each label's chain apart, exact under the cap):
+     the same seeded streams at K5 K = 8400 and K6 K = 21504, B = 1 and 8,
+     relabelled three ways (one label, a skewed mix of 50/20/10/5% and the
+     rest spread, uniform over the head's classes): every output EQUAL to
+     the plain scan's (run once a case). Every case prints ms, the live
+     steps, the longest chain, the chains pass B reran and the
+     microseconds a step of the longest chain;
    - merge="wbf" on YOLO11n-seg at b=1 and b=8 (K5) and on YOLO11n-obb at
      1024x1024, b=1 (K6); the 2-member ensemble of YOLO11n-seg and
      YOLO11s-seg (640x640, 80 classes, detection_params from seeds 0 and
@@ -483,6 +490,13 @@ PIPE_TICKS = 60                       # PipelinedTickRunner ticks per depth
 # path's 21504), the score gate of PostprocessConfig's default
 WBF_CASES = (("K5", 1, 8400), ("K5", 8, 8400), ("K5", 1, 16800),
              ("K6", 1, 21504), ("K6", 8, 21504))
+# the split schedule's cases: one stream each (seeded by K and B),
+# relabelled by centre three ways; "skewed" gives labels 0-3 shares of
+# 50/20/10/5% and spreads the rest over the other labels
+WBF_MIXES = ("one", "skewed", "uniform")
+WBF_MIX_CASES = (("K5", 1, 8400), ("K5", 8, 8400), ("K6", 1, 21504),
+                 ("K6", 8, 21504))
+WBF_SKEW = (0.5, 0.2, 0.1, 0.05)
 WBF_GATE = 0.23
 # operations: (per overlap of a candidate with an open cluster of its
 # label, per live candidate). K5's overlap: 2 min, 2 max, 2 sub, 2 clamp
@@ -2091,13 +2105,15 @@ class StreamRecorder:
         wbf._topk_candidates = self.real
 
 
-def wbf_stream(rng, B: int, K: int, rotated: bool):
+def wbf_stream(rng, B: int, K: int, rotated: bool, mix: str = ""):
     """A score-sorted candidate stream on the card, as
     wbf._topk_candidates hands it to the scan: jittered clusters (K // 8
     centres, each with a label, one candidate in ten relabelled),
     bf16-quantised (tied) scores drawn from Beta(0.5, 4) (about one in
     six above the gate), and, for B > 1, a last image with nothing above
-    the gate."""
+    the gate. `mix` relabels the stream by centre, with no relabelled
+    candidates: "one" label, "skewed" (WBF_SKEW) or "uniform"; the boxes,
+    scores and order stay those of the unrelabelled stream."""
     extent, n_labels = (1024.0, 15) if rotated else (640.0, 80)
     nc = K // 8
     pick = rng.integers(0, nc, (B, K))
@@ -2114,6 +2130,14 @@ def wbf_stream(rng, B: int, K: int, rotated: bool):
     labels = np.take_along_axis(rng.integers(0, n_labels, (B, nc)), pick, 1)
     relabel = rng.random((B, K)) < 0.1
     labels[relabel] = rng.integers(0, n_labels, int(relabel.sum()))
+    if mix:
+        shares = {"one": [1.0], "uniform": [1.0 / n_labels] * n_labels,
+                  "skewed": list(WBF_SKEW) + [(1 - sum(WBF_SKEW)) / (
+                      n_labels - len(WBF_SKEW))] * (n_labels - len(WBF_SKEW))
+                  }[mix]
+        by_centre = np.random.default_rng(len(mix)).choice(
+            len(shares), (B, nc), p=shares)
+        labels = np.take_along_axis(by_centre, pick, 1)
     scores = torch.from_numpy(rng.beta(0.5, 4.0, (B, K)).astype(
         np.float32)).bfloat16().float()
     if B > 1:
@@ -2148,15 +2172,50 @@ def wbf_bound(stream, out, rotated: bool):
     return bound(n_bytes, overlaps * per_overlap + int(live.sum()) * per_step)
 
 
-def wbf_case(rng, name: str, B: int, K: int) -> dict:
+def wbf_case(rng, name: str, B: int, K: int, mix: str = "") -> dict:
     """K5 or K6 against its plain version on a seeded stream: every output
     EQUAL; timed beside the plain version (run once) and its bound."""
     rotated = name == "K6"
     kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
     plain = wbf.wbf_rotated_scan_plain if rotated else wbf.wbf_scan_plain
-    stream = wbf_stream(rng, B, K, rotated)
+    stream = wbf_stream(rng, B, K, rotated, mix)
     args = (*stream, IOU, WBF_GATE, MAX_DET)
-    return hold_wbf(kernel, plain, args, f"{name} B={B} K={K}", rotated)
+    return hold_wbf(kernel, plain, args,
+                    f"{name} B={B} K={K}" + (f" {mix}" if mix else ""),
+                    rotated)
+
+
+def wbf_chains(args, rotated: bool) -> dict:
+    """The split schedule of one K5/K6 call on these inputs (a call outside
+    the wrapper, not counted): the live steps and the longest chain (label
+    mod G over the live prefix) of the worst image, and per image the chains
+    pass B reran (a chain that opened after T_cap in pass A) and T_cap
+    (None: the cap was not hit), read from the call's scratch."""
+    boxes, scores, labels, order, thr, gate, D = args
+    fn = "xrseg_wbf_rotated" if rotated else "xrseg_wbf"
+    rep = {}
+    wbf._launch(fn, boxes, scores, labels, order, thr, gate, D, True,
+                report=rep)
+    G, sc = rep["plan"].chains, rep["scratch"]
+    B = scores.shape[0]
+
+    def i32(off, n):
+        return sc[off:off + 4 * n].view(torch.int32).cpu()
+
+    tcap = i32(rep["offsets"][0], B)
+    count = i32(rep["offsets"][1], B * G).view(B, G)
+    pos = i32(rep["offsets"][2], B * G * D).view(B, G, D)
+    last = pos.gather(2, (count - 1).clamp_min(0).long()[..., None])[..., 0]
+    rerun = ((count > 0) & (last > tcap[:, None])).sum(1)
+    s, lab = scores.cpu().numpy(), labels.cpu().numpy()
+    live = [int(np.argmin(np.append(row > np.float32(gate), False)))
+            for row in s]
+    longest = max(int(np.bincount(np.mod(row[:n], G)).max()) if n else 0
+                  for row, n in zip(lab, live))
+    return dict(steps=max(live), longest_chain=longest,
+                pass_b_chains=rerun.tolist(),
+                t_cap=[None if int(t) == 2 ** 31 - 1 else int(t)
+                       for t in tcap])
 
 
 def hold_wbf(kernel, plain, args, label: str, rotated: bool,
@@ -2170,15 +2229,18 @@ def hold_wbf(kernel, plain, args, label: str, rotated: bool,
               for g, r in zip(got, ref))
     ms = cuda_ms(lambda: kernel(*args), iters)
     bound_ms, bound_by = wbf_bound(args[:4], got, rotated)
-    steps = int((args[1] > np.float32(WBF_GATE)).sum(-1).max())
+    ch = wbf_chains(args, rotated)
     case = dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, steps=steps,
-                us_per_step=1e3 * ms / max(steps, 1),
+                bound_ms=bound_ms, bound_by=bound_by, **ch,
+                us_per_step=1e3 * ms / max(ch["steps"], 1),
+                us_per_chain_step=1e3 * ms / max(ch["longest_chain"], 1),
                 n_open=got[-1].tolist())
-    print(f"accuracy: {label}: equal, {ms:.4f} ms, "
-          f"{case['us_per_step']:.3f} us a step over {steps} live "
-          f"candidates (plain {plain_ms:.1f} ms, bound {bound_ms:.6f} ms by "
-          f"{bound_by}), clusters per image {case['n_open']}", flush=True)
+    print(f"accuracy: {label}: equal, {ms:.4f} ms, {ch['steps']} live "
+          f"steps, longest chain {ch['longest_chain']} "
+          f"({case['us_per_chain_step']:.3f} us a step of it), pass B reran "
+          f"{ch['pass_b_chains']} chains (T_cap {ch['t_cap']}); plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
+          f"clusters per image {case['n_open']}", flush=True)
     return case
 
 
@@ -2325,6 +2387,10 @@ def phase_accuracy(smi: str) -> dict:
     cases = {"K5": [], "K6": []}
     for name, B, K in WBF_CASES:
         cases[name].append(wbf_case(rng, name, B, K))
+    for name, B, K in WBF_MIX_CASES:
+        for mix in WBF_MIXES:
+            cases[name].append(wbf_case(np.random.default_rng(K + B), name,
+                                        B, K, mix))
     seconds = {"kernels": time.perf_counter() - t0}
 
     gen = torch.Generator
@@ -2422,15 +2488,17 @@ def phase_accuracy(smi: str) -> dict:
         args = (*stream, IOU, WBF_GATE, MAX_DET)
         ms = cuda_ms(lambda: kernel(*args), 5)
         bound_ms, bound_by = wbf_bound(stream, kernel(*args), rotated)
-        steps = int((stream[1] > np.float32(WBF_GATE)).sum(-1).max())
+        ch = wbf_chains(args, rotated)
         on_paths[name].append(dict(
             case=f"{name} {n} B={shape[0]} K={shape[1]}", ms=ms,
-            bound_ms=bound_ms, bound_by=bound_by, steps=steps,
-            us_per_step=1e3 * ms / steps))
+            bound_ms=bound_ms, bound_by=bound_by, **ch,
+            us_per_step=1e3 * ms / ch["steps"],
+            us_per_chain_step=1e3 * ms / ch["longest_chain"]))
         print(f"accuracy: {name} on the {n} path's stream: {ms:.4f} ms, "
-              f"{1e3 * ms / steps:.3f} us a step over {steps} live "
-              "candidates (equal to the plain scan through the slate check)",
-              flush=True)
+              f"{1e3 * ms / ch['steps']:.3f} us a step over {ch['steps']} "
+              f"live candidates, longest chain {ch['longest_chain']}, pass B "
+              f"reran {ch['pass_b_chains']} chains (equal to the plain scan "
+              "through the slate check)", flush=True)
     seconds["paths and checks"] = time.perf_counter() - t0 - sum(
         seconds.values())
 

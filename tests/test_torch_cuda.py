@@ -14,7 +14,8 @@ blocks per image; a size whose blocks cannot hold K must be refused). K4
 must zero exactly the pixels its plain version zeroes, with values within
 1e-5 (the dot products are summed in another order than cuBLAS's). The
 WBF scans (K5, K6) must give every output of their plain versions exactly,
-at max_det up to the 1024 a block holds.
+at 1 to 80 labels and max_det up to the 1024 a block holds, without a host
+synchronisation.
 """
 import numpy as np
 import pytest
@@ -621,21 +622,35 @@ def _wbf_stream(seed, B, K, rotated=False, n_labels=3, gate=0.3,
     return tuple(t.to(device) for t in stream)
 
 
-WBF_CASES = [(1, 8400, 50, True), (3, 2000, 50, True), (3, 2000, 50, False),
-             (2, 2000, 1024, True), (4, 600, 7, True), (1, 1, 50, True)]
+# (B, K, D, class_aware, labels): one label is one chain (the worst case of
+# the split); 15 and 80 labels are the obb and segment heads' classes; D = 3
+# at 80 labels hits the cap at the first opens (pass B reruns nearly every
+# chain); D = 32, 33, 64 and 65 are the two sides of K6's and K5's
+# warp/block team boundaries
+WBF_CASES = [(1, 8400, 50, True, 3), (3, 2000, 50, True, 3),
+             (3, 2000, 50, False, 3), (2, 2000, 1024, True, 3),
+             (4, 600, 7, True, 3), (1, 1, 50, True, 3),
+             (1, 4000, 50, True, 1), (1, 4000, 50, True, 15),
+             (1, 4000, 50, True, 80), (3, 2000, 3, True, 80),
+             (3, 2000, 1, True, 15), (2, 2000, 1024, True, 80),
+             (8, 2000, 50, True, 80), (3, 2000, 32, True, 15),
+             (3, 2000, 33, True, 15), (3, 2000, 64, True, 15),
+             (3, 2000, 65, True, 15), (3, 2000, 50, False, 80)]
 
 
 @pytest.mark.parametrize("rotated", [False, True], ids=["K5", "K6"])
-@pytest.mark.parametrize("B,K,D,class_aware", WBF_CASES)
-def test_wbf_scan_equals_plain(card, rotated, B, K, D, class_aware):
-    """Every output of the kernel EQUAL to the plain scan's on the card:
+@pytest.mark.parametrize("B,K,D,class_aware,n_labels", WBF_CASES)
+def test_wbf_scan_equals_plain(card, rotated, B, K, D, class_aware,
+                               n_labels):
+    """Every output of the kernels EQUAL to the plain scan's on the card:
     the clusters' sums, counts, top members, labels, the open slots and
-    n_open; with a forced D = 1024 (a full block), a D that the clusters
-    overflow, and an image whose every score is below the gate."""
+    n_open; at 1, 3, 15 and 80 labels, with D = 1024 (a chain a full
+    block), D that the clusters overflow early and late, and an image whose
+    every score is below the gate; one launch counted a call."""
     if rotated and K == 8400:
         K = 21504
-    stream = _wbf_stream(K + D, B, K, rotated, empty_last=B > 1,
-                         device=card)
+    stream = _wbf_stream(K + D + n_labels, B, K, rotated, n_labels,
+                         empty_last=B > 1, device=card)
     kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
     plain = wbf.wbf_rotated_scan_plain if rotated else wbf.wbf_scan_plain
     before = kernel.launches
@@ -647,6 +662,26 @@ def test_wbf_scan_equals_plain(card, rotated, B, K, D, class_aware):
         assert torch.equal(g, r), i
     if B > 1:
         assert int(got[-1][-1]) == 0               # all below the gate
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["K5", "K6"])
+def test_wbf_scan_does_not_synchronise(card, rotated):
+    """A call under torch's sync debug mode "error" raises nothing: the
+    wrapper sizes its scratch on the host and issues its launches without
+    reading anything back."""
+    stream = _wbf_stream(7, 2, 2000, rotated, 15, device=card)
+    kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
+    kernel(*stream, 0.55, 0.3, 50)              # built and loaded
+    torch.cuda.synchronize()
+    before = kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernel(*stream, 0.55, 0.3, 50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernel.launches == before + 1
+    ref = kernel(*stream, 0.55, 0.3, 50)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def test_wbf_wrapper_refuses_what_the_kernel_does_not_take(card):

@@ -15,12 +15,19 @@ mean member score), labels, indices (each cluster's top-scoring member's
 anchor), valid and count, score-sorted.
 
 The scan is one sequential step per candidate (8400 at a 640x640 input).
-JAX runs it as a lax.scan; here it is one launch of a hand-written kernel
-(csrc/wbf.cu), one block per image:
+JAX runs it as a lax.scan; here it is hand-written kernels (csrc/wbf.cu),
+four launches a call and no host read:
 
   wbf_scan_cuda          K5: boxes [B,K,4] (IoU)
   wbf_rotated_scan_cuda  K6: boxes [B,K,5] (probIoU; the angle fuses as
                          the weighted circular mean of the doubled angles)
+
+The kernels split the scan, exactly, into independent chains, one per
+label class (label mod G): under class_aware a candidate only merges into
+a cluster of its own label, and the cap of max_det open clusters is met
+by two passes (see csrc/wbf.cu). `launch_plan` chooses G and the team that
+runs a chain (a warp up to max_det 64 for K5 and 32 for K6, a block
+beyond); it is a pure function, and the launcher only validates it.
 
 Both take the score-sorted stream and return the clusters' sums; the sort
 before the scan and the final fuse and score sort of the clusters are
@@ -34,7 +41,7 @@ the plain version; given CUDA tensors it launches the kernel or raises.
 Each counts its launches in `<wrapper>.launches`.
 """
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +50,7 @@ from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.ops.nms import xywh_to_corners
 from xrseg_tpu_torch.ops.nms_kernels import PROBIOU_EPS, as_f32, probiou_gauss
 
-MAX_CLUSTERS = 1024              # one cluster a thread of the kernel's block
+MAX_CLUSTERS = 1024              # one cluster a thread of a chain's block
 
 State = Tuple[torch.Tensor, ...]
 
@@ -220,11 +227,62 @@ def wbf_rotated_scan_plain(boxes, scores, labels, order,
 # The kernels, as custom ops
 # ---------------------------------------------------------------------------
 
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_CHAINS = 128                 # at least the paths' 80 and 15 classes
+CHAIN_SLOTS = 32768              # chains x max_det: bounds the scratch
+# a warp holds a chain's clusters up to here: two a lane for K5, one for
+# K6, whose two probIoUs in a lane would run one after the other
+WARP_CHAIN_D = {"xrseg_wbf": 64, "xrseg_wbf_rotated": 32}
+WARP_CHAINS = 4                  # warp chains a block
+STAGES = 4                       # record chunks in flight a chain
+CHUNK = 32                       # records a chunk
+REC_BYTES = {"xrseg_wbf": 48, "xrseg_wbf_rotated": 64}
+
+
+class ChainPlan(NamedTuple):
+    """How the kernels run an image's chains: `chains` (G), the warps of
+    the team that runs one chain (`team_warps`; 1: a warp, WARP_CHAINS of
+    them a block), clusters a thread (`per_thread`) and the dynamic
+    shared-memory bytes a block (`smem`)."""
+    chains: int
+    team_warps: int
+    per_thread: int
+    smem: int
+
+
+def launch_plan(what: str, max_det: int, class_aware: bool) -> ChainPlan:
+    """The chains and teams of a K5 ("xrseg_wbf") or K6
+    ("xrseg_wbf_rotated") call at `max_det` clusters an image.
+
+    Chains: one without class_aware (every cluster is a candidate);
+    otherwise G = MAX_CHAINS, fewer where G x max_det would pass
+    CHAIN_SLOTS (each chain keeps up to max_det clusters in scratch).
+    Labels share a chain when there are more than G of them; that stays
+    exact. Teams: up to WARP_CHAIN_D[what] clusters a chain is one warp,
+    its clusters in the lanes' registers (1 or 2 a lane), WARP_CHAINS
+    chains a block, and a step needs no barrier; beyond that a chain is a
+    block of ceil(max_det / 32) warps, a cluster a thread. Shared memory:
+    STAGES chunks of CHUNK records for every chain of the block."""
+    if not 1 <= max_det <= MAX_CLUSTERS:
+        raise ValueError(f"{what} holds 1 to {MAX_CLUSTERS} clusters an "
+                         f"image, not max_det={max_det}")
+    ring = STAGES * CHUNK * REC_BYTES[what]
+    G = min(MAX_CHAINS, CHAIN_SLOTS // max_det) if class_aware else 1
+    if max_det <= WARP_CHAIN_D[what]:
+        return ChainPlan(G, 1, -(-max_det // 32), WARP_CHAINS * ring)
+    return ChainPlan(G, -(-max_det // 32), 1, ring)
+
+
+_VP, _CI, _CF, _CL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+_LP = ctypes.POINTER(_CL)
+_PLAN = [_CI] * 4 + [_VP, _CL]   # G, per_thread, team_warps, smem, scratch
 _SIGNATURES = {
-    "xrseg_wbf": [_VP] * 4 + [_CI, _CI, _CF, _CF, _CI, _CI] + [_VP] * 8,
+    "xrseg_wbf": [_VP] * 4 + [_CI, _CI, _CF, _CF, _CI, _CI] + _PLAN
+    + [_VP] * 8,
     "xrseg_wbf_rotated": [_VP] * 4 + [_CI, _CI, _CF, _CF, _CF, _CI, _CI]
-    + [_VP] * 10,
+    + _PLAN + [_VP] * 10,
+    "xrseg_wbf_scratch_bytes": [_CI] * 5 + [_LP],
+    "xrseg_wbf_scratch_offsets": [_CI] * 5 + [_LP],
 }
 
 
@@ -250,7 +308,7 @@ def _check(boxes, scores, labels, order, dim: int, max_det: int,
         raise ValueError(f"{what} needs contiguous inputs")
     if not 1 <= max_det <= MAX_CLUSTERS:
         raise ValueError(f"{what} holds 1 to {MAX_CLUSTERS} clusters an "
-                         f"image (one a thread of a block), not "
+                         f"image (a chain holds them in one block), not "
                          f"max_det={max_det}")
     return scores.shape
 
@@ -266,20 +324,47 @@ def _outputs(boxes, B: int, D: int, n_sums: int) -> State:
             torch.empty((B,), dtype=torch.int32, device=dev))
 
 
-def _launch(fn: str, boxes, scores, labels, order, scalars, max_det: int,
-            n_sums: int, dim: int) -> State:
+def _scratch_query(lib, fn: str, what: str, B: int, K: int, D: int,
+                   G: int, n: int):
+    vals = (_CL * n)()
+    err = getattr(lib, what)(int(fn == "xrseg_wbf_rotated"), B, K, D, G, vals)
+    _build.check_launch(lib, err, f"{what} (B={B}, K={K}, D={D}, G={G})")
+    return list(vals)
+
+
+def _launch(fn: str, boxes, scores, labels, order, iou_threshold: float,
+            score_threshold: float, max_det: int, class_aware: bool,
+            report=None) -> State:
+    """K5 (fn "xrseg_wbf") or K6 ("xrseg_wbf_rotated"): four launches on
+    the current stream (records, pass A, the cap, the finish). `report`, a
+    dict, receives the plan, the scratch and the byte offsets of its T_cap
+    [B], pass-A counts [B,G] and open positions [B,G,D] (int32)."""
+    rotated = fn == "xrseg_wbf_rotated"
+    n_sums, dim = (3, 5) if rotated else (1, 4)
+    scalars = (as_f32(iou_threshold), as_f32(score_threshold),
+               *((as_f32(PROBIOU_EPS),) if rotated else ()), int(class_aware))
     B, K = _check(boxes, scores, labels, order, dim, max_det, fn)
     if B == 0 or K == 0:
         raise ValueError(f"{fn} needs B >= 1 and K >= 1, got B={B}, K={K}")
+    plan = launch_plan(fn, max_det, class_aware)
     out = _outputs(boxes, B, max_det, n_sums)
     lib = _build.library("wbf", _SIGNATURES)
+    nbytes, = _scratch_query(lib, fn, "xrseg_wbf_scratch_bytes", B, K,
+                             max_det, plan.chains, 1)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(
             boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
-            order.data_ptr(), B, K, *scalars, max_det,
-            *(t.data_ptr() for t in out), stream)
-    _build.check_launch(lib, err, f"{fn} (B={B}, K={K}, D={max_det})")
+            order.data_ptr(), B, K, *scalars, max_det, plan.chains,
+            plan.per_thread, plan.team_warps, plan.smem, scratch.data_ptr(),
+            nbytes, *(t.data_ptr() for t in out), stream)
+    _build.check_launch(lib, err, f"{fn} (B={B}, K={K}, D={max_det}, "
+                                  f"plan {plan})")
+    if report is not None:
+        report.update(plan=plan, scratch=scratch, offsets=_scratch_query(
+            lib, fn, "xrseg_wbf_scratch_offsets", B, K, max_det,
+            plan.chains, 3))
     return out
 
 
@@ -306,9 +391,8 @@ def _wbf_scan_op(boxes: torch.Tensor, scores: torch.Tensor,
 @_wbf_scan_op.register_kernel("cuda")
 def _wbf_scan_kernel(boxes, scores, labels, order, iou_threshold,
                      score_threshold, max_det, class_aware):
-    out = _launch("xrseg_wbf", boxes, scores, labels, order,
-                  (as_f32(iou_threshold), as_f32(score_threshold),
-                   int(class_aware)), max_det, 1, 4)
+    out = _launch("xrseg_wbf", boxes, scores, labels, order, iou_threshold,
+                  score_threshold, max_det, class_aware)
     wbf_scan_cuda.launches += 1
     return out
 
@@ -333,8 +417,7 @@ def _wbf_rotated_scan_op(boxes: torch.Tensor, scores: torch.Tensor,
 def _wbf_rotated_scan_kernel(boxes, scores, labels, order, iou_threshold,
                              score_threshold, max_det, class_aware):
     out = _launch("xrseg_wbf_rotated", boxes, scores, labels, order,
-                  (as_f32(iou_threshold), as_f32(score_threshold),
-                   as_f32(PROBIOU_EPS), int(class_aware)), max_det, 3, 5)
+                  iou_threshold, score_threshold, max_det, class_aware)
     wbf_rotated_scan_cuda.launches += 1
     return out
 
