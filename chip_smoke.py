@@ -302,12 +302,36 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    - examples.train --mesh 1 --fsdp and examples.distill --mesh 1.
    One line "mesh_train: {...}" gives the readings, the launches and the
    phase's seconds beside the card's name and power limit.
-14. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+14. the .sentis route (lines starting `sentis:`), YOLO11n-seg at full
+   width with detection_params weights from seed 0 written as a uint8
+   .sentis template (testing.sentis_template) under build/sentis:
+   - load_params_auto reads it (every leaf within half a quantization
+     step of the source), the model goes to the card, and build_pipeline
+     at b=1 and b=8 on the phase-3 frames, with the launch counters
+     zeroed just before and read just after, launches K1 once a batch
+     and nothing else; each slate equals the plain NMS's on the same
+     model and the slate of the same weights read back from save_npz,
+     bit for bit;
+   - an Executor with the fused tick under an XRLoop on the loaded model
+     locks the first box and tracks it for 10 ticks, each with a finite
+     non-empty cloud and the host tracker's match, K1 once a dispatch;
+   - redeploy: 3 bf16 train steps at b=8 (make_train_step, as phase 10),
+     then write_yolo11_sentis into a copy of the template: the program
+     region changes only inside scale/zero-point scalars (and the loaded
+     weights written back change fewer than 64 of its bytes), the reload
+     holds every trained float32 leaf within 0.51 * step + 1e-7, and its
+     b=8 pipeline launches K1 once with the plain NMS's slate; the ONNX
+     export of the trained model reloads to it bit for bit.
+   One line "sentis: {...}" gives the seconds of parse, load, the steps
+   and the write, the K1 launches of each part and the phase's seconds
+   beside the card's name and power limit.
+15. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
    segment and pose evals, the training validations, the transferred
    fit's validation, the pseudo-labels and both rankings, phase 12's
-   parallel paths and scripts and phase 13's mesh fit validation, K3's
+   parallel paths and scripts, phase 13's mesh fit validation and phase
+   14's .sentis serve, tick and redeploy paths, K3's
    over the obb, obb-TTA, obb eval, obb training-validation, obb DP,
    task-report and obb mesh fit validation paths, K5's and K6's over
    phase 8's WBF paths; no path runs K4, as in the JAX package), then the
@@ -357,6 +381,7 @@ from xrseg_tpu_torch.eval.task_parity import task_parity_report
 from xrseg_tpu_torch.io import torch_pt
 from xrseg_tpu_torch.io.onnx_exec import run_onnx
 from xrseg_tpu_torch.io.onnx_export import export_onnx
+from xrseg_tpu_torch.io.sentis import parse_sentis, write_yolo11_sentis
 from xrseg_tpu_torch.examples import demo as ex_demo
 from xrseg_tpu_torch.examples import distill as ex_distill
 from xrseg_tpu_torch.examples import serve as ex_serve
@@ -405,7 +430,8 @@ from xrseg_tpu_torch.runtime.streaming import (PipelinedTickRunner,
 from xrseg_tpu_torch.runtime.video import VideoFrameSource
 from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
-from xrseg_tpu_torch.testing import detection_params, xr_frames
+from xrseg_tpu_torch.testing import (detection_params, sentis_template,
+                                     xr_frames)
 from xrseg_tpu_torch.tools import pseudo_label as tool_pseudo
 from xrseg_tpu_torch.tools import select_frames as tool_select
 from xrseg_tpu_torch.tools import task_accuracy_report as tool_task_report
@@ -555,6 +581,13 @@ MESH_LOSS_RTOL = 1e-4              # tests/test_train.py's sharded bound
 FSDP_LOSS_RTOL = 2e-4              # tests/test_train.py's FSDP bounds
 MESH_PARAM_ATOL = 2e-5
 MESH_PARAM_RTOL = 2e-4
+# phase 14 (.sentis)
+SENTIS_DIR = Path(__file__).resolve().parent / "build" / "sentis"
+SENTIS_TICKS = 10
+SENTIS_BATCH = 8                    # the redeploy's train steps
+SENTIS_STEPS = 3
+SENTIS_LR = 1e-4
+SENTIS_PROGRAM_BYTES = 64           # tests/test_sentis_loader.py's bound
 K1_GLOBAL = "greedy_nms_kernel"
 SOURCE = "xrseg_tpu_torch/csrc/nms_select.cu"
 K1 = dict(name="nms_select_batched_cuda", route="cuda", source=SOURCE,
@@ -4182,6 +4215,196 @@ def phase_mesh_train(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 14. the .sentis route: load, serve, track, redeploy
+# ---------------------------------------------------------------------------
+
+def program_bytes_changed(a: bytes, b: bytes, prog) -> tuple:
+    """(bytes of the program region that differ, whether each lies inside
+    a scale/zero-point scalar the writer may patch)."""
+    scalars = {p + i for p in prog.value_pos if p is not None
+               for i in range(4)}
+    moved = {i for i in range(prog.segment_base) if a[i] != b[i]}
+    return len(moved), moved <= scalars
+
+
+def within_step(got: yolo11.YOLO11, want: dict, what: str) -> float:
+    """Every leaf of `got` within 0.51 * (max - min) / 255 + 1e-7 of the
+    float32 leaf in `want` (the writer's round-trip bound), the range
+    taken with 0 in it as the quantizer takes it; the worst error in
+    steps."""
+    worst = 0.0
+    for k, v in got.state_dict().items():
+        a = want[k].float().cpu()
+        step = (max(float(a.max()), 0.0) - min(float(a.min()), 0.0)) / 255.0
+        err = float((v.float().cpu() - a).abs().max())
+        check(err <= 0.51 * step + 1e-7,
+              f"{what}: {k} off by {err:.3e}, half a step is {step / 2:.3e}")
+        worst = max(worst, err / step if step else 0.0)
+    return worst
+
+
+def phase_sentis(smi: str) -> dict:
+    """YOLO11n-seg at full width written as a uint8 .sentis template,
+    loaded through load_params_auto, served at b=1 and b=8 and tracked
+    through K1, trained for a few bf16 steps, written back into a copy of
+    the template and reloaded, and exported to ONNX."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SENTIS_DIR, ignore_errors=True)
+    SENTIS_DIR.mkdir(parents=True)
+    seconds, numbers, launches = {}, {}, {}
+    cfg = ExecutorConfig(model=MODEL)
+    scan = dataclasses.replace(
+        cfg, post=dataclasses.replace(cfg.post, nms_backend="scan"))
+    src = detection_params(torch.Generator().manual_seed(0), MODEL,
+                           device=DEVICE)
+    template = sentis_template(MODEL, src, str(SENTIS_DIR / "deployed.sentis"))
+    t = time.perf_counter()
+    prog = parse_sentis(template)
+    seconds["parse"] = time.perf_counter() - t
+    t = time.perf_counter()
+    host, got = load_params_auto(template, MODEL)
+    seconds["load"] = time.perf_counter() - t
+    check(got is MODEL, "load_params_auto changed the config")
+    loaded = {k: v.clone() for k, v in host.state_dict().items()}
+    numbers["template"] = {"bytes": Path(template).stat().st_size,
+                           "chains": len(prog.chains),
+                           "values": len(prog.values),
+                           "segment_bytes": len(prog.segment)}
+    within_step(host, {k: v.cpu() for k, v in src.state_dict().items()},
+                "load")
+    save_npz(str(SENTIS_DIR / "twin.npz"), host)
+    twin, _ = load_params_auto(str(SENTIS_DIR / "twin.npz"), MODEL)
+    model, twin = host.to(DEVICE), twin.to(DEVICE)
+    frames = np.random.default_rng(1).integers(
+        0, 256, (8,) + FRAME_HW + (3,), np.uint8)
+
+    def pipes(c, m):
+        return {b: build_pipeline(c, m, frame_hw=FRAME_HW, batch=b,
+                                  device=DEVICE).warmup() for b in (1, 8)}
+
+    kern, plain, npz = pipes(cfg, model), pipes(scan, model), pipes(cfg, twin)
+
+    # --- serve: the main path, with the launch counters zeroed around it
+    zero_counters()
+    runs = {b: kern[b](frames[:b]) for b in (1, 8)}
+    torch.cuda.synchronize()
+    launches["sentis serve"] = read_counters()
+    check(launches["sentis serve"][K1["name"]] == 2
+          and sum(launches["sentis serve"].values()) == 2,
+          f"sentis serve launches {launches['sentis serve']}; expected K1 "
+          "once at b=1 and once at b=8")
+    for b, det in runs.items():
+        check_det(det, b, True, f"sentis b={b}")
+        for what, ref in (("the plain NMS", plain[b](frames[:b])),
+                          ("the npz twin", npz[b](frames[:b]))):
+            check(torch.equal(det["slate"], ref["slate"])
+                  and torch.equal(det["indices"], ref["indices"]),
+                  f"sentis b={b}: slate differs from {what}'s")
+    print(f"sentis: loaded model at b=1 and b=8: 50/50 detections, slate "
+          f"equal to the plain NMS's and the npz twin's; K1 launched "
+          f"{launches['sentis serve'][K1['name']]} times", flush=True)
+
+    # --- track: the fused tick on the loaded model
+    xr = xr_frames(SENTIS_TICKS + 2, FRAME_HW, DEPTH_HW, seed=3)
+    ex = Executor(ExecutorConfig(model=MODEL, fused_tick=True,
+                                 emit_masks="none"),
+                  params=model, frame_hw=FRAME_HW, device=DEVICE)
+    loop = XRLoop(ex)
+    tick_until_result(loop, xr[0])                # binds the tick program
+    zero_counters()
+    before = ex.tracer.counters["frames_dispatched"]
+    start_tracking(loop, xr)
+    for i, frame in enumerate(xr[2:]):
+        prev = ex.tracker.locked_box
+        r, _ = tick_until_result(loop, frame)
+        check_tracked(ex, prev, r, f"sentis tick {i}")
+    torch.cuda.synchronize()
+    launches["sentis tick"] = read_counters()
+    dispatched = ex.tracer.counters["frames_dispatched"] - before
+    check(launches["sentis tick"][K1["name"]] == dispatched
+          == SENTIS_TICKS + 2,
+          f"sentis ticks: K1 launched {launches['sentis tick'][K1['name']]}"
+          f" times over {dispatched} dispatches")
+    print(f"sentis: fused tick on the loaded model tracked the target over "
+          f"{SENTIS_TICKS} ticks with a non-empty cloud, K1 once a "
+          "dispatch", flush=True)
+
+    # --- redeploy: bf16 steps, the template rewritten, reloaded, served
+    ds = data_lib.SyntheticShapesDataset(n=SENTIS_BATCH, hw=FRAME_HW,
+                                         n_classes=3)
+    batch = next(data_lib.Loader(ds, MODEL, SENTIS_BATCH, max_gt=16,
+                                 device="cpu")._host_batches(0))
+    opt = train_ts.make_optimizer(lr=SENTIS_LR, warmup_steps=0,
+                                  total_steps=10)
+    student = copy.deepcopy(model)
+    state = train_ts.TrainState(student, opt.init(student), 0)
+    step = train_ts.make_train_step(MODEL, opt, device=DEVICE)
+    t = time.perf_counter()
+    for _ in range(SENTIS_STEPS):
+        state, m = step(state, batch)
+        check(all(np.isfinite(float(v)) for v in m.values()),
+              f"sentis train step: non-finite metrics {m}")
+    torch.cuda.synchronize()
+    seconds[f"{SENTIS_STEPS} train steps"] = time.perf_counter() - t
+    trained = {k: v.detach().cpu() for k, v in
+               state.params.state_dict().items()}
+    check(all(v.dtype == torch.float32 for v in trained.values()),
+          "the train step's weights are not float32")
+    check(any(not torch.equal(trained[k], loaded[k]) for k in trained),
+          "the train steps moved no weight")
+    orig = Path(template).read_bytes()
+    same = str(SENTIS_DIR / "round_trip.sentis")
+    write_yolo11_sentis(same, model, template, MODEL)
+    n_same, _ = program_bytes_changed(orig, Path(same).read_bytes(), prog)
+    check(n_same < SENTIS_PROGRAM_BYTES,
+          f"the loaded weights written back changed {n_same} program bytes")
+    out = str(SENTIS_DIR / "finetuned.sentis")
+    t = time.perf_counter()
+    write_yolo11_sentis(out, state.params, template, MODEL)
+    seconds["write"] = time.perf_counter() - t
+    new = Path(out).read_bytes()
+    n_moved, scalars_only = program_bytes_changed(orig, new, prog)
+    check(len(new) == len(orig) and scalars_only,
+          "the redeployed file changed the program outside its "
+          "scale/zero-point scalars")
+    back, _ = load_params_auto(out, MODEL)
+    worst = within_step(back, trained, "redeploy")
+    reloaded = build_pipeline(cfg, back.to(DEVICE), frame_hw=FRAME_HW,
+                              batch=8, device=DEVICE).warmup()
+    ref = build_pipeline(scan, back, frame_hw=FRAME_HW, batch=8,
+                         device=DEVICE)(frames)
+    zero_counters()
+    det = reloaded(frames)
+    torch.cuda.synchronize()
+    launches["sentis redeploy"] = read_counters()
+    check(launches["sentis redeploy"][K1["name"]] == 1
+          and sum(launches["sentis redeploy"].values()) == 1,
+          f"redeployed model launches {launches['sentis redeploy']}")
+    check(bool(det["slate"].isfinite().all())
+          and torch.equal(det["slate"], ref["slate"]),
+          "redeployed model: slate not finite or not the plain NMS's")
+    onnx = str(SENTIS_DIR / "finetuned.onnx")
+    export_onnx(state.params, MODEL, onnx)
+    back_onnx, _ = load_params_auto(onnx, MODEL)
+    check(all(torch.equal(v, trained[k])
+              for k, v in back_onnx.state_dict().items()),
+          "the ONNX export of the trained model did not reload to it")
+    print(f"sentis: {SENTIS_STEPS} bf16 train steps at b={SENTIS_BATCH}, "
+          f"written into the template ({n_moved} program bytes moved, all "
+          f"scale/zero-point scalars; the loaded weights written back move "
+          f"{n_same}), reloaded within {worst:.3f} of a step of every "
+          "trained leaf, served through K1 equal to the plain NMS; the "
+          "ONNX export reloads bit for bit", flush=True)
+    numbers.update(program_bytes_moved=n_moved, round_trip_bytes=n_same,
+                   worst_error_in_steps=worst)
+    seconds["whole phase"] = time.perf_counter() - t0
+    line = {"smi": smi, "seconds": seconds, "numbers": numbers,
+            "launches": {p: c[K1["name"]] for p, c in launches.items()}}
+    print("sentis: " + json.dumps(line), flush=True)
+    return {"launches": {p: c[K1["name"]] for p, c in launches.items()}}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -4312,6 +4535,11 @@ def main() -> int:
                         (kernels[2], "mesh train obb validation")):
             k["launches"] += mt[path]
             k["launches_by_path"][path] = mt[path]
+        st = phase_sentis(smi)["launches"]
+        seconds["sentis"] = time.perf_counter() - t0 - sum(seconds.values())
+        for path, n in st.items():
+            kernels[0]["launches"] += n
+            kernels[0]["launches_by_path"][path] = n
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1

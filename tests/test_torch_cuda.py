@@ -17,6 +17,8 @@ WBF scans (K5, K6) must give every output of their plain versions exactly,
 at 1 to 80 labels and max_det up to the 1024 a block holds, without a host
 synchronisation.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -863,7 +865,6 @@ def test_train_step_on_the_card_equals_cpu(card):
     the clipped gradient (the first moment / 0.1) within 1e-3 of each
     leaf's max abs, params and moments within rtol 1e-4, atol 1e-5 (the
     CPU tests' tolerances x10: cuDNN sums in another order)."""
-    import copy
 
     from xrseg_tpu_torch.models import yolo11
     from xrseg_tpu_torch.train import data as data_lib
@@ -1007,7 +1008,6 @@ def test_distill_step_on_the_card_equals_cpu(card):
     """One float32 "highest" distill step at b=2 (remat on) on the card
     and on the CPU: metrics within rtol 1e-4, the clipped gradient within
     1e-3 of each leaf's max abs (the train step's card test)."""
-    import copy
     import dataclasses
 
     from xrseg_tpu_torch.models import yolo11
@@ -1129,7 +1129,6 @@ def test_mesh_train_step_on_the_card_equals_unsharded(card, kind):
     sample weights unequal across the shards: loss and grad norm within
     rtol 1e-4, params within atol 2e-5, rtol 2e-4 (tests/test_train.py's
     bounds); FSDP's large leaves still split afterwards."""
-    import copy
 
     from xrseg_tpu_torch.models import yolo11
     from xrseg_tpu_torch.parallel.mesh import make_mesh
@@ -1170,3 +1169,60 @@ def test_mesh_train_step_on_the_card_equals_unsharded(card, kind):
         assert split and all(len(sh.parts) == 2 for sh in split.values())
         assert dict(got_s.params.named_parameters())[
             next(iter(split))].numel() == 0
+
+
+# ---------------------------------------------------------------------------
+# the .sentis route on the card
+# ---------------------------------------------------------------------------
+
+def test_sentis_model_on_the_card_equals_plain_and_npz(card, tmp_path):
+    """A model loaded from a .sentis template (detection_params weights,
+    uint8 on disk) and moved to the card: its slate through K1 equals the
+    plain NMS's on the same model, and the slate of the same dequantized
+    weights read back from save_npz, bit for bit."""
+    from xrseg_tpu_torch.io.weights import load_params_auto, save_npz
+    from xrseg_tpu_torch.testing import sentis_template
+    cfg = ExecutorConfig(model=ModelConfig(input_size=(128, 128)))
+    scan = ExecutorConfig(model=cfg.model,
+                          post=PostprocessConfig(nms_backend="scan"))
+    src = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                           device="cpu")
+    path = sentis_template(cfg.model, src, str(tmp_path / "m.sentis"))
+    model, _ = load_params_auto(path, cfg.model)
+    save_npz(str(tmp_path / "m.npz"), model)
+    twin, _ = load_params_auto(str(tmp_path / "m.npz"), cfg.model)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
+                                               np.uint8)
+    before = tk.nms_select_batched_cuda.launches
+    got = build_pipeline(cfg, model.to(card), frame_hw=(96, 128),
+                         batch=2)(frames)
+    torch.cuda.synchronize()
+    assert tk.nms_select_batched_cuda.launches == before + 1
+    ref = build_pipeline(scan, model, frame_hw=(96, 128), batch=2)(frames)
+    npz = build_pipeline(cfg, twin.to(card), frame_hw=(96, 128),
+                         batch=2)(frames)
+    assert int(got["count"].min()) == 50
+    assert torch.equal(got["slate"], ref["slate"])
+    assert torch.equal(got["slate"], npz["slate"])
+
+
+def test_sentis_write_from_the_card_equals_the_cpu_write(card, tmp_path):
+    """write_yolo11_sentis of a model on the card writes the bytes the same
+    write of its CPU copy writes."""
+    from xrseg_tpu_torch.io.sentis import write_yolo11_sentis
+    from xrseg_tpu_torch.testing import sentis_template
+    cfg = ModelConfig(input_size=(128, 128))
+    src = detection_params(torch.Generator().manual_seed(1), cfg,
+                           device="cpu")
+    template = sentis_template(cfg, src, str(tmp_path / "t.sentis"))
+    moved = copy.deepcopy(src)
+    with torch.no_grad():
+        for p in moved.parameters():
+            p.mul_(1.01)
+    on_card = copy.deepcopy(moved).to(card)
+    for name, m in (("card", on_card), ("cpu", moved)):
+        write_yolo11_sentis(str(tmp_path / f"{name}.sentis"), m, template,
+                            cfg)
+    a = (tmp_path / "card.sentis").read_bytes()
+    assert a == (tmp_path / "cpu.sentis").read_bytes()
+    assert a != (tmp_path / "t.sentis").read_bytes()

@@ -22,6 +22,7 @@ import math
 import runpy
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -574,14 +575,41 @@ def test_eval_cli(monkeypatch, capsys, tmp_path):
             tde._main()
 
 
-def test_eval_cli_refuses_sentis(monkeypatch, tmp_path):
-    path = tmp_path / "w.sentis"
-    path.write_bytes(b"")
-    monkeypatch.setattr(sys, "argv", ["eval", "--data", "synthetic",
-                                      "--weights", str(path),
-                                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="standing refusal"):
-        tde._main()
+def test_eval_cli_refuses_sentis(monkeypatch, capsys, tmp_path):
+    """The eval CLI on a .sentis file (a synthetic template of
+    detecting_tree weights) prints the JSON line JAX's CLI prints on the
+    same file: both ModelConfigs float32 "highest", each value within
+    2e-4 (the line rounds to 4 places). The name is kept from when the
+    port refused .sentis."""
+    import functools
+
+    from xrseg_tpu.models import yolo11 as jy
+    from xrseg_tpu_torch.testing import sentis_template
+    mk = dict(EXACT, input_size=(64, 64), num_classes=3)
+    jcfg = jconfig.ModelConfig(**mk)
+    path = str(tmp_path / "w.sentis")
+    sentis_template(tconfig.ModelConfig(**mk), detecting_tree(jcfg, seed=3),
+                    path)
+    monkeypatch.setattr(tde, "ModelConfig", functools.partial(
+        tconfig.ModelConfig, **EXACT))
+    monkeypatch.setattr(jde, "ModelConfig", functools.partial(
+        jconfig.ModelConfig, **EXACT))
+    shapes = jax.eval_shape(lambda k: jy.init_params(k, jcfg),
+                            jax.random.key(0))
+    monkeypatch.setattr(jy, "init_params", lambda k, c: jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype), shapes))  # all overwritten
+    args = ["--data", "synthetic", "--weights", path, "--size", "64",
+            "--classes", "3", "--batch", "4", "--max-images", "6",
+            "--score", "0.3"]
+    outs = []
+    for main, extra in ((tde._main, ["--device", "cpu"]), (jde._main, [])):
+        monkeypatch.setattr(sys, "argv", ["eval", *args, *extra])
+        assert main() == 0
+        outs.append(json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1]))
+    t, j = outs
+    _same(t, j, tol=2e-4)
+    assert t["n_images"] == 6 and t["box_AP50"] > 0.0
 
 
 # ---------------------------------------------------------------------------

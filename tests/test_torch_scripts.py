@@ -16,7 +16,8 @@ steps, on npz and PNG files written to a temp directory.
   labels generate_pseudo_samples gives; tools.select_frames ranks every
   frame;
 - --mesh 2 (and train.py's --fsdp) train over a mesh of the CPU repeated
-  twice, a .sentis file raises naming item 13.
+  twice; tools.pseudo_label on a synthetic .sentis template writes the
+  JAX tool's pseudo-labels.
 """
 import importlib.util
 import json
@@ -210,6 +211,38 @@ def test_select_frames(files, tmp_path, capsys):
         (r["uncertainty"] for r in rows), reverse=True)
 
 
+@pytest.mark.parametrize("script", ["train", "distill", "select_frames"])
+def test_scripts_take_sentis(files, tmp_path, script, capsys):
+    """A .sentis file (a synthetic template of the 80-class npz's weights)
+    as examples.train's --weights (transferred to 3 classes, the .npz
+    case's report), examples.distill's --teacher (read as YOLO11n-seg, 80
+    classes) and tools.select_frames's --weights."""
+    from xrseg_tpu_torch.testing import sentis_template
+    path = sentis_template(
+        ModelConfig(input_size=(64, 64)), detecting_tree(
+            jconfig.ModelConfig(input_size=(64, 64)), seed=1),
+        str(tmp_path / "seg80.sentis"))
+    argv, main = {
+        "train": (["--data", str(files), "--weights", path, "--classes",
+                   "3", "--epochs", "1", "--batch", "2", "--out",
+                   str(tmp_path / "run")], train.main),
+        "distill": (["--teacher", path, "--synthetic", "--steps", "2",
+                     "--batch", "2", "--out", str(tmp_path)], distill.main),
+        "select_frames": (["--images", str(files / "images"), "--weights",
+                           path, "--k", "3"], select_frames.main)}[script]
+    assert main(argv + SIZE) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    if script == "train":
+        assert f"transfer: 194 leaves from {path}; reinitialized 6 (det)" \
+            in lines and "done: 1 epochs" in "\n".join(lines)
+    elif script == "distill":
+        assert lines[0].startswith("teacher: yolo11-n segment nc=80")
+        assert np.isfinite(json.loads(lines[-1])["final_loss"])
+    else:
+        assert json.loads(lines[-1]) == {"strategy": "margin", "scored": 4,
+                                         "selected": 3}
+
+
 @pytest.mark.parametrize("script", ["train", "train_toy", "distill"])
 def test_mesh_is_item_10(files, tmp_path, script, capsys):
     """--mesh 2 (the training half of ROADMAP item 10) runs each script
@@ -241,9 +274,50 @@ def test_mesh_is_item_10(files, tmp_path, script, capsys):
             "final_loss"])
 
 
-def test_sentis_is_item_13(files, tmp_path):
-    (tmp_path / "m.sentis").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pseudo_label.main(["--images", str(files / "images"), "--weights",
-                           str(tmp_path / "m.sentis"), "--out",
-                           str(tmp_path / "p.json"), *SIZE])
+def test_sentis_is_item_13(files, tmp_path, monkeypatch, capsys):
+    """tools.pseudo_label --weights on a .sentis file (a synthetic template
+    of the 80-class npz's weights) writes the pseudo-labels the JAX
+    package's tools/pseudo_label.py writes on the same file: both
+    ModelConfigs float32, every annotation's image, category and mask
+    presence equal, boxes within 0.02 px. The name is kept from when the
+    port raised on .sentis (ROADMAP item 13)."""
+    import functools
+    import importlib.util as ilu
+
+    import xrseg_tpu
+    from xrseg_tpu_torch import config as tconfig
+    from xrseg_tpu_torch.testing import sentis_template
+    jcfg = jconfig.ModelConfig(input_size=(64, 64))
+    path = sentis_template(ModelConfig(input_size=(64, 64)), detecting_tree(
+        jcfg, seed=1), str(tmp_path / "m.sentis"))
+    monkeypatch.setattr(tconfig, "ModelConfig", functools.partial(
+        tconfig.ModelConfig, dtype="float32"))
+    monkeypatch.setattr(jconfig, "ModelConfig", functools.partial(
+        jconfig.ModelConfig, dtype="float32"))
+    monkeypatch.setattr(xrseg_tpu, "enable_compile_cache", lambda: None)
+    shapes = jax.eval_shape(lambda k: _REAL_INIT(k, jcfg), jax.random.key(0))
+    monkeypatch.setattr(jy, "init_params", lambda k, c: jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype), shapes))  # all overwritten
+    assert pseudo_label.main(["--images", str(files / "images"), "--weights",
+                              path, "--out", str(tmp_path / "t.json"),
+                              *SIZE]) == 0
+    spec = ilu.spec_from_file_location(
+        "jax_pseudo_label", os.path.join(ROOT, "tools", "pseudo_label.py"))
+    jtool = ilu.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    monkeypatch.setattr(sys, "argv", [
+        "pseudo_label.py", "--images", str(files / "images"), "--weights",
+        path, "--out", str(tmp_path / "j.json"), "--size", "64"])
+    assert jtool.main() == 0
+    outs = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(outs[0])["annotations"] > 0
+    got, want = (json.loads((tmp_path / f"{k}.json").read_text())
+                 for k in "tj")
+    assert got["images"] == want["images"]
+    assert got["categories"] == want["categories"]
+    ta, ja = got["annotations"], want["annotations"]
+    assert len(ta) == len(ja) > 0
+    for a, b in zip(ta, ja):
+        assert (a["image_id"], a["category_id"], "segmentation" in a) == \
+            (b["image_id"], b["category_id"], "segmentation" in b)
+        np.testing.assert_allclose(a["bbox"], b["bbox"], atol=0.02)

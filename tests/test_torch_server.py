@@ -238,7 +238,7 @@ def test_reload_from_a_jax_npz(weights, tmp_path):
         jw.save_npz(wrong, jax.tree.map(
             lambda a: np.zeros(a.shape, np.float32), shapes))
         for bad, msg in ((wrong, "do not match"),
-                         (str(tmp_path / "w.sentis"), "item 13"),
+                         (str(tmp_path / "w.sentis"), "No such file"),
                          ("", "path")):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _reload(srv, bad)
@@ -276,6 +276,35 @@ def test_reload_takes_pt_and_onnx(weights, tmp_path):
         for path in (pt, onnx):
             assert _reload(srv, path)["ok"]
             assert _boxes(_post(srv, img)) == want
+    finally:
+        srv.close()
+        fresh.close()
+
+
+def test_reload_takes_sentis(weights, tmp_path):
+    """/reload reads a .sentis file (a synthetic template of new weights)
+    through load_params_auto: the answers are those of a fresh server on
+    the model load_params_auto gives for that file."""
+    from xrseg_tpu_torch.io.weights import load_params_auto
+    from xrseg_tpu_torch.testing import sentis_template
+    new = jax.tree.map(np.copy, weights[0])
+    for branch in new["det"]["cv3"]:
+        b = branch["out"]["b"]
+        b[1], b[3] = b[3], b[1]
+    mcfg = tconfig.ModelConfig(**MODEL)
+    path = sentis_template(mcfg, new, str(tmp_path / "new.sentis"))
+    srv = InferenceServer(_cfg(), params=weights[1], port=0, device="cpu")
+    fresh = InferenceServer(_cfg(), params=load_params_auto(path, mcfg)[0],
+                            port=0, device="cpu")
+    try:
+        srv.start()
+        img = _npy(_img(22))
+        want = _boxes(fresh._format(fresh._run(
+            fresh.pipeline, np.load(io.BytesIO(img))[None], 1)[0], 0.0))
+        assert _boxes(_post(srv, img)) != want
+        out = _reload(srv, path)
+        assert out["ok"] and out["n_params"] == jy.count_params(new)
+        assert _boxes(_post(srv, img)) == want
     finally:
         srv.close()
         fresh.close()

@@ -155,15 +155,37 @@ def test_dequantized_pipeline_matches_jax(weights, frames, tmp_path):
                                   "orbax_dir"])
 def test_load_params_auto_refuses_other_formats(name, tmp_path, weights,
                                                 frames):
-    """.sentis and orbax directories stay refused, naming the npz route;
-    .onnx (a JAX export), .pt and .pth (an ultralytics-style fused state
-    dict) now load, and the pipeline on what was read gives the JAX
-    pipeline's slate on the same params (the name is kept)."""
+    """Orbax directories stay refused, naming the OCDBT/zstd reason and
+    the npz route; .sentis (a synthetic template of the params, read by
+    the JAX loader too), .onnx (a JAX export), .pt and .pth (an
+    ultralytics-style fused state dict) load, and the pipeline on what
+    was read gives the JAX pipeline's slate on the same file or params
+    (the name is kept from when all but .npz were refused)."""
     jcfg, tcfg = _configs()
     path = str(tmp_path / name)
-    if name in ("w.sentis", "orbax_dir"):
-        with pytest.raises(NotImplementedError, match="item 13.*npz"):
+    if name == "orbax_dir":
+        with pytest.raises(NotImplementedError,
+                           match="item 13b.*OCDBT.*zstd.*npz"):
             tw.load_params_auto(path, tcfg.model)
+        return
+    if name == "w.sentis":
+        from xrseg_tpu.io.sentis import load_yolo11_params
+        from xrseg_tpu_torch.testing import sentis_template
+        sentis_template(tcfg.model, weights, path)
+        real = jy.init_params
+        shapes = jax.eval_shape(lambda k: real(k, jcfg.model),
+                                jax.random.key(0))
+        mp = pytest.MonkeyPatch()   # the loader overwrites every leaf
+        mp.setattr(jy, "init_params", lambda k, c: jax.tree.map(
+            lambda a: np.zeros(a.shape, a.dtype), shapes))
+        try:
+            jparams, _ = load_yolo11_params(path, jcfg.model)
+        finally:
+            mp.undo()
+        model, cfg = tw.load_params_auto(path, tcfg.model)
+        assert cfg == tcfg.model
+        _assert_slate_close(_torch_det(model, frames),
+                            _jax_det(jparams, frames))
         return
     if name == "w.onnx":
         from xrseg_tpu.io.onnx_export import export_onnx

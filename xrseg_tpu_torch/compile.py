@@ -782,7 +782,7 @@ def load_compiled(path: str):
 def _main(argv: Optional[Sequence[str]] = None) -> int:
     """Offline model converter:
 
-      python -m xrseg_tpu_torch.compile weights.{pt|onnx|npz} \\
+      python -m xrseg_tpu_torch.compile weights.{pt|onnx|npz|sentis} \\
           --out model.xrseg [--scale n] [--iou 0.6] [--score 0.23] \\
           [--frame-hw 480 640] [--batch 1] [--device cuda]
 

@@ -330,9 +330,11 @@ def _main() -> int:
                     help="COCO instances annotation file "
                          "(e.g. instances_val2017.json); --data is then "
                          "the images directory")
-    ap.add_argument("--weights", help=".pt/.pth (ultralytics state dict), "
-                    ".onnx or .npz weights (.sentis and orbax are refused: "
-                    "convert them to .npz with the JAX package)")
+    ap.add_argument("--weights",
+                    help=".sentis (the reference's artifact), .pt/.pth "
+                         "(ultralytics state dict), .onnx or .npz weights "
+                         "(orbax is refused: convert it to .npz with the "
+                         "JAX package)")
     ap.add_argument("--scale", default="n", choices=list("nsmlx"))
     ap.add_argument("--arch", default="yolo11",
                     choices=["yolo11", "yolov8"])

@@ -14,8 +14,8 @@ examples/demo.py).
       --out out/ [--device cuda]
   python -m xrseg_tpu_torch.examples.demo --mode xr --frames 90 --out out/
 
---ckpt takes .npz, .pt/.pth or .onnx weights; .sentis raises (ROADMAP
-item 13).
+--ckpt takes .npz, .pt/.pth or .onnx weights, --sentis the reference's
+.sentis artifact (io/sentis).
 """
 from __future__ import annotations
 
@@ -43,9 +43,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--arch", default="yolo11",
                     choices=["yolo11", "yolov8"])
     ap.add_argument("--ckpt", default=None,
-                    help="weights to load (.npz/.pt/.onnx)")
+                    help="weights to load (.npz/.pt/.onnx/.sentis)")
     ap.add_argument("--sentis", default=None,
-                    help=".sentis model file: refused (ROADMAP item 13)")
+                    help=".sentis model file (the reference's artifact)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--camera", default=None, metavar="/dev/videoN",
                     help="xr mode: use a live V4L2 camera instead of the "
@@ -70,7 +70,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     os.makedirs(args.out, exist_ok=True)
     mcfg = ModelConfig(arch=args.arch, scale=args.scale)
     params = None
-    if args.ckpt or args.sentis:          # .sentis: load_params_auto refuses
+    if args.ckpt or args.sentis:
         from xrseg_tpu_torch.io.weights import load_params_auto
         params, _ = load_params_auto(args.ckpt or args.sentis, mcfg)
 

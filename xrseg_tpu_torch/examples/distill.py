@@ -15,8 +15,9 @@ The student lands at <out>/student.npz in the JAX package's npz layout
 (every CLI of either package reads it). An .npz teacher carries no
 config: --teacher-arch/--teacher-scale/--teacher-task name it, its class
 count is read from its head. --mesh N distills data-parallel over N
-devices (on --device cpu the CPU repeated N times); .sentis and orbax
-teachers raise (item 13).
+devices (on --device cpu the CPU repeated N times). A .sentis teacher
+(the reference's artifact) loads; orbax teachers raise (ROADMAP item
+13b).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Optional, Sequence
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--teacher", required=True,
-                    help="teacher weights (.npz/.onnx/.pt)")
+                    help="teacher weights (.npz/.onnx/.pt/.sentis)")
     ap.add_argument("--images", help="UNLABELED image dir (pure-response "
                                      "distillation)")
     ap.add_argument("--synthetic", action="store_true",
@@ -60,7 +61,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "(otherwise random init)")
     ap.add_argument("--teacher-arch", default=None,
                     help="teacher arch for metadata-free checkpoints "
-                         "(.npz; .onnx/.pt describe themselves)")
+                         "(.npz; .onnx/.pt describe themselves, a .sentis "
+                         "is read as YOLO11n-seg)")
     ap.add_argument("--teacher-scale", default=None)
     ap.add_argument("--teacher-task", default=None)
     ap.add_argument("--mesh", type=int, default=0,

@@ -11,8 +11,8 @@ prints one JSON object per image:
   ls imgs/*.jpg | python -m xrseg_tpu_torch.examples.serve --ckpt m.npz
   python -m xrseg_tpu_torch.examples.serve --list paths.txt [--device cuda]
 
-Without --ckpt the model is random from --seed. .sentis raises (ROADMAP
-item 13).
+Without --ckpt or --sentis (the reference's .sentis artifact) the model
+is random from --seed.
 """
 from __future__ import annotations
 
@@ -28,9 +28,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--list", default=None, help="file of image paths")
     ap.add_argument("--sentis", default=None,
-                    help=".sentis model file: refused (ROADMAP item 13)")
+                    help=".sentis model file (the reference's artifact)")
     ap.add_argument("--ckpt", default=None,
-                    help="weights (.npz/.pt/.onnx)")
+                    help="weights (.npz/.pt/.onnx/.sentis)")
     ap.add_argument("--scale", default="n")
     ap.add_argument("--arch", default="yolo11",
                     choices=["yolo11", "yolov8"])
@@ -67,7 +67,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
 
     mcfg = ModelConfig(arch=args.arch, scale=args.scale)
-    if args.ckpt or args.sentis:          # .sentis: load_params_auto refuses
+    if args.ckpt or args.sentis:
         params, mcfg = load_params_auto(args.ckpt or args.sentis, mcfg)
     else:
         params = yolo11.init_params(torch.Generator().manual_seed(args.seed),

@@ -3,7 +3,7 @@
 
   python -m xrseg_tpu_torch.examples.train --data /path/train \
       [--val /path/val] --scale n --size 640 --epochs 50 --batch 16 \
-      --out /tmp/run [--weights init.npz|.onnx|.pt] [--resume] \
+      --out /tmp/run [--weights init.npz|.onnx|.pt|.sentis] [--resume] \
       [--device cuda]
 
 Dataset layout (ultralytics): root/images/*.jpg + root/labels/*.txt
@@ -15,7 +15,8 @@ does not fit --classes/--task are transfer-grafted
 conv drawn anew); an .npz is read as a tree whatever head it holds.
 --mesh N trains data-parallel over N devices (on --device cpu the CPU
 repeated N times), with --fsdp its params and optimizer moments sharded
-over them; .sentis and orbax weights raise (item 13).
+over them. --weights also takes the reference's .sentis artifact; orbax
+directories raise (ROADMAP item 13b).
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--max-gt", type=int, default=16)
-    ap.add_argument("--weights", help="initial weights (.npz/.onnx/.pt); "
+    ap.add_argument("--weights",
+                    help="initial weights (.npz/.onnx/.pt/.sentis); "
                     "heads that do not match --classes/--task are "
                     "transfer-grafted (backbone+neck kept, class conv reinit)")
     ap.add_argument("--donor-task", default="segment",

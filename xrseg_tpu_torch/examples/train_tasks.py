@@ -93,8 +93,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="Trainer mode: resume from --ckpt")
     ap.add_argument("--out", default=None, help="save final params (.npz)")
     ap.add_argument("--weights", default=None,
-                    help="donor checkpoint (.npz/.onnx/.pt) to transfer "
-                         "from, e.g. the deployed 80-class segmenter")
+                    help="donor checkpoint (.npz/.onnx/.pt/.sentis) to "
+                         "transfer from, e.g. the deployed 80-class "
+                         "segmenter")
     ap.add_argument("--eval", type=int, default=0, metavar="N",
                     help="after training, score N dataset images through "
                          "the deployed pipeline (OKS AP / rotated AP / "

@@ -7,8 +7,9 @@ under its "/"-joined path, conv weights HWIO under ".../w", biases under
 ".../b", the Proto's transposed-conv weight [kH,kW,I,O] under "up_w".
 `params_to_tree` is the inverse of io/bridge.py (module -> pytree of
 numpy arrays); `load_npz` goes back through io/bridge.params_from_jax.
-`load_params_auto` also reads ultralytics .pt/.pth state dicts
-(io/torch_pt) and ultralytics-contract .onnx exports (io/onnx_loader).
+`load_params_auto` also reads the reference's .sentis artifacts
+(io/sentis), ultralytics .pt/.pth state dicts (io/torch_pt) and
+ultralytics-contract .onnx exports (io/onnx_loader).
 
 quantize_int8 / dequantize_int8: per-output-channel symmetric weight-only
 int8 over the pytree ({q: int8, scale: f32} nodes in place of "w" and
@@ -350,11 +351,11 @@ def load_for_config(path: str, cfg: ModelConfig, donor_cfg: ModelConfig):
     """Weights from `path` as a start for training `cfg` (the training
     scripts' --weights): loaded as they are when their head fits cfg,
     transferred (transfer_params) when it does not. An .npz is read as a
-    tree, whatever head it holds; an .onnx or .pt whose head does not load
-    under `cfg` (the loaders' ValueError, as the JAX scripts catch it) is
-    loaded under `donor_cfg`, and any other load error propagates.
-    Returns (YOLO11 on the CPU, cfg, report or None); cfg is the file's
-    own for an .onnx or .pt whose head fits."""
+    tree, whatever head it holds; an .onnx, .pt or .sentis whose head does
+    not load under `cfg` (the loaders' ValueError, as the JAX scripts
+    catch it) is loaded under `donor_cfg`, and any other load error
+    propagates. Returns (YOLO11 on the CPU, cfg, report or None); cfg is
+    the file's own for an .onnx or .pt whose head fits."""
     if path.endswith(".npz"):
         with np.load(path) as z:
             donor = dequantize_int8(unflatten_params(
@@ -380,18 +381,22 @@ def load_for_config(path: str, cfg: ModelConfig, donor_cfg: ModelConfig):
 
 def load_params_auto(path: str, cfg: ModelConfig = None):
     """Load a YOLO11 from a weights file by extension, as the JAX package's
-    load_params_auto dispatches: .pt/.pth (an ultralytics state dict, BN
-    fused on load: io/torch_pt), .onnx (an ultralytics-contract export:
+    load_params_auto dispatches: .sentis (the reference's deployed uint8
+    artifact: io/sentis), .pt/.pth (an ultralytics state dict, BN fused on
+    load: io/torch_pt), .onnx (an ultralytics-contract export:
     io/onnx_loader) and .npz (either package's flat checkpoint; {q, scale}
     nodes dequantize on load). Returns (model on the CPU, cfg): .pt infers
-    the config when `cfg` is None, .onnx and .npz default to ModelConfig().
+    the config when `cfg` is None, .sentis, .onnx and .npz default to
+    ModelConfig().
 
-    Two formats stay refused (ROADMAP item 13, standing refusals): .sentis,
-    whose JAX reader and writer need the reference's template file, which
-    is in neither this repository nor the card's machine, so a port could
-    not be tested; and orbax checkpoint directories, which need orbax and
-    tensorstore. Convert either to .npz with the JAX package
-    (xrseg_tpu.io.weights.save_npz) and load that."""
+    Orbax checkpoint directories stay refused (ROADMAP item 13b, a
+    standing refusal): orbax writes tensorstore's OCDBT layout, a B-tree of
+    zstd-compressed files, and no machine the port runs on has orbax,
+    tensorstore or a zstd decoder. Convert one to .npz with the JAX
+    package (xrseg_tpu.io.weights.save_npz) and load that."""
+    if path.endswith(".sentis"):
+        from xrseg_tpu_torch.io.sentis import load_yolo11_params
+        return load_yolo11_params(path, cfg)
     if path.endswith((".pt", ".pth")):
         return load_yolo11_pt(path, cfg)
     if path.endswith(".onnx"):
@@ -399,11 +404,10 @@ def load_params_auto(path: str, cfg: ModelConfig = None):
     cfg = cfg if cfg is not None else ModelConfig()
     if path.endswith(".npz"):
         return load_npz(path, cfg), cfg
-    kind, why = ((".sentis", "its reader needs the reference's template "
-                  "file, which is not available") if path.endswith(".sentis")
-                 else ("an orbax checkpoint directory", "it needs orbax and "
-                       "tensorstore"))
     raise NotImplementedError(
-        f"loading {kind} ({path!r}) is refused (ROADMAP item 13, a standing "
-        f"refusal: {why}); convert it to .npz with the JAX package's "
+        f"loading an orbax checkpoint directory ({path!r}) is refused "
+        "(ROADMAP item 13b, a standing refusal: orbax writes tensorstore's "
+        "OCDBT layout of zstd-compressed files, and neither orbax, "
+        "tensorstore nor a zstd decoder is on the machines the port runs "
+        "on); convert it to .npz with the JAX package's "
         "xrseg_tpu.io.weights.save_npz and load that")

@@ -15,8 +15,8 @@ deployment needs:
   GET  /healthz  {"ok": true, ...model and geometry...}
   GET  /stats    per-stage latency percentiles and request counters
   GET  /metrics  the same counters in Prometheus text format (xrseg_*)
-  POST /reload   {"path": "<weights>"}: weight hot-swap (.npz, .pt/.pth
-                 or .onnx, io/weights.load_params_auto); every batch
+  POST /reload   {"path": "<weights>"}: weight hot-swap (.npz, .pt/.pth,
+                 .onnx or .sentis, io/weights.load_params_auto); every batch
                  bucket's module is swapped under the dispatch lock, and
                  requests in flight finish on the old weights
 
@@ -607,7 +607,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--weights", help=".npz (either package's), .pt/.pth "
-                    "(ultralytics state dict) or .onnx weights")
+                    "(ultralytics state dict), .onnx or .sentis "
+                    "weights")
     ap.add_argument("--scale", default="n", choices=list("nsmlx"))
     ap.add_argument("--arch", default="yolo11",
                     choices=["yolo11", "yolov8"])

@@ -9,7 +9,8 @@ pseudo.json` (or any COCO consumer) trains on.
   python -m xrseg_tpu_torch.tools.pseudo_label --images frames/ \
       --weights model.npz --out frames/pseudo.json [--device cuda]
 
-.sentis and orbax weights raise (ROADMAP item 13).
+--weights takes .npz, .pt/.pth, .onnx or .sentis; orbax directories raise
+(ROADMAP item 13b).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--images", required=True, help="unlabeled image dir")
     ap.add_argument("--weights", required=True,
-                    help="teacher weights (.npz/.onnx/.pt)")
+                    help="teacher weights (.npz/.onnx/.pt/.sentis)")
     ap.add_argument("--out", required=True, help="COCO JSON to write")
     ap.add_argument("--score-gate", type=float, default=0.5,
                     help="min teacher confidence for a pseudo label")

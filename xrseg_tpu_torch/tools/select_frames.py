@@ -5,8 +5,9 @@ and print the top-K frames to label.
   python -m xrseg_tpu_torch.tools.select_frames --images frames/ \
       --weights model.npz --k 20 --strategy flip [--device cuda]
 
-On the card each frame's NMS is K1, twice a frame under "flip". .sentis
-and orbax weights raise (ROADMAP item 13).
+On the card each frame's NMS is K1, twice a frame under "flip".
+--weights takes .npz, .pt/.pth, .onnx or .sentis; orbax directories
+raise (ROADMAP item 13b).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ pred.txt`, or inline with --gt here.
   python -m xrseg_tpu_torch.tools.track_video --images frames/ \\
       --out pred.txt --gt gt.txt
 
-.sentis raises (ROADMAP item 13).
+--sentis loads the reference's .sentis artifact (io/sentis).
 """
 from __future__ import annotations
 
@@ -35,9 +35,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--scale", default="n", choices=list("nsmlx"))
     ap.add_argument("--arch", default="yolo11",
                     choices=["yolo11", "yolov8"])
-    ap.add_argument("--ckpt", default=None, help="weights (.npz/.onnx/.pt)")
+    ap.add_argument("--ckpt", default=None,
+                    help="weights (.npz/.onnx/.pt/.sentis)")
     ap.add_argument("--sentis", default=None,
-                    help=".sentis model file: refused (ROADMAP item 13)")
+                    help=".sentis model file (the reference's artifact)")
     ap.add_argument("--seed", type=int, default=0,
                     help="random weights from this seed without --ckpt")
     ap.add_argument("--score-threshold", type=float, default=None)
@@ -74,7 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     mcfg = ModelConfig(arch=args.arch, scale=args.scale)
     params = None
-    weights = args.ckpt or args.sentis    # .sentis: load_params_auto refuses
+    weights = args.ckpt or args.sentis
     if weights:
         from xrseg_tpu_torch.io.weights import load_params_auto
         params, _ = load_params_auto(weights, mcfg)
