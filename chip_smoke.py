@@ -325,13 +325,48 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    One line "sentis: {...}" gives the seconds of parse, load, the steps
    and the write, the K1 launches of each part and the phase's seconds
    beside the card's name and power limit.
-15. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+15. the main path's probe tools (lines starting `probes:`), each
+   tool's main(argv) with --device cuda at full width (YOLO11n-seg,
+   640x640, 80 classes, 8400 anchors) and its JSON row parsed; the
+   launch counters are zeroed just before each tool and read just after,
+   and the calls of every CompiledPipeline and XRTickPipeline (each one
+   dispatch, warm-ups included) are counted beside them:
+   - tools.xr_probe --frames 120 with detection_params weights from seed
+     0 on 480x640 synthetic frames with depth and pose, sequential,
+     --fused and --fused --pipelined 2 (depth 1 then 2): rc 0, 120 timed
+     frames a window with points in every one (points_min > 0), K1 once
+     a dispatch and nothing else; fps, lost frames, points and the stage
+     split;
+   - tools.executor_probe 60 (after 8 warm-up frames): K1 once a
+     dispatch (69); p50/p95, interactive fps, the ticks spent in RUNNING
+     before the CUDA event query flipped, the wait/readback split;
+   - tools.loadtest in-process at micro-batch 1 and 8, 16 clients x 20
+     requests of 640x640 frames (the tool caps its server's queue at one
+     request a client: the default cap, 8 requests at micro-batch 1,
+     sheds 16 clients' posts with 503s): 320 answered, no error; K1 once
+     a batch
+     the server ran plus once a pipeline warm-up, and the batch
+     histogram adds up to the load and run_load's 19 warm-up posts;
+   - tools.loadtest --url against `python -m
+     xrseg_tpu_torch.runtime.server --port 0 --frame-hw 640 640
+     --micro-batch 8 --max-pending 16`, then micro-batch 1, each started
+     as a separate process (its
+     `serving on` line within 120 s), stopped with terminate, wait and
+     kill: 320 answered, no error, /stats counts every post (and at
+     micro-batch 8 its batch_hist adds up to them);
+   - tools.o2o_latency_ab --frames 150: the plain pipeline launches K1
+     once a call (warm-ups included) and the o2o pipeline no NMS kernel;
+     each arm's p50/p95/p99 and worst frames.
+   One line "probes: {...}" gives the readings, the launches and the
+   seconds beside the card's name and power limit.
+16. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
    segment and pose evals, the training validations, the transferred
    fit's validation, the pseudo-labels and both rankings, phase 12's
-   parallel paths and scripts, phase 13's mesh fit validation and phase
-   14's .sentis serve, tick and redeploy paths, K3's
+   parallel paths and scripts, phase 13's mesh fit validation, phase
+   14's .sentis serve, tick and redeploy paths and phase 15's probe
+   tools, K3's
    over the obb, obb-TTA, obb eval, obb training-validation, obb DP,
    task-report and obb mesh fit validation paths, K5's and K6's over
    phase 8's WBF paths; no path runs K4, as in the JAX package), then the
@@ -348,6 +383,7 @@ import copy
 import dataclasses
 import io
 import json
+import select
 import shutil
 import socket
 import statistics
@@ -357,6 +393,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -365,7 +402,8 @@ from PIL import Image
 
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.compile import (DEFAULT_TTA_VIEWS,
-                                     ULTRALYTICS_TTA_VIEWS,
+                                     ULTRALYTICS_TTA_VIEWS, CompiledPipeline,
+                                     XRTickPipeline,
                                      build_ensemble_pipeline, build_pipeline,
                                      build_xr_tick_pipeline,
                                      decode_task_outputs, export_compiled,
@@ -432,10 +470,14 @@ from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
 from xrseg_tpu_torch.testing import (detection_params, sentis_template,
                                      xr_frames)
+from xrseg_tpu_torch.tools import executor_probe as tool_executor_probe
+from xrseg_tpu_torch.tools import loadtest as tool_loadtest
+from xrseg_tpu_torch.tools import o2o_latency_ab as tool_o2o_ab
 from xrseg_tpu_torch.tools import pseudo_label as tool_pseudo
 from xrseg_tpu_torch.tools import select_frames as tool_select
 from xrseg_tpu_torch.tools import task_accuracy_report as tool_task_report
 from xrseg_tpu_torch.tools import track_video as tool_track
+from xrseg_tpu_torch.tools import xr_probe as tool_xr_probe
 from xrseg_tpu_torch.train import data as data_lib
 from xrseg_tpu_torch.train import train_step as train_ts
 from xrseg_tpu_torch.train.active import rank_frames
@@ -484,6 +526,7 @@ K4_SHAPE = dict(B=8, D=MAX_DET, nm=MODEL.num_masks, hw=MODEL.mask_size)
 # client threads, 16 requests each, to a server at micro-batch 1 and 8
 SERVE_FRAMES, SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 16, 16
 SERVE_WINDOW_MS = 3.0
+BACKLOG_CONNECTS = 32
 SERVE_TIMEOUT_S = 60.0
 # frame pixels; answers are rounded to 0.01 px, and a batch of 8 may run
 # other cuDNN algorithms than a batch of 1, which can move the last bits
@@ -1292,6 +1335,31 @@ def http(port: int, body: bytes, path: str = "/infer"):
         return e.code, json.loads(e.read())
 
 
+def connects_before_accept(listener) -> int:
+    """How many of BACKLOG_CONNECTS connects to a fresh `listener` (an
+    HTTP server class) complete within 2 s while no accept loop runs:
+    those past its listen backlog have their SYNs dropped and retry
+    seconds later."""
+    srv = listener(("127.0.0.1", 0), BaseHTTPRequestHandler)
+    socks = []
+    try:
+        for _ in range(BACKLOG_CONNECTS):
+            s = socket.socket()
+            socks.append(s)
+            s.setblocking(False)
+            s.connect_ex(srv.server_address)
+        pending, deadline = set(socks), time.monotonic() + 2.0
+        while pending and time.monotonic() < deadline:
+            _, done, _ = select.select([], list(pending), [], 0.1)
+            pending -= set(done)
+        return sum(s.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR) == 0
+                   for s in socks if s not in pending)
+    finally:
+        for s in socks:
+            s.close()
+        srv.server_close()
+
+
 def npy_bytes(frame: np.ndarray) -> bytes:
     buf = io.BytesIO()
     np.save(buf, frame)
@@ -1443,6 +1511,19 @@ def phase_server(cfg, model, frames, b1) -> tuple:
                   f"{statistics.median(host_ms(b1, frames[:1], 5)):.3f} ms"
                   f" on {name}", flush=True)
             warm_buckets(srv, bodies)
+            # why the server listens with a backlog of its own: 16
+            # clients connect at once, and a SYN dropped past the
+            # backlog retries 1, 2, 4 ... s later, past a client timeout
+            ours = connects_before_accept(type(srv.httpd))
+            default = connects_before_accept(ThreadingHTTPServer)
+            check(ours == BACKLOG_CONNECTS,
+                  f"{ours} of {BACKLOG_CONNECTS} connects reached the "
+                  "server's listen backlog")
+            print(f"serve: {ours} of {BACKLOG_CONNECTS} connects completed "
+                  "before the accept loop ran at the server's backlog of "
+                  f"{srv.httpd.request_queue_size}; {default} at "
+                  f"socketserver's default of "
+                  f"{ThreadingHTTPServer.request_queue_size}", flush=True)
 
         # one server takes both loads: its dispatch thread reads the cap
         # for every batch, so micro-batch 1 is the same server capped at 1
@@ -4405,6 +4486,295 @@ def phase_sentis(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 15. the main path's probe tools
+# ---------------------------------------------------------------------------
+
+PROBE_FRAMES = 120                  # xr_probe's timed tracked frames
+EXEC_PROBE_FRAMES = 60
+PROBE_WARMUP = 8                    # executor_probe's default warm-up frames
+LOAD_CLIENTS, LOAD_PER_CLIENT = 16, 20      # the JAX tool's defaults
+LOAD_HW = (640, 640)
+# the server's default shedding cap is 8 micro-batches (8 requests at
+# micro-batch 1), which 16 clients overrun; the tool's in-process server
+# takes one a client, and so does the separate one
+LOAD_PENDING = LOAD_CLIENTS
+O2O_FRAMES = 150
+O2O_WARMUP = 10                     # the tool's default
+O2O_SIZE = 640
+SERVER_CMD = [sys.executable, "-m", "xrseg_tpu_torch.runtime.server"]
+SERVER_START_S = 120.0
+PROBE_DIR = Path(__file__).resolve().parent / "build" / "probes"
+
+
+@contextlib.contextmanager
+def dispatch_counts():
+    """Count the calls of every frame program while the block runs:
+    CompiledPipeline and XRTickPipeline calls (each one dispatch, warm-ups
+    included) by (class, o2o), and their warm-ups. Yields the dict it
+    fills."""
+    counts: dict = {}
+    saved = [(cls, name, cls.__dict__[name])
+             for cls in (CompiledPipeline, XRTickPipeline)
+             for name in ("__call__", "warmup")]
+
+    def wrap(cls, name, fn):
+        def counted_fn(self, *args, **kwargs):
+            key = (cls.__name__, name, bool(self.cfg.model.o2o))
+            counts[key] = counts.get(key, 0) + 1
+            return fn(self, *args, **kwargs)
+        return counted_fn
+
+    for cls, name, fn in saved:
+        setattr(cls, name, wrap(cls, name, fn))
+    try:
+        yield counts
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def n_calls(counts: dict, o2o=None) -> int:
+    return sum(v for (_, name, o), v in counts.items()
+               if name == "__call__" and (o2o is None or o == o2o))
+
+
+def run_tool(main_fn, argv, what: str) -> tuple:
+    """A tool's main(argv) on the card, the launch counters zeroed just
+    before and read just after and its frame programs' calls counted:
+    (its JSON rows, its stdout, its stderr, the counts, K1 by batch, the
+    call counts, seconds)."""
+    err = io.StringIO()
+    zero_counters()
+    t0 = time.perf_counter()
+    with dispatch_counts() as calls, contextlib.redirect_stderr(err):
+        out = run_script(main_fn, argv, what)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counters()
+    by_b = dict(nk.nms_select_batched_cuda.launches_by_batch)
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(bool(rows), f"{what} printed no JSON row: {out[-2000:]}")
+    return rows, out, err.getvalue(), counts, by_b, calls, sec
+
+
+def probe_xr(label: str, extra: list, numbers, launches, seconds) -> None:
+    """xr_probe at full width: rc 0, points in every timed window, K1 once
+    per dispatch and nothing else."""
+    rows, out, _, counts, by_b, calls, sec = run_tool(
+        tool_xr_probe.main, ["--frames", str(PROBE_FRAMES), *extra,
+                             "--device", DEVICE], f"xr_probe {label}")
+    for row in rows:
+        check(row["frames_timed"] == PROBE_FRAMES and row["points_min"] > 0
+              and row["weights"] == "fixture",
+              f"xr_probe {label}: {row}")
+    n = n_calls(calls)
+    only(counts, {K1["name"]: n}, f"xr_probe {label} (dispatches {n})")
+    lock = [ln for ln in out.splitlines() if ln.startswith("laser-selected")]
+    numbers[f"xr_probe {label}"] = {
+        "lock": lock, "dispatches": n, "k1_by_batch": by_b,
+        "rows": [{k: row[k] for k in (
+            "value", "frames_timed", "lost_frames", "points_min",
+            "points_p50", "stage_p50_ms", "fused_tick", "pipelined_depth")}
+            for row in rows]}
+    launches[f"probes xr_probe {label}"] = counts[K1["name"]]
+    seconds[f"xr_probe {label}"] = sec
+    for row in rows:
+        print(f"probes: xr_probe {label} depth {row['pipelined_depth']}: "
+              f"{row['value']} tracked frames/s over {row['frames_timed']}, "
+              f"lost {row['lost_frames']}, points min {row['points_min']} "
+              f"p50 {row['points_p50']}, stage p50 ms "
+              f"{row['stage_p50_ms']}; K1 {counts[K1['name']]} = "
+              f"dispatches {n} (by batch {by_b})", flush=True)
+
+
+def start_server_process(micro_batch: int, log: Path) -> tuple:
+    """`python -m xrseg_tpu_torch.runtime.server --port 0` as a separate
+    process: (process, url), read from its `serving on` line within
+    SERVER_START_S. The caller stops it."""
+    proc = subprocess.Popen(
+        [*SERVER_CMD, "--port", "0", "--frame-hw", *map(str, LOAD_HW),
+         "--micro-batch", str(micro_batch), "--max-pending",
+         str(LOAD_PENDING)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=Path(__file__).resolve().parent)
+    lines: list = []
+    found = threading.Event()
+
+    def read():
+        for ln in proc.stdout:
+            lines.append(ln)
+            if "serving on http://" in ln:
+                found.set()
+        found.set()                          # the process ended
+    threading.Thread(target=read, daemon=True).start()
+    found.wait(SERVER_START_S)
+    url = next((ln.split("serving on ")[1].split()[0] for ln in lines
+                if "serving on http://" in ln), None)
+    if url is None:
+        stop_process(proc)
+        log.write_text("".join(lines))
+        raise SmokeFailure(f"server (micro-batch {micro_batch}) did not "
+                           f"start within {SERVER_START_S} s: "
+                           f"{''.join(lines)[-2000:]}")
+    return proc, url, lines
+
+
+def stop_process(proc) -> int:
+    proc.terminate()
+    try:
+        return proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(timeout=30)
+
+
+def probe_load_in_process(mb: int, numbers, launches, seconds) -> dict:
+    rows, _, _, counts, by_b, calls, sec = run_tool(
+        tool_loadtest.main,
+        ["--clients", str(LOAD_CLIENTS), "--per-client",
+         str(LOAD_PER_CLIENT), "--micro-batch", str(mb), "--frame-hw",
+         *map(str, LOAD_HW), "--device", DEVICE], f"loadtest mb {mb}")
+    row = rows[-1]
+    want = LOAD_CLIENTS * LOAD_PER_CLIENT
+    check(row["errors"] == 0 and row["requests"] == want,
+          f"loadtest in-process mb {mb}: {row}")
+    batches = sum(row["batch_hist"].values())
+    warmups = sum(v for (_, name, _), v in calls.items() if name == "warmup")
+    only(counts, {K1["name"]: batches + warmups},
+         f"loadtest in-process mb {mb} ({batches} batches, {warmups} "
+         "pipeline warm-ups)")
+    served = want + sum({1, 2, LOAD_CLIENTS})    # run_load's warm-ups too
+    check(sum(int(k) * v for k, v in row["batch_hist"].items()) == served,
+          f"loadtest in-process mb {mb}: batch_hist {row['batch_hist']} "
+          f"does not add up to {served} requests")
+    numbers[f"loadtest in-process mb {mb}"] = {**row, "k1_by_batch": by_b}
+    launches[f"probes loadtest mb {mb}"] = counts[K1["name"]]
+    seconds[f"loadtest in-process mb {mb}"] = sec
+    print(f"probes: loadtest in-process micro-batch {mb}: {row['fps']} "
+          f"requests/s, p50 {row['p50_ms']} ms p95 {row['p95_ms']} ms, "
+          f"batches {row['batch_hist']}; K1 {counts[K1['name']]} = "
+          f"{batches} batches + {warmups} warm-ups (by batch {by_b})",
+          flush=True)
+    return row
+
+
+def probe_load_separate(mb: int, numbers, seconds) -> dict:
+    t0 = time.perf_counter()
+    log = PROBE_DIR / f"server_mb{mb}.log"
+    proc, url, lines = start_server_process(mb, log)
+    try:
+        start_s = time.perf_counter() - t0
+        out = run_script(tool_loadtest.main, [
+            "--url", url, "--clients", str(LOAD_CLIENTS), "--per-client",
+            str(LOAD_PER_CLIENT), "--frame-hw", *map(str, LOAD_HW)],
+            f"loadtest --url mb {mb}")
+        row = json.loads(out.strip().splitlines()[-1])
+        with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        rc = stop_process(proc)
+        log.write_text("".join(lines))
+    want = LOAD_CLIENTS * LOAD_PER_CLIENT
+    check(row["errors"] == 0 and row["requests"] == want,
+          f"loadtest --url mb {mb}: {row}")
+    # the server answered the load and run_load's warm-up bursts
+    served = want + sum({1, 2, LOAD_CLIENTS})
+    check(stats["requests"] == served and stats["errors"] == 0,
+          f"separate server mb {mb}: /stats {stats['requests']} requests, "
+          f"{stats['errors']} errors; expected {served}, 0")
+    hist = stats.get("batch_hist", {})
+    if mb > 1:
+        check(sum(int(k) * v for k, v in hist.items()) == served,
+              f"separate server mb {mb}: batch_hist {hist} does not add up "
+              f"to {served} requests")
+    numbers[f"loadtest separate process mb {mb}"] = {
+        **row, "batch_hist": hist, "server_start_s": start_s,
+        "server_exit": rc}
+    seconds[f"loadtest separate process mb {mb}"] = time.perf_counter() - t0
+    print(f"probes: loadtest against a separate server process, "
+          f"micro-batch {mb}: {row['fps']} requests/s, p50 {row['p50_ms']} "
+          f"ms p95 {row['p95_ms']} ms, batches {hist or 'not kept at 1'}; "
+          f"the server started in {start_s:.1f} s and exited {rc}",
+          flush=True)
+    return row
+
+
+def phase_probes(smi: str) -> dict:
+    """The port's probe tools on the card at full width: xr_probe (the XR
+    tick end to end, three modes), executor_probe, loadtest in-process
+    and against a separate server process at micro-batch 1 and 8, and
+    o2o_latency_ab; each tool's K1 launches counted around its run."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PROBE_DIR, ignore_errors=True)
+    PROBE_DIR.mkdir(parents=True)
+    numbers, launches, seconds = {}, {}, {}
+
+    for label, extra in (("sequential", []), ("fused", ["--fused"]),
+                         ("pipelined", ["--fused", "--pipelined", "2"])):
+        probe_xr(label, extra, numbers, launches, seconds)
+
+    rows, _, err, counts, by_b, calls, sec = run_tool(
+        tool_executor_probe.main, [str(EXEC_PROBE_FRAMES), "--warmup",
+                                   str(PROBE_WARMUP), "--device", DEVICE],
+        "executor_probe")
+    row = rows[-1]
+    check(row["n_frames"] == EXEC_PROBE_FRAMES and row["platform"] == DEVICE
+          and row["p50_latency_ms"] > 0, f"executor_probe: {row}")
+    n = n_calls(calls)
+    # every frame, warm-up frames included, and the pipeline's warm-up
+    check(n == EXEC_PROBE_FRAMES + PROBE_WARMUP + 1,
+          f"executor_probe: {n} dispatches")
+    only(counts, {K1["name"]: n}, "executor_probe")
+    numbers["executor_probe"] = {**row, "k1_by_batch": by_b}
+    launches["probes executor_probe"] = counts[K1["name"]]
+    seconds["executor_probe"] = sec
+    print(f"probes: executor_probe: p50 {row['p50_latency_ms']} ms p95 "
+          f"{row['p95_latency_ms']} ms, {row['interactive_fps']} interactive "
+          f"fps, RUNNING ticks p50 {row['running_ticks_p50']} max "
+          f"{row['running_ticks_max']}, poll wait p50 "
+          f"{row['running_wait_ms_p50']} ms, readback p50 "
+          f"{row['readback_ms_p50']} ms; K1 {counts[K1['name']]} = "
+          f"dispatches {n}", flush=True)
+    print(f"probes: {err.strip()}", flush=True)
+
+    for mb in (1, 8):
+        probe_load_in_process(mb, numbers, launches, seconds)
+    for mb in (8, 1):
+        probe_load_separate(mb, numbers, seconds)
+
+    rows, _, _, counts, by_b, calls, sec = run_tool(
+        tool_o2o_ab.main, ["--frames", str(O2O_FRAMES), "--warmup",
+                           str(O2O_WARMUP), "--size", str(O2O_SIZE),
+                           "--device", DEVICE],
+        "o2o_latency_ab")
+    row = rows[-1]
+    plain_calls, o2o_calls = n_calls(calls, False), n_calls(calls, True)
+    check(plain_calls == o2o_calls == O2O_FRAMES + O2O_WARMUP + 1,
+          f"o2o_latency_ab: calls plain {plain_calls}, o2o {o2o_calls}")
+    only(counts, {K1["name"]: plain_calls}, "o2o_latency_ab (the o2o arm "
+         "must launch no NMS kernel)")
+    check(row["frames"] == O2O_FRAMES and all(
+        0 <= i < O2O_FRAMES for arm in ("plain", "o2o")
+        for i in row[arm]["worst_at_frame"]), f"o2o_latency_ab: {row}")
+    numbers["o2o_latency_ab"] = row
+    launches["probes o2o plain"] = counts[K1["name"]]
+    seconds["o2o_latency_ab"] = sec
+    print("probes: o2o_latency_ab b=1, ms: " + ", ".join(
+        f"{arm} p50 {row[arm]['p50']} p95 {row[arm]['p95']} p99 "
+        f"{row[arm]['p99']} worst {row[arm]['worst_ms']} at "
+        f"{row[arm]['worst_at_frame']}" for arm in ("plain", "o2o"))
+        + f"; p50 delta {row['p50_delta_ms']}; K1 {counts[K1['name']]} "
+        f"(plain calls {plain_calls})", flush=True)
+
+    seconds["whole phase"] = time.perf_counter() - t0
+    print("probes: " + json.dumps({
+        "card": smi, "numbers": numbers, "launches": launches,
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}}),
+        flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -4538,6 +4908,11 @@ def main() -> int:
         st = phase_sentis(smi)["launches"]
         seconds["sentis"] = time.perf_counter() - t0 - sum(seconds.values())
         for path, n in st.items():
+            kernels[0]["launches"] += n
+            kernels[0]["launches_by_path"][path] = n
+        pr = phase_probes(smi)["launches"]
+        seconds["probes"] = time.perf_counter() - t0 - sum(seconds.values())
+        for path, n in pr.items():
             kernels[0]["launches"] += n
             kernels[0]["launches_by_path"][path] = n
     except SmokeFailure as e:

@@ -2,7 +2,10 @@
 JAX nor anything of the xrseg_tpu package, and importing them touches no
 device. Checked twice: by importing every module in a fresh interpreter
 and reading sys.modules, and by scanning every import statement in the
-sources (which also catches imports inside functions)."""
+sources (which also catches imports inside functions). And the port is
+whole: every subpackage re-exports its JAX twin's names, and every public
+function and class of a JAX module has a counterpart, or a listed reason
+why not."""
 import ast
 import os
 import subprocess
@@ -172,3 +175,122 @@ def test_negative_stride_frame_equals_its_copy():
         _, out = step(ts.TrainState(m, opt.init(m), 0), b)
         metrics.append({k: float(v) for k, v in out.items()})
     assert metrics[0] == metrics[1]
+
+
+# ---------------------------------------------------------------------------
+# every public name of the JAX package has a counterpart in the port
+# ---------------------------------------------------------------------------
+
+JAX_PKG = ROOT / "xrseg_tpu"
+# JAX module -> the port's modules that hold its names, where they moved
+MOVED = {
+    "ops/pallas_kernels.py": ("ops/nms_kernels.py", "ops/mask_kernels.py"),
+}
+# (JAX module, name) -> the port's counterpart under another name or in
+# another place, "module:attribute", checked by importing it
+COUNTERPART = {
+    ("ops/pallas_kernels.py", "nms_select_pallas"):
+        "xrseg_tpu_torch.ops.nms_kernels:nms_select_cuda",
+    ("ops/pallas_kernels.py", "nms_select_batched_pallas"):
+        "xrseg_tpu_torch.ops.nms_kernels:nms_select_batched_cuda",
+    ("ops/pallas_kernels.py", "nms_rotated_batched_pallas"):
+        "xrseg_tpu_torch.ops.nms_kernels:nms_rotated_batched_cuda",
+    ("ops/pallas_kernels.py", "mask_synth_crop_pallas"):
+        "xrseg_tpu_torch.ops.mask_kernels:mask_synth_crop_cuda",
+    ("models/yolo11.py", "ordered_param_slots"):
+        "xrseg_tpu_torch.io.onnx_loader:ordered_param_slots",
+    **{("models/yolo11.py", m): f"xrseg_tpu_torch.models.yolo11:YOLO11.{m}"
+       for m in ("forward", "forward_train", "backbone", "neck",
+                 "head_outputs")},
+    # the classify task runs through YOLO11.forward (cls_head)
+    ("models/yolo11.py", "classify_forward"):
+        "xrseg_tpu_torch.models.yolo11:ClassifyHead.forward",
+    # the port's resize_normalize takes its output dtype
+    ("ops/preprocess.py", "resize_normalize_bf16"):
+        "xrseg_tpu_torch.ops.preprocess:resize_normalize",
+}
+# (JAX module, name) -> why the port has none
+NO_PORT = {
+    ("__init__.py", "enable_compile_cache"):
+        "XLA's persistent compilation cache; eager torch compiles nothing",
+    ("train/preflight.py", "jaxpr_peak_bytes"):
+        "reads a jaxpr; the port's preflight estimates from the step's "
+        "tensors",
+    ("io/native.py", "NativeUnavailable"):
+        "the port builds the native library or raises; no numpy fallback "
+        "to signal",
+    ("io/weights.py", "load_orbax"):
+        "orbax checkpoints are a standing refusal (ROADMAP item 13b): "
+        "orbax-checkpoint requires jax",
+    ("io/weights.py", "save_orbax"): "as load_orbax",
+    ("models/layers.py", "KeyGen"):
+        "JAX PRNG key splitting; the port draws from a torch.Generator",
+    ("models/layers.py", "autopad"):
+        "the port's convs are nn.Modules that pad k // 2 themselves",
+    ("models/layers.py", "conv2d_f32acc"):
+        "a custom_vjp for float32 accumulation; torch convs accumulate in "
+        "float32 and autograd differentiates them",
+    ("models/layers.py", "convT2x_f32acc"): "as conv2d_f32acc",
+    ("models/layers.py", "conv0_s2d_apply"):
+        "a space-to-depth stem for the TPU's MXU that the JAX model does "
+        "not use either (xrseg_tpu/models/yolo11.py:281)",
+    **{("models/layers.py", name):
+       "the functional layers' init/apply pairs are nn.Modules in the port"
+       for name in ("attention_init", "attention_apply", "bottleneck_init",
+                    "bottleneck_apply", "c2f_init", "c2psa_init",
+                    "c2psa_apply", "c3k2_init", "c3k2_apply", "c3k_init",
+                    "c3k_apply", "conv_init", "dwconv_init", "dwconv_apply",
+                    "head_conv_init", "head_conv_apply", "proto_init",
+                    "proto_apply", "psablock_init", "psablock_apply",
+                    "sppf_init", "sppf_apply")},
+}
+
+
+def _defined(path: Path) -> set:
+    """The public top-level functions and classes of a module."""
+    return {n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+def _bound(path: Path) -> set:
+    """Every top-level name a module binds (defs, classes, assignments,
+    imports)."""
+    names = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            names |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+        elif isinstance(n, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in n.names}
+    return names
+
+
+JAX_MODULES = sorted(str(p.relative_to(JAX_PKG))
+                     for p in JAX_PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_public_name_has_a_counterpart(rel):
+    """Each public function and class of xrseg_tpu/<rel> is defined or
+    bound at the same path in the port (or in the modules it moved to),
+    or stands in COUNTERPART (checked by import) or NO_PORT (with its
+    reason). Stale entries fail too, so the lists stay what the diff
+    finds."""
+    import importlib
+    jax_names = _defined(JAX_PKG / rel)
+    homes = [PORT / m for m in MOVED.get(rel, (rel,))]
+    assert all(h.exists() for h in homes), f"no port module for {rel}"
+    port_names = set().union(*(_bound(h) for h in homes))
+    missing = jax_names - port_names
+    for name in sorted(missing & {n for m, n in COUNTERPART if m == rel}):
+        mod, attr = COUNTERPART[(rel, name)].split(":")
+        obj = importlib.import_module(mod)
+        for part in attr.split("."):
+            obj = getattr(obj, part)
+        assert callable(obj), COUNTERPART[(rel, name)]
+    listed = {n for m, n in list(COUNTERPART) + list(NO_PORT) if m == rel}
+    assert missing == listed, (
+        f"{rel}: unported {sorted(missing - listed)}; listed but "
+        f"present or gone {sorted(listed - missing)}")

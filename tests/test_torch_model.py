@@ -168,3 +168,18 @@ def test_forward_rejects_wrong_input_size():
     model = ty.YOLO11(ModelConfig(input_size=(64, 64)))
     with pytest.raises(ValueError, match="input_size"):
         model(torch.zeros(1, 32, 64, 3))
+
+
+def test_raw_outputs_onnx_layout_matches_jax():
+    """The reference ONNX layout of preds and protos, against JAX's on the
+    same seeded arrays."""
+    rng = np.random.default_rng(0)
+    out = {"preds": rng.standard_normal((2, 84, 116)).astype(np.float32),
+           "protos": rng.standard_normal((2, 16, 24, 32)).astype(np.float32)}
+    got = ty.raw_outputs_onnx_layout(
+        {k: torch.from_numpy(v) for k, v in out.items()})
+    want = jy.raw_outputs_onnx_layout(
+        {k: jnp.asarray(v) for k, v in out.items()})
+    assert [tuple(g.shape) for g in got] == [(2, 116, 84), (2, 32, 16, 24)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -175,3 +175,34 @@ def test_resolve_backend():
     assert tnms.resolve_backend("cuda", x) == "cuda"
     with pytest.raises(ValueError, match="pallas"):
         tnms.resolve_backend("pallas", x)
+
+
+def _iou_cases(seed=0, K=24):
+    """[K,4] x1y1x2y2 from a numpy seed, with the degenerate cases at the
+    front: a zero-area box, two identical boxes, a box disjoint from all
+    others, an inverted box (x2 < x1) and two zero-area boxes whose union
+    is 0."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 200, (K, 2))
+    c = np.concatenate([xy, xy + rng.uniform(1, 80, (K, 2))], -1)
+    c[0] = (10, 10, 10, 40)                     # zero width
+    c[1] = c[2] = (20.5, 30.25, 90.75, 70.125)  # identical
+    c[3] = (900, 900, 950, 960)                 # disjoint from all
+    c[4] = (60, 10, 30, 50)                     # inverted in x
+    c[5] = (5, 5, 5, 5)                         # a point
+    c[6] = (300, 300, 300, 300)                 # another: union 0 with c[5]
+    return c.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pairwise_iou_matches_jax(seed):
+    """pairwise_iou equals JAX's bit for bit (atol 0): areas clamped at 0,
+    0 wherever the union is 0."""
+    c = _iou_cases(seed)
+    got = tnms.pairwise_iou(torch.from_numpy(c)).numpy()
+    want = np.asarray(jnms.pairwise_iou(jnp.asarray(c)))
+    assert got.shape == want.shape == (len(c), len(c))
+    np.testing.assert_array_equal(got, want)
+    assert got[1, 2] == 1.0 and got[3, 7:].max() == 0.0
+    assert got[5, 6] == 0.0 and got[5, 5] == 0.0 and got[0, 0] == 0.0
+    assert np.isfinite(got).all()

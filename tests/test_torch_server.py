@@ -11,6 +11,8 @@ value across a rounding edge by one unit).
 """
 import io
 import json
+import select
+import socket
 import subprocess
 import sys
 import threading
@@ -382,6 +384,31 @@ def test_overload_sheds_unbatched_path(weights):
         s = _get(srv, "/stats")
         assert s["shed"] == n - 2 and s["queue_depth"] == 0
     finally:
+        srv.close()
+
+
+def test_a_burst_of_connections_waits_in_the_backlog(weights):
+    """32 clients that connect before the accept loop runs all complete
+    their handshake: none has its SYN dropped to retry seconds later, as
+    socketserver's backlog of 5 would do from the seventh on."""
+    srv = InferenceServer(_cfg(), params=weights[1], port=0, device="cpu")
+    socks = []
+    try:
+        for _ in range(32):
+            s = socket.socket()
+            s.setblocking(False)
+            s.connect_ex(("127.0.0.1", srv.port))
+            socks.append(s)
+        pending, deadline = set(socks), time.monotonic() + 3.0
+        while pending and time.monotonic() < deadline:
+            _, done, _ = select.select([], list(pending), [], 0.1)
+            pending -= set(done)
+        assert not pending, f"{len(pending)} of 32 connects still waiting"
+        assert all(s.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR) == 0
+                   for s in socks)
+    finally:
+        for s in socks:
+            s.close()
         srv.close()
 
 

@@ -512,6 +512,13 @@ class YOLO11(nn.Module):
         return out
 
 
+def raw_outputs_onnx_layout(out: Dict[str, torch.Tensor]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference ONNX layout of a forward's preds and protos:
+    ([B,116,A], [B,nm,H,W]) (IEModelEditorConverter.cs:50-58)."""
+    return out["preds"].transpose(1, 2), out["protos"].permute(0, 3, 1, 2)
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> YOLO11:
     """A freshly initialised YOLO11 on the CPU. Kaiming-uniform convs and
     the standard YOLO head-bias recipe, drawn from `gen` (the numbers

@@ -54,6 +54,19 @@ def xywh_to_corners(xywh: torch.Tensor) -> torch.Tensor:
     return torch.cat([cxy - half, cxy + half], -1)
 
 
+def pairwise_iou(corners: torch.Tensor) -> torch.Tensor:
+    """[K,4] x1y1x2y2 -> [K,K] IoU matrix (0 where the union is 0)."""
+    x1, y1, x2, y2 = corners.unbind(-1)
+    area = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
+    ix1 = torch.maximum(x1[:, None], x1[None, :])
+    iy1 = torch.maximum(y1[:, None], y1[None, :])
+    ix2 = torch.minimum(x2[:, None], x2[None, :])
+    iy2 = torch.minimum(y2[:, None], y2[None, :])
+    inter = (ix2 - ix1).clamp_min(0) * (iy2 - iy1).clamp_min(0)
+    union = area[:, None] + area[None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
 def _select_and_suppress(corners: torch.Tensor, scores: torch.Tensor,
                          alive0: torch.Tensor, iou_threshold: float,
                          max_det: int):

@@ -110,6 +110,15 @@ def rle_decode(rle: dict) -> np.ndarray:
     return flat.reshape((h, w), order="F")
 
 
+class _Listener(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog sized for a burst of
+    clients. socketserver's default of 5 lets the kernel drop the SYN of
+    every connection past the sixth that arrives before the accept loop
+    runs, and a client whose retries back off (1, 2, 4, ... s) can wait
+    out its whole timeout before it is accepted."""
+    request_queue_size = 128
+
+
 class ServerOverloaded(RuntimeError):
     """Raised when the server sheds a request instead of queueing it:
     bounded pending work, failing fast with 503 + Retry-After."""
@@ -260,7 +269,7 @@ class InferenceServer:
                 else:
                     self._reply(404, {"error": "unknown path"})
 
-        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.httpd = _Listener((host, port), Handler)
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
         self._serving = False    # shutdown() waits for a serve loop to end
