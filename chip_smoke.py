@@ -359,14 +359,38 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      each arm's p50/p95/p99 and worst frames.
    One line "probes: {...}" gives the readings, the launches and the
    seconds beside the card's name and power limit.
-16. one line {"kernels": [...]} (K1-K6; launches are counted on the path
+16. the last tools (lines starting `tools:`), each tool's main(argv) with
+   --device cuda at full width, the launch counters zeroed just before
+   each tool and read just after:
+   - tools.stage_profile 128 (YOLO11n-seg at 640x640, bf16, random init
+     from seed 0): 8 stage rows in the JAX tool's order and a
+     WHOLE_PIPELINE row, each ms finite and > 0; K1 launched at B=128 only,
+     once a call of the pipeline and once a call of the postprocess stage
+     (42 each); the FLOPs of stages 2-7 (FlopCounterMode) equal the b=128
+     forward's and model_info's b=1 GFLOPs x 128 within its rounding to
+     0.01; each stage's TF/s as a share of the 989 TF/s bf16 dense peak
+     beside the card's name and power limit; then the postprocess stage
+     again on detection_params outputs at b=128 (50 detections an image);
+   - tools.ab_o2o, ab_letterbox (random init), ab_active and ab_distill
+     (a port-written 80-class detection_params npz as the donor; YOLOv8n
+     students, --pure-arm --combo-arm --label-fraction 0.5), 640x640,
+     --n-train 16 --n-val 8, batch 8, 1 epoch or 2 steps: every row
+     finite with the JAX tool's keys and configs, every loss finite, and
+     every K1 launch inside an evaluate_dataset, rank_frames or
+     generate_pseudo_samples call; ab_o2o's o2o_nms_free evaluations
+     launch none and its classic_nms ones some; ab_letterbox's evals
+     launch K1 under both deploy geometries; ab_active's and
+     ab_distill's ranking, pseudo-labelling and every evaluation do.
+   One line "tools: {...}" gives the readings, the launches and the
+   seconds beside the card's name and power limit.
+17. one line {"kernels": [...]} (K1-K6; launches are counted on the path
    that runs each kernel, K1's over the segment path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
    segment and pose evals, the training validations, the transferred
    fit's validation, the pseudo-labels and both rankings, phase 12's
    parallel paths and scripts, phase 13's mesh fit validation, phase
-   14's .sentis serve, tick and redeploy paths and phase 15's probe
-   tools, K3's
+   14's .sentis serve, tick and redeploy paths, phase 15's probe tools
+   and phase 16's tools, K3's
    over the obb, obb-TTA, obb eval, obb training-validation, obb DP,
    task-report and obb mesh fit validation paths, K5's and K6's over
    phase 8's WBF paths; no path runs K4, as in the JAX package), then the
@@ -383,6 +407,7 @@ import copy
 import dataclasses
 import io
 import json
+import re
 import select
 import shutil
 import socket
@@ -470,15 +495,22 @@ from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
 from xrseg_tpu_torch.testing import (detection_params, sentis_template,
                                      xr_frames)
+from xrseg_tpu_torch.tools import ab_active as tool_ab_active
+from xrseg_tpu_torch.tools import ab_distill as tool_ab_distill
+from xrseg_tpu_torch.tools import ab_letterbox as tool_ab_letterbox
+from xrseg_tpu_torch.tools import ab_o2o as tool_ab_o2o
 from xrseg_tpu_torch.tools import executor_probe as tool_executor_probe
 from xrseg_tpu_torch.tools import loadtest as tool_loadtest
 from xrseg_tpu_torch.tools import o2o_latency_ab as tool_o2o_ab
 from xrseg_tpu_torch.tools import pseudo_label as tool_pseudo
 from xrseg_tpu_torch.tools import select_frames as tool_select
+from xrseg_tpu_torch.tools import stage_profile as tool_stage_profile
 from xrseg_tpu_torch.tools import task_accuracy_report as tool_task_report
 from xrseg_tpu_torch.tools import track_video as tool_track
 from xrseg_tpu_torch.tools import xr_probe as tool_xr_probe
+from xrseg_tpu_torch.train import active as active_lib
 from xrseg_tpu_torch.train import data as data_lib
+from xrseg_tpu_torch.train import pseudo as pseudo_lib
 from xrseg_tpu_torch.train import train_step as train_ts
 from xrseg_tpu_torch.train.active import rank_frames
 from xrseg_tpu_torch.train.distill import make_distill_step
@@ -4775,6 +4807,281 @@ def phase_probes(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 16. the last tools: stage_profile and the accuracy A/Bs
+# ---------------------------------------------------------------------------
+
+TOOLS_SIZE = 640                    # YOLO11n-seg and the YOLOv8n student
+STAGE_BATCH = 128                   # the JAX bench's headline batch
+STAGE_CALLS = 2 + 2 * 20            # count_flops, warm-up, 2 windows of 20
+TOOLS_N_TRAIN, TOOLS_N_VAL = 16, 8
+BF16_PEAK_TFLOPS = 989.0            # H100 SXM dense bf16 at 700 W
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "tools"
+EVAL_KEYS = {"box_mAP", "box_AP50", "box_AP75", "n_images", "n_gt"}
+
+
+@contextlib.contextmanager
+def k1_per_call(targets):
+    """Wrap each (module, name) while the block runs so that every call
+    records (name, kwargs, the K1 launches made inside it); yields the
+    list it fills. The tools import these names inside main(), so they
+    reach the wrappers."""
+    log: list = []
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn):
+        def counted_fn(*args, **kwargs):
+            k0 = nk.nms_select_batched_cuda.launches
+            out = fn(*args, **kwargs)
+            log.append((name, args, kwargs,
+                        nk.nms_select_batched_cuda.launches - k0))
+            return out
+        return counted_fn
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield log
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def fit_losses():
+    """Every epoch's mean loss of every Trainer.fit while the block runs."""
+    losses: list = []
+    real = Trainer.fit
+
+    def fit(self, *args, **kwargs):
+        history = real(self, *args, **kwargs)
+        losses.extend(row["loss"] for row in history)
+        return history
+
+    Trainer.fit = fit
+    try:
+        yield losses
+    finally:
+        Trainer.fit = real
+
+
+def finite_rows(rows, configs, extra: set, what: str) -> None:
+    """The rows name `configs` in order, each with the JAX tool's keys and
+    finite numbers."""
+    check([r["config"] for r in rows] == configs,
+          f"{what}: configs {[r['config'] for r in rows]}, expected "
+          f"{configs}")
+    for r in rows:
+        check(EVAL_KEYS | extra <= set(r) and all(
+            np.isfinite(v) for v in r.values()
+            if isinstance(v, (int, float))), f"{what}: row {r}")
+
+
+def ab_tool(main_fn, argv, what: str, numbers, launches, seconds) -> tuple:
+    """An A/B tool's main(argv) on the card with K1 counted per eval,
+    ranking and pseudo-labelling call and the losses of every fit: (its
+    rows, its stdout, the call log). Every K1 launch of the run is one of
+    those calls'."""
+    with k1_per_call([(dataset_eval, "evaluate_dataset"),
+                      (active_lib, "rank_frames"),
+                      (pseudo_lib, "generate_pseudo_samples")]) as log, \
+            fit_losses() as losses:
+        rows, out, _, counts, by_b, _, sec = run_tool(main_fn, argv, what)
+    losses = losses + [float(v) for v in re.findall(
+        r" step +\d+ loss (\S+)", out)]
+    check(bool(losses) and all(np.isfinite(v) for v in losses),
+          f"{what}: losses {losses}")
+    only(counts, {K1["name"]: sum(n for *_, n in log)},
+         f"{what} (every launch inside an eval, a ranking or a "
+         "pseudo-labelling)")
+    numbers[what] = {"rows": rows, "losses": losses,
+                     "k1_by_call": [(name, n) for name, _, _, n in log],
+                     "k1_by_batch": by_b}
+    launches[f"tools {what}"] = counts[K1["name"]]
+    seconds[what] = sec
+    return rows, out, log
+
+
+def tools_stage_profile(smi: str, numbers, launches, seconds) -> None:
+    """stage_profile at b=128: its rows, K1 at B=128 from the postprocess
+    stage and the whole pipeline, the stages' FLOPs against the forward's
+    and model_info's, the roofline shares, and the postprocess stage
+    again on detection_params outputs."""
+    rows, _, _, counts, by_b, calls, sec = run_tool(
+        tool_stage_profile.main, [str(STAGE_BATCH), "--size",
+                                  str(TOOLS_SIZE), "--device", DEVICE],
+        "stage_profile")
+    names = [r["stage"] for r in rows]
+    check(names == [*tool_stage_profile.STAGES, "WHOLE_PIPELINE"],
+          f"stage_profile: rows {names}")
+    check(all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows),
+          f"stage_profile: {rows}")
+    pipe_calls = n_calls(calls)
+    k1 = by_b.get(STAGE_BATCH, 0)
+    check(set(by_b) == {STAGE_BATCH} and pipe_calls > 0
+          and k1 == pipe_calls + STAGE_CALLS,
+          f"stage_profile: K1 by batch {by_b}, pipeline calls {pipe_calls}, "
+          f"postprocess stage calls {STAGE_CALLS}")
+    only(counts, {K1["name"]: k1}, "stage_profile")
+    launches["tools stage_profile"] = k1
+    seconds["stage_profile"] = sec
+
+    # the FLOPs, and the postprocess stage where every anchor fires
+    t0 = time.perf_counter()
+    cfg = ExecutorConfig(model=ModelConfig(
+        input_size=(TOOLS_SIZE, TOOLS_SIZE)))
+    model = detection_params(torch.Generator().manual_seed(0), cfg.model,
+                             device=DEVICE)
+    stages = tool_stage_profile.build_stages(
+        model, cfg, STAGE_BATCH, torch.Generator().manual_seed(0), DEVICE)
+    flops = {n: tool_stage_profile.count_flops(*stages[n])
+             for n in tool_stage_profile.FORWARD_STAGES}
+    x = stages["backbone_stem_b0-2"][1][0].permute(0, 2, 3, 1)
+    forward = tool_stage_profile.count_flops(lambda a: model(a), (x,))
+    info = model_info(cfg.model, model, device=DEVICE)["gflops"]
+    total = sum(flops.values())
+    check(total == forward, f"stage_profile: stages 2-7 count {total} "
+          f"FLOPs, the b={STAGE_BATCH} forward {forward}")
+    # model_info rounds its b=1 count to 0.01 GFLOP
+    check(abs(total / 1e9 - STAGE_BATCH * info) <= STAGE_BATCH * 0.005,
+          f"stage_profile: stages 2-7 {total / 1e9} GFLOPs, model_info "
+          f"{info} x {STAGE_BATCH}")
+    fn, args = stages["postprocess"]
+    zero_counters()
+    with torch.no_grad():
+        det = fn(*args)
+    check(bool((det["count"] == MAX_DET).all()),
+          f"stage_profile detection_params postprocess: count "
+          f"{det['count'].tolist()}")
+    post_ms = tool_stage_profile.best_ms(lambda: fn(*args), DEVICE)
+    post_k1 = dict(nk.nms_select_batched_cuda.launches_by_batch)
+    check(post_k1 == {STAGE_BATCH: 1 + 1 + 2 * 20},
+          f"stage_profile detection_params postprocess: K1 {post_k1}")
+    launches["tools stage_profile detection_params postprocess"] = \
+        post_k1.get(STAGE_BATCH, 0)
+    seconds["stage_profile flops + detection_params postprocess"] = \
+        time.perf_counter() - t0
+    del stages, det, model, x
+
+    share = {r["stage"]: r["tf_per_s"] / BF16_PEAK_TFLOPS for r in rows[:-1]}
+    numbers["stage_profile"] = {
+        "rows": rows, "flops": flops, "forward_flops": forward,
+        "model_info_gflops_b1": info, "bf16_peak_share": share,
+        "detection_params_postprocess_ms": post_ms, "k1_by_batch": by_b,
+        "pipeline_calls": pipe_calls}
+    for r in rows[:-1]:
+        print(f"tools: stage_profile b={STAGE_BATCH} {r['stage']}: "
+              f"{r['ms']} ms, {r['gflops']} GFLOPs, {r['tf_per_s']} TF/s = "
+              f"{share[r['stage']]:.4f} of the {BF16_PEAK_TFLOPS:g} TF/s "
+              f"bf16 dense peak ({smi})", flush=True)
+    print(f"tools: stage_profile WHOLE_PIPELINE b={STAGE_BATCH}: "
+          f"{rows[-1]['ms']} ms (sum of stages {rows[-1]['sum_of_stages_ms']}"
+          f" ms); K1 at B={STAGE_BATCH} {k1} = pipeline calls {pipe_calls} "
+          f"+ postprocess stage calls {STAGE_CALLS}; stages 2-7 "
+          f"{total / 1e9:.3f} GFLOPs = the forward's, model_info {info} x "
+          f"{STAGE_BATCH} = {info * STAGE_BATCH:.2f} ({smi})", flush=True)
+    print(f"tools: stage_profile postprocess on detection_params outputs "
+          f"b={STAGE_BATCH} (50 detections an image): {post_ms:.4f} ms "
+          f"({smi})", flush=True)
+
+
+def phase_tools(smi: str) -> dict:
+    """The last tools on the card at full width: stage_profile at b=128,
+    then ab_o2o, ab_letterbox, ab_active and ab_distill on short runs,
+    each tool's counters zeroed just before it and read just after."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    numbers, launches, seconds = {}, {}, {}
+    tools_stage_profile(smi, numbers, launches, seconds)
+
+    short = ["--size", str(TOOLS_SIZE), "--n-train", str(TOOLS_N_TRAIN),
+             "--n-val", str(TOOLS_N_VAL), "--batch", "8", "--device", DEVICE]
+    rows, _, log = ab_tool(
+        tool_ab_o2o.main, [*short, "--epochs", "1", "--weights", "none",
+                           "--out", str(TOOLS_DIR / "ab_o2o.json")],
+        "ab_o2o", numbers, launches, seconds)
+    finite_rows(rows, [f"{m}@{g}" for m in ("o2o_nms_free", "classic_nms")
+                       for g in (0.05, 0.005)], set(), "ab_o2o")
+    evals = [(a[0].o2o, n) for name, a, _, n in log
+             if name == "evaluate_dataset"]
+    check(len(evals) == 4 and all(n == 0 for o2o, n in evals if o2o)
+          and all(n > 0 for o2o, n in evals if not o2o),
+          f"ab_o2o: K1 by eval (o2o, launches) {evals}: the o2o_nms_free "
+          "evaluations must launch none, the classic_nms ones some")
+    check((TOOLS_DIR / "ab_o2o.json.student.npz").exists(),
+          "ab_o2o: no student npz")
+
+    rows, _, log = ab_tool(
+        tool_ab_letterbox.main, [*short, "--epochs", "1", "--weights",
+                                 "none"], "ab_letterbox", numbers, launches,
+        seconds)
+    finite_rows(rows, [f"train_{t}__deploy_{d}" for t in ("stretch",
+                                                          "letterbox")
+                       for d in ("stretch", "letterbox")], set(),
+                "ab_letterbox")
+    evals = [(kw.get("resize_mode"), n) for name, _, kw, n in log
+             if name == "evaluate_dataset"]
+    check(sorted(m for m, _ in evals) == ["letterbox"] * 2 + ["stretch"] * 2
+          and all(n > 0 for _, n in evals),
+          f"ab_letterbox: K1 by deploy geometry {evals}")
+
+    donor = TOOLS_DIR / "donor80.npz"
+    save_npz(str(donor), detection_params(
+        torch.Generator().manual_seed(0), ModelConfig(
+            input_size=(TOOLS_SIZE, TOOLS_SIZE), dtype="float32"),
+        device=DEVICE))
+    rows, _, log = ab_tool(
+        tool_ab_active.main, [*short, "--seed-set", "4", "--budget", "4",
+                              "--epochs", "1", "--seed-epochs", "1",
+                              "--weights", str(donor), "--out",
+                              str(TOOLS_DIR / "ab_active.json")],
+        "ab_active", numbers, launches, seconds)
+    finite_rows(rows[:1], ["seed_model"], set(), "ab_active")
+    finite_rows(rows[1:], ["random_k_only", "active_k_only", "pseudo_only",
+                           "random_k_mix", "active_k_mix", "full_gt"],
+                {"n_train_images", "epochs"}, "ab_active")
+    kinds = [name for name, *_ in log]
+    check(kinds == ["evaluate_dataset", "rank_frames",
+                    "generate_pseudo_samples"] + ["evaluate_dataset"] * 6
+          and all(n > 0 for *_, n in log),
+          f"ab_active: K1 by call {[(k, n) for k, *_, n in log]}")
+    with open(TOOLS_DIR / "ab_active.json") as f:
+        proto = json.load(f)["protocol"]
+    check(proto["pool"] == TOOLS_N_TRAIN - 4 and 0 <= proto[
+        "random_active_overlap"] <= 4, f"ab_active: protocol {proto}")
+
+    rows, _, log = ab_tool(
+        tool_ab_distill.main, [*short, "--steps", "2", "--teacher-epochs",
+                               "1", "--label-fraction", "0.5",
+                               "--pure-arm", "--combo-arm", "--weights",
+                               str(donor)],
+        "ab_distill", numbers, launches, seconds)
+    finite_rows(rows, ["teacher"] + [f"student_{a}" for a in (
+        "scratch", "distill", "pure", "pseudo", "combo")], set(),
+        "ab_distill")
+    kinds = [name for name, *_ in log]
+    check(kinds == ["evaluate_dataset", "generate_pseudo_samples"]
+          + ["evaluate_dataset"] * 5 and all(n > 0 for *_, n in log),
+          f"ab_distill: K1 by call {[(k, n) for k, *_, n in log]}")
+
+    for what in ("ab_o2o", "ab_letterbox", "ab_active", "ab_distill"):
+        got = numbers[what]
+        print(f"tools: {what}: {len(got['rows'])} rows, every number "
+              f"finite; losses {[round(v, 4) for v in got['losses']]}; K1 "
+              f"by call {got['k1_by_call']} ({seconds[what]:.1f} s)",
+              flush=True)
+        for r in got["rows"]:
+            print(f"tools: {what} {json.dumps(r)}", flush=True)
+    seconds["whole phase"] = time.perf_counter() - t0
+    print(f"tools: phase 16 took {seconds['whole phase']:.1f} s", flush=True)
+    print("tools: " + json.dumps({
+        "card": smi, "numbers": numbers, "launches": launches,
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}},
+        default=float), flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
@@ -4913,6 +5220,11 @@ def main() -> int:
         pr = phase_probes(smi)["launches"]
         seconds["probes"] = time.perf_counter() - t0 - sum(seconds.values())
         for path, n in pr.items():
+            kernels[0]["launches"] += n
+            kernels[0]["launches_by_path"][path] = n
+        tl = phase_tools(smi)["launches"]
+        seconds["tools"] = time.perf_counter() - t0 - sum(seconds.values())
+        for path, n in tl.items():
             kernels[0]["launches"] += n
             kernels[0]["launches_by_path"][path] = n
     except SmokeFailure as e:

@@ -1,8 +1,9 @@
 """The port stands alone: xrseg_tpu_torch and chip_smoke.py import neither
-JAX nor anything of the xrseg_tpu package, and importing them touches no
-device. Checked twice: by importing every module in a fresh interpreter
-and reading sys.modules, and by scanning every import statement in the
-sources (which also catches imports inside functions). And the port is
+JAX nor anything of the xrseg_tpu package, nor the root bench.py (which
+imports JAX), and importing them touches no device. Checked twice: by
+importing every module in a fresh interpreter and reading sys.modules,
+and by scanning every import statement in the sources (which also
+catches imports inside functions). And the port is
 whole: every subpackage re-exports its JAX twin's names, and every public
 function and class of a JAX module has a counterpart, or a listed reason
 why not."""
@@ -23,8 +24,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
+    """JAX, the JAX package, and the root bench.py (which imports JAX)."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "xrseg_tpu")
+    return top in ("jax", "jaxlib", "xrseg_tpu", "bench")
 
 
 def _module_names():
@@ -41,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'xrseg_tpu'))\n"
+        "('jax', 'jaxlib', 'xrseg_tpu', 'bench'))\n"
         "print('BAD', bad)\n"
         "print('CUDA_INIT', torch.cuda.is_initialized())\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

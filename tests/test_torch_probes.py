@@ -39,7 +39,9 @@ from xrseg_tpu.models import yolo11 as jy
 from xrseg_tpu.runtime import executor as jexecutor
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.testing import limit_cpu_threads
-from xrseg_tpu_torch.tools import executor_probe, o2o_latency_ab, xr_probe
+from xrseg_tpu_torch.tools import (ab_active, ab_distill, ab_letterbox,
+                                   ab_o2o, executor_probe, o2o_latency_ab,
+                                   stage_profile, xr_probe)
 from torch_parity import detecting_tree, seeded_tree
 
 limit_cpu_threads()
@@ -204,15 +206,24 @@ def test_o2o_latency_ab_keys_equal_the_jax_tool(jax_o2o):
     assert t["p50_delta_ms"] == round(t["o2o"]["p50"] - t["plain"]["p50"], 2)
 
 
-@pytest.mark.parametrize("tool", [xr_probe, executor_probe, o2o_latency_ab])
+TOOL_ARGV = {xr_probe: ["--size", "64", "--frames", "1"],
+             executor_probe: ["1"], o2o_latency_ab: ["--size", "64"],
+             stage_profile: ["2", "--size", "64"],
+             ab_o2o: ["--size", "64", "--weights", "none"],
+             ab_letterbox: ["--size", "64", "--weights", "none"],
+             ab_active: ["--size", "64"], ab_distill: ["--size", "64"]}
+
+
+@pytest.mark.parametrize("tool", list(TOOL_ARGV),
+                         ids=lambda t: t.__name__.rsplit(".", 1)[-1])
 def test_tools_default_to_the_card(tool):
     """Without --device the tools ask for the card, which this host has
-    not: they raise instead of running on the CPU."""
+    not: they raise instead of running on the CPU (the donor tools before
+    they look for a donor)."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
-    argv = {xr_probe: ["--size", "64", "--frames", "1"],
-            executor_probe: ["1"], o2o_latency_ab: ["--size", "64"]}[tool]
+    argv = TOOL_ARGV[tool]
     with pytest.raises(RuntimeError, match="no CUDA device"), \
             contextlib.redirect_stdout(io.StringIO()):
         tool.main(argv)

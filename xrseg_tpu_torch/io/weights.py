@@ -340,11 +340,14 @@ def with_config(model: YOLO11, cfg: ModelConfig) -> YOLO11:
     """`model`'s weights under another config of the same network (another
     input_size, dtype or precision): `model` itself when its config is
     `cfg`, else a new YOLO11 on the CPU (build_pipeline binds a module to
-    the config it was built for)."""
+    the config it was built for). A dual-head (o2o) model under a config
+    without o2o leaves its one-to-one head behind: the classic deploy of
+    the same checkpoint, whose head the JAX package's forward ignores."""
     if model.cfg == cfg:
         return model
-    return yolo11_for_state(cfg, {k: v.detach().float().cpu()
-                                  for k, v in model.state_dict().items()})
+    return yolo11_for_state(cfg, {
+        k: v.detach().float().cpu() for k, v in model.state_dict().items()
+        if cfg.o2o or not k.startswith("det_o2o.")})
 
 
 def load_for_config(path: str, cfg: ModelConfig, donor_cfg: ModelConfig):

@@ -34,7 +34,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-REF_SENTIS = "Assets/Resources/Model/yolo11n-seg-sentis.sentis"
+from xrseg_tpu_torch.tools._donor import REF_SENTIS
+
 REF_IMAGES = "Assets/Resources/Images"
 
 

@@ -147,7 +147,10 @@ class Trainer:
             t.lr, t.weight_decay, t.warmup_steps,
             total_steps=max(total_steps, t.warmup_steps + 1))
         if self._init_params is not None:
-            model = copy.deepcopy(self._init_params).to(self.device)
+            # a copy that trains, whatever the source: another Trainer's
+            # eval_params (its EMA) are frozen
+            model = copy.deepcopy(self._init_params).to(
+                self.device).requires_grad_(True)
             state = ts.TrainState(params=model,
                                   opt_state=self.optimizer.init(model),
                                   step=0)
