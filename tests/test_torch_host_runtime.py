@@ -440,13 +440,15 @@ def test_check_environment_failures():
 
 
 def test_profile_fn_writes_trace(tmp_path):
-    from xrseg_tpu_torch.runtime.profiling import (annotate, device_trace,
-                                                   profile_fn)
+    from xrseg_tpu_torch.runtime.profiling import device_trace, profile_fn
+    from xrseg_tpu_torch.runtime.tracing import Tracer
     calls = []
+    tracer = Tracer()
+    tracer.enable(True)       # its sections are named ranges in the trace
 
     def fn():
         calls.append(1)
-        with annotate("xrseg_matmul"):
+        with tracer.section("matmul"):
             return torch.ones(32, 32) @ torch.ones(32, 32)
 
     assert profile_fn(fn, str(tmp_path / "t"), steps=2, warmup=1) == \
@@ -456,7 +458,7 @@ def test_profile_fn_writes_trace(tmp_path):
     assert len(files) == 1 and files[0].endswith(".json")
     trace = json.loads((tmp_path / "t" / files[0]).read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "xrseg_matmul" in names
+    assert "xrseg.matmul" in names
     # nesting is a no-op, as in the JAX package
     with device_trace(str(tmp_path / "n")):
         with device_trace(str(tmp_path / "n")):

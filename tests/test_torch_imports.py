@@ -210,6 +210,9 @@ COUNTERPART = {
     # the port's resize_normalize takes its output dtype
     ("ops/preprocess.py", "resize_normalize_bf16"):
         "xrseg_tpu_torch.ops.preprocess:resize_normalize",
+    # an enabled Tracer's sections are the named ranges of a trace
+    ("runtime/profiling.py", "annotate"):
+        "xrseg_tpu_torch.runtime.tracing:Tracer.section",
 }
 # (JAX module, name) -> why the port has none
 NO_PORT = {

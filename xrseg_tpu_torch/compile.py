@@ -91,9 +91,16 @@ class CompiledPipeline:
         or tensors, on any device."""
         with torch.inference_mode(), \
                 precision_scope(self.cfg.model.matmul_precision):
-            if self.input_format == "yuv420":
-                return self.run(*(to_device(p, self.device) for p in frames))
-            return self.run(to_device(frames, self.device))
+            x = self.upload(frames)
+            return self.run(*x) if self.input_format == "yuv420" \
+                else self.run(x)
+
+    def upload(self, frames):
+        """`frames`, as `__call__` takes them, on the device in the same
+        form; what is already there is not copied."""
+        if self.input_format == "yuv420":
+            return tuple(to_device(p, self.device) for p in frames)
+        return to_device(frames, self.device)
 
     def run(self, *frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The program on frames that already lie on the device (one uint8

@@ -136,6 +136,11 @@ class Executor:
         self._inflight_fused = False
         self._inflight_tick_pipe: Optional[XRTickPipeline] = None
         self._readback: Optional[Readback] = None   # of the frame in flight
+        # frame ids tag the tracer's sections and device spans: the last
+        # dispatched frame's, and the frame in flight's (a pipelined
+        # runner stages an older one)
+        self._frame_id = -1
+        self._inflight_id = -1
 
         self._state = ExecState.IDLE
         self._inflight: Optional[dict] = None
@@ -188,7 +193,9 @@ class Executor:
         if self.is_running():
             return False
         self.prepare_depth_data(frame)
-        with self.tracer.section("dispatch"):
+        self._frame_id += 1
+        fid = self._inflight_id = self._frame_id
+        with self.tracer.section("dispatch", fid):
             frames = frame.rgb[None]
             hw = tuple(frames.shape[1:3])
             if hw != tuple(self.frame_hw):
@@ -198,7 +205,7 @@ class Executor:
                         "(construct with auto_recompile=True to allow "
                         "mixed frame sizes)")
                 if hw not in self._pipelines:
-                    with self.tracer.section("recompile"):
+                    with self.tracer.section("recompile", fid):
                         self._pipelines[hw] = load_model(
                             self.cfg, params=self.pipeline.params,
                             frame_hw=hw, batch=1,
@@ -218,7 +225,9 @@ class Executor:
                 self._readback = self._inflight_tick_pipe.readback
             else:
                 # async: the call queues the frame's kernels and returns
-                self._inflight = self.pipeline(frames)
+                with self.tracer.device_span("frame_device", fid,
+                                             self.device):
+                    self._inflight = self.pipeline(frames)
                 self._readback = self.pipeline.readback
             self._inflight_fused = fused
             # eager readback: queue the copy NOW, behind the frame's last
@@ -242,8 +251,8 @@ class Executor:
             if self._readback.computed():
                 # account the dispatch->ready window as its own stage so
                 # per-frame splits SUM to frame time
-                self.tracer.stages["device_wait"].add(
-                    time.perf_counter() - self._dispatch_t0)
+                self.tracer.interval("device_wait", self._dispatch_t0,
+                                     time.perf_counter(), self._inflight_id)
                 self._state = ExecState.REQUESTING_OUTPUTS
             return None
 
@@ -252,7 +261,7 @@ class Executor:
             return None
 
         if self._state == ExecState.SUCCESS:
-            with self.tracer.section("process"):
+            with self.tracer.section("process", self._inflight_id):
                 result = self._process_result()
             self._state = ExecState.CLEANUP
             self.last_result = result
@@ -328,7 +337,7 @@ class Executor:
         key = (tuple(hw), tuple(depth_hw))
         pipe = self._tick_pipes.get(key)
         if pipe is None:
-            with self.tracer.section("recompile"):
+            with self.tracer.section("recompile", self._frame_id):
                 pipe = build_xr_tick_pipeline(
                     self.cfg, self.pipeline.params, frame_hw=hw,
                     depth_hw=depth_hw,
@@ -364,7 +373,9 @@ class Executor:
                             (self.screen_wh[0] / mw,
                              self.screen_wh[1] / mh))
         self._inflight_tick_pipe = pipe
-        return pipe(frames, self._depth_frame, aux)
+        with self.tracer.device_span("frame_device", self._frame_id,
+                                     self.device):
+            return pipe(frames, self._depth_frame, aux)
 
     def _update_parallel_readbacks(self) -> None:
         """UpdateParallelReadbacks (IEExecutor.cs:419-456): the copy into
@@ -381,7 +392,7 @@ class Executor:
             return
         if not self._readback.copied():
             return
-        with self.tracer.section("readback"):
+        with self.tracer.section("readback", self._inflight_id):
             if self._inflight_fused:
                 # fused tick: slate + matched flag/index + target mask +
                 # fused points arrive in the ONE packed copy
@@ -390,6 +401,7 @@ class Executor:
             else:
                 self._host = unpack_slate(self._readback.host(),
                                           self.cfg.post.max_detections)
+            self.tracer.device_done("frame_device", self._inflight_id)
         self._state = ExecState.SUCCESS
 
     @staticmethod
@@ -415,7 +427,7 @@ class Executor:
         copy."""
         dev = self._inflight if self._has_mask_outputs(self._inflight) \
             else self.last_device_out
-        with self.tracer.section("mask_fetch"):
+        with self.tracer.section("mask_fetch", self._inflight_id):
             return self._device_target_mask(dev, slate_index).float() \
                 .cpu().numpy()
 
@@ -442,7 +454,7 @@ class Executor:
         raw_box = box_to_model_space(
             box, self.screen_wh,
             tuple(map(float, self.cfg.model.input_size)))
-        with self.tracer.section("depth_fusion"):
+        with self.tracer.section("depth_fusion", self._inflight_id):
             if self.points.backend == "native":
                 # the C++ fusion reads a host mask: one small copy
                 mask = self._device_target_mask(dev, box.index).float()

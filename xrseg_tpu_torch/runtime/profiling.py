@@ -4,7 +4,9 @@ xrseg_tpu/runtime/profiling.py).
 Two layers, as in the JAX package:
 
   - runtime/tracing.Tracer: host-side per-stage p50/p95 timers (always
-    on, ~free) — what /stats and the executor report.
+    on, ~free) — what /stats and the executor report. Enabled
+    (`Tracer.enable(True)`), its sections are also named ranges
+    ("xrseg.<name>") in these traces.
   - THIS module: torch.profiler traces of the host ops and, on a card,
     every CUDA kernel with its device time — for deep perf work. Each
     trace is a Chrome trace JSON (open it in chrome://tracing or
@@ -72,11 +74,3 @@ def profile_fn(fn: Callable[[], object], logdir: str, steps: int = 3,
             _sync(fn())
     return logdir
 
-
-def annotate(name: str):
-    """Named sub-span inside a trace (a record_function range):
-
-        with annotate("postprocess"):
-            ...
-    """
-    return torch.profiler.record_function(name)

@@ -89,30 +89,55 @@ class StreamingRunner:
 
     def submit(self, frames) -> Optional[StreamResult]:
         """Dispatch a frame batch; returns the oldest completed result once
-        the pipeline is full, else None (fill phase)."""
-        with self.tracer.section("dispatch"):
-            out = self.pipeline(frames)
-            slot = self._slots.next(out["slate"].numel())
-            slot.start(out["slate"])
-        self._inflight.append((self._next_id, time.perf_counter(), out, slot))
+        the pipeline is full, else None (fill phase).
+
+        With the tracer enabled, the batch's spans carry its frame_id:
+        dispatch { upload, enqueue, readback_start } here and readback
+        { device_wait, unpack } when it is read; `batch_device` times its
+        program on the card, and `queued_at_submit` adds the batches
+        still computing on the card at entry (read from their slots'
+        events, no sync) to divide by `batches_submitted`."""
+        tr, fid = self.tracer, self._next_id
+        if tr.enabled:
+            tr.count("batches_submitted")
+            tr.count("queued_at_submit",
+                     sum(not slot.computed() for *_, slot in self._inflight))
+        with tr.section("dispatch", fid):
+            with tr.device_span("batch_device", fid, self.pipeline.device):
+                # the upload (pageable: it may wait for the card), then
+                # the program's launches on frames already there
+                with tr.detail("upload", fid):
+                    x = self.pipeline.upload(frames)
+                with tr.detail("enqueue", fid):
+                    out = self.pipeline(x)
+            with tr.detail("readback_start", fid):
+                slot = self._slots.next(out["slate"].numel())
+                slot.start(out["slate"])
+        self._inflight.append((fid, time.perf_counter(), out, slot))
         self._next_id += 1
-        self.tracer.count("frames_submitted")
+        tr.count("frames_submitted")
         if len(self._inflight) > self.depth:
             return self._pop()
         return None
 
     def _pop(self) -> StreamResult:
         fid, t0, out, slot = self._inflight.popleft()
-        with self.tracer.section("readback"):
-            rows = slot.host().reshape(out["slate"].shape)
-            boxes = out.get("boxes_xywhr", out.get("boxes_xywh"))
-            # both branches copy, so the slot may take the next frame
-            if boxes is None:        # classify: the slate IS the prob row
-                slates = [{"probs": np.array(row)} for row in rows]
-            else:
-                max_det, box_dim = boxes.shape[1], boxes.shape[2]
-                slates = [unpack_slate(row, max_det, box_dim=box_dim)
-                          for row in rows]
+        tr = self.tracer
+        with tr.section("readback", fid):
+            if tr.enabled:
+                with tr.section("device_wait", fid):
+                    slot.wait()
+                tr.device_done("batch_device", fid)
+            with tr.detail("unpack", fid):
+                rows = slot.host().reshape(out["slate"].shape)
+                boxes = out.get("boxes_xywhr", out.get("boxes_xywh"))
+                # both branches copy, so the slot may take the next frame
+                if boxes is None:    # classify: the slate IS the prob row
+                    slates = [{"probs": np.array(row)} for row in rows]
+                else:
+                    max_det, box_dim = boxes.shape[1], boxes.shape[2]
+                    slates = [unpack_slate(row, max_det, box_dim=box_dim)
+                              for row in rows]
         slate = slates[0] if len(slates) == 1 else {
             k: [s[k] for s in slates] for k in slates[0]}
         return StreamResult(frame_id=fid, slate=slate,
@@ -160,9 +185,10 @@ class PipelinedTickRunner:
         self.depth = depth
         # at most `depth` ticks are in flight: the depth-th pops at once
         self._slots = ReadbackSlots(executor.device, depth)
-        # (device outputs, tick pipeline, frame, dispatch t0, readback slot)
-        self._q: Deque[Tuple[Dict[str, Any], Any, Any, float, Readback]] = \
-            collections.deque()
+        # (frame id, device outputs, tick pipeline, frame, dispatch t0,
+        # readback slot)
+        self._q: Deque[Tuple[int, Dict[str, Any], Any, Any, float,
+                             Readback]] = collections.deque()
 
     @property
     def inflight(self) -> int:
@@ -179,12 +205,14 @@ class PipelinedTickRunner:
             raise ValueError("fused tick needs depth_fp16 + intrinsics + "
                              "pose")
         ex.prepare_depth_data(frame)
-        with ex.tracer.section("dispatch"):
+        ex._frame_id += 1
+        fid = ex._frame_id
+        with ex.tracer.section("dispatch", fid):
             dev = ex._dispatch_fused(frame, frame.rgb[None])
             pipe = ex._inflight_tick_pipe
             slot = self._slots.next(pipe.packed_len)
             slot.start(dev["packed"])
-        self._q.append((dev, pipe, frame, time.perf_counter(), slot))
+        self._q.append((fid, dev, pipe, frame, time.perf_counter(), slot))
         ex.tracer.count("frames_dispatched")
         if len(self._q) >= self.depth:
             return self._pop()
@@ -192,16 +220,17 @@ class PipelinedTickRunner:
 
     def _pop(self):
         ex = self.ex
-        dev, pipe, frame, t0, slot = self._q.popleft()
+        fid, dev, pipe, frame, t0, slot = self._q.popleft()
         # poll-then-read mirrors the executor's stage split: device_wait is
         # the residual wait for this frame's copy, so per-frame stages
         # still sum to wall time
         t_wait = time.perf_counter()
         while not slot.copied():
             time.sleep(0)
-        ex.tracer.stages["device_wait"].add(time.perf_counter() - t_wait)
-        with ex.tracer.section("readback"):
+        ex.tracer.interval("device_wait", t_wait, time.perf_counter(), fid)
+        with ex.tracer.section("readback", fid):
             host = pipe.unpack(slot.host())
+            ex.tracer.device_done("frame_device", fid)
         # stage the executor's in-flight fields, then reuse its own
         # ProcessInferenceResult path (tracker/masker/points/re-ID)
         ex._inflight = dev
@@ -211,7 +240,8 @@ class PipelinedTickRunner:
         ex._dispatch_t0 = t0
         ex._readback = slot
         ex._host = host
-        with ex.tracer.section("process"):
+        ex._inflight_id = fid
+        with ex.tracer.section("process", fid):
             result = ex._process_result()
         ex.last_result = result
         ex.last_device_out = dev

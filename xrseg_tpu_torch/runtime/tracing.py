@@ -1,46 +1,104 @@
-"""Per-stage timing/observability (the instrumentation the reference lacks).
+"""Per-stage timing, spans and counters of the port's runtime (counterpart
+of xrseg_tpu/runtime/tracing.py).
 
-SURVEY.md §5 notes the reference has zero profiling affordances; since our
-headline metric is fps + p50 latency, the runtime carries a lightweight
-tracer: named sections, ring-buffered durations, percentile summaries, and a
-single-line JSON export for benches.
+Always on, at two clock reads and an O(1) add a section: named sections
+with SELF time, statistics over the whole window in constant memory
+(exact count, sum, min and max; percentiles from log-spaced buckets) and
+counters. `summary()` is what /stats, the Prometheus export and the
+probes read.
+
+Off by default. `Tracer.enable(True)` starts a window in which, besides:
+  - every section records a span (name, frame or batch id, parent span,
+    start and end on time.perf_counter_ns) and opens
+    torch.profiler.record_function("xrseg.<name>"), so that under an
+    active profiler the span lands in the same trace as the kernels, on
+    its clock;
+  - `detail(name, id)` is a section that exists only while enabled:
+    the inner steps of a frame, which the untraced path does not time;
+  - `device_span(name, id, device)` times a frame's program on the
+    card's clock with two CUDA events, read by `device_done` once the
+    frame's readback is done, so reading never blocks;
+and `export()` returns the window's spans, device spans and counters.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import json
+import math
+import threading
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+# A disabled detail section or device span: nothing to enter or exit.
+_NULL = contextlib.nullcontext()
 
 
 class StageTimer:
-    def __init__(self, maxlen: int = 512):
-        self.samples: collections.deque = collections.deque(maxlen=maxlen)
+    """One stage's samples (seconds) over the whole window, in constant
+    memory: the exact count, sum, min and max, and a histogram of
+    log-spaced buckets GROWTH wide. A percentile is the middle of the
+    bucket that holds the exact order statistic, so it is within
+    REL_ERR of it. `reset()` starts a window."""
+
+    GROWTH = 1.04
+    REL_ERR = math.sqrt(GROWTH) - 1.0          # 1.98%
+    _LOG = math.log(GROWTH)
+    _ZERO = -(1 << 30)                          # the bucket of samples <= 0
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+            self.total = 0.0
+            self.min = math.inf
+            self.max = -math.inf
+            self._buckets: Dict[int, int] = {}
 
     def add(self, seconds: float) -> None:
-        self.samples.append(seconds)
+        b = (math.floor(math.log(seconds) / self._LOG) if seconds > 0
+             else self._ZERO)
+        with self._lock:
+            self.count += 1
+            self.total += seconds
+            self.min = min(self.min, seconds)
+            self.max = max(self.max, seconds)
+            self._buckets[b] = self._buckets.get(b, 0) + 1
 
     def percentile(self, p: float) -> float:
-        if not self.samples:
-            return 0.0
-        s = sorted(self.samples)
-        k = min(len(s) - 1, max(0, int(round(p / 100.0 * (len(s) - 1)))))
-        return s[k]
+        """The sample of rank round(p% of (count - 1)), as the window's
+        sorted samples would give it, within REL_ERR."""
+        with self._lock:
+            n = self.count
+            if not n:
+                return 0.0
+            k = min(n - 1, max(0, int(round(p / 100.0 * (n - 1)))))
+            if k == 0:
+                return self.min
+            if k == n - 1:
+                return self.max
+            seen = 0
+            for b in sorted(self._buckets):
+                seen += self._buckets[b]
+                if seen > k:
+                    break
+            mid = 0.0 if b == self._ZERO else math.exp((b + 0.5) * self._LOG)
+            return min(self.max, max(self.min, mid))
 
     @property
     def mean(self) -> float:
-        return sum(self.samples) / len(self.samples) if self.samples else 0.0
-
-    @property
-    def count(self) -> int:
-        return len(self.samples)
+        return self.total / self.count if self.count else 0.0
 
 
 class Tracer:
     """Named-section wall-clock tracer.
 
-    with tracer.section("preprocess"): ...
+    with tracer.section("preprocess", id=frame_id): ...
     print(tracer.summary())
 
     Sections record SELF time: a section nested inside another (per
@@ -49,49 +107,208 @@ class Tracer:
     double-counting children (the r4 xr_probe split published a
     "process" p50 that silently contained mask_fetch + depth_fusion —
     VERDICT r4 weak #4). Leaf sections are unchanged.
+
+    While enabled (see the module's docstring) it also keeps a span list,
+    at most MAX_SPANS long (the rest are counted as "spans_dropped"); a
+    Tracer belongs to one runner, so its device spans share one card.
     """
+
+    MAX_SPANS = 1 << 20
 
     def __init__(self):
         self.stages: Dict[str, StageTimer] = collections.defaultdict(StageTimer)
         self.counters: Dict[str, int] = collections.defaultdict(int)
-        import threading
         self._local = threading.local()
+        self._count_lock = threading.Lock()
+        self.enabled = False
+        self._spans: Optional[List[list]] = None    # only while enabled
+        self._t0_ns = 0
+        self._pending: Dict[Tuple[str, object], tuple] = {}
+        self._device_spans: List[tuple] = []
+        self._ref = None          # the window's first CUDA event
 
-    @contextlib.contextmanager
-    def section(self, name: str) -> Iterator[None]:
+    def enable(self, on: bool = True) -> None:
+        """Start (True) or end (False) a traced window. Ending it drops the
+        window's spans: `export()` them first."""
+        if on and not self.enabled:
+            self.enabled = True
+            self._start_window()
+        elif not on:
+            self.enabled = False
+            self._spans = None
+            self._pending.clear()
+            self._device_spans = []
+            self._ref = None
+
+    def _start_window(self) -> None:
+        self._spans = []
+        self._pending.clear()
+        self._device_spans = []
+        self._ref = None
+        self._t0_ns = time.perf_counter_ns()
+
+    def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
-        stack.append(0.0)                 # accumulates children's time
-        t0 = time.perf_counter()
+        return stack
+
+    @contextlib.contextmanager
+    def section(self, name: str, id=None) -> Iterator[None]:
+        """Time a block as stage `name`; `id` (a frame or batch id) tags
+        its span while the tracer is enabled."""
+        stack = self._stack()
+        stack.append(0)                   # accumulates children's ns
+        span = self._open(name, id) if self.enabled else None
+        t0 = time.perf_counter_ns()
         try:
             yield
         finally:
-            elapsed = time.perf_counter() - t0
-            child = stack.pop()
-            self.stages[name].add(elapsed - child)
+            t1 = time.perf_counter_ns()
+            elapsed = t1 - t0
+            self_ns = elapsed - stack.pop()
+            self.stages[name].add(self_ns / 1e9)
             if stack:
                 stack[-1] += elapsed
+            if span is not None:
+                self._close(span, t0, t1, self_ns)
+
+    def _open(self, name: str, id) -> tuple:
+        """An enabled section's span record (None once MAX_SPANS are kept)
+        and its open profiler range."""
+        parents = self._parents()
+        rec = None
+        spans = self._spans
+        if spans is not None:
+            if len(spans) < self.MAX_SPANS:
+                # [name, id, parent record, start ns, end ns, self ns]
+                rec = [name, id, parents[-1] if parents else None, None,
+                       None, None]
+                spans.append(rec)
+            else:
+                self.count("spans_dropped")
+        parents.append(rec)
+        rf = torch.profiler.record_function(f"xrseg.{name}")
+        rf.__enter__()
+        return rec, rf
+
+    def _close(self, span: tuple, t0: int, t1: int, self_ns: int) -> None:
+        rec, rf = span
+        rf.__exit__(None, None, None)
+        self._parents().pop()
+        if rec is not None:
+            rec[3:6] = t0, t1, self_ns
+
+    def _parents(self) -> list:
+        parents = getattr(self._local, "spans", None)
+        if parents is None:
+            parents = self._local.spans = []
+        return parents
+
+    def detail(self, name: str, id=None):
+        """A section that exists only while the tracer is enabled: the
+        inner steps of a frame, which cost nothing while disabled."""
+        return self.section(name, id) if self.enabled else _NULL
+
+    def interval(self, name: str, t0: float, t1: float, id=None) -> None:
+        """Record a stage that was measured, not entered: [t0, t1] on
+        time.perf_counter (a wait that the caller polled)."""
+        self.stages[name].add(t1 - t0)
+        spans = self._spans
+        if spans is not None and len(spans) < self.MAX_SPANS:
+            parents = self._parents()
+            spans.append([name, id, parents[-1] if parents else None,
+                          int(t0 * 1e9), int(t1 * 1e9),
+                          int((t1 - t0) * 1e9)])
+
+    def device_span(self, name: str, id, device: torch.device):
+        """Time the device work queued inside the block on the card's
+        clock: a CUDA event before and after it on the current stream.
+        Nothing while disabled or on the CPU. Read it with `device_done`
+        once the frame's readback is done."""
+        if not self.enabled or device.type != "cuda":
+            return _NULL
+        return self._device_span(name, id, device)
+
+    @contextlib.contextmanager
+    def _device_span(self, name: str, id, device) -> Iterator[None]:
+        stream = torch.cuda.current_stream(device)
+        if self._ref is None:            # the window's origin on the card
+            self._ref = torch.cuda.Event(enable_timing=True)
+            self._ref.record(stream)
+        ref = self._ref
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(device))
+            self._pending[(name, id)] = (ref, start, end)
+
+    def device_done(self, name: str, id) -> None:
+        """Read device span (name, id) if the card has reached its end
+        (an event query: never blocks); else it stays pending."""
+        ev = self._pending.pop((name, id), None)
+        if ev is None:
+            return
+        ref, start, end = ev
+        if not end.query():
+            self._pending[(name, id)] = ev
+            return
+        self.stages[name].add(start.elapsed_time(end) / 1e3)
+        self._device_spans.append((name, id, ref.elapsed_time(start),
+                                   ref.elapsed_time(end)))
 
     def count(self, name: str, inc: int = 1) -> None:
-        self.counters[name] += inc
+        with self._count_lock:
+            self.counters[name] += inc
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         out = {}
-        for name, st in self.stages.items():
+        for name, st in list(self.stages.items()):
             out[name] = {
                 "count": st.count,
                 "mean_ms": st.mean * 1e3,
                 "p50_ms": st.percentile(50) * 1e3,
                 "p95_ms": st.percentile(95) * 1e3,
             }
-        for name, c in self.counters.items():
+        for name, c in list(self.counters.items()):
             out.setdefault("counters", {})[name] = c
         return out
 
     def summary_json(self) -> str:
         return json.dumps(self.summary(), sort_keys=True)
 
+    def export(self) -> Dict[str, object]:
+        """The enabled window so far, for a reader after it ends:
+        spans: {name, id, parent (index, or None), start_ns, end_ns,
+            self_ns} in order of entry (an open span's times are None);
+        device_spans: {name, id, start_ms, end_ms, ms} on the card's
+            clock from the window's first device event;
+        counters; window_ns (from enable to now)."""
+        for key in list(self._pending):
+            self.device_done(*key)
+        spans = self._spans or []
+        index = {id(r): i for i, r in enumerate(spans)}
+        return {
+            "window_ns": (time.perf_counter_ns() - self._t0_ns
+                          if self.enabled else 0),
+            "spans": [{"name": r[0], "id": r[1],
+                       "parent": None if r[2] is None
+                       else index.get(id(r[2])),
+                       "start_ns": r[3], "end_ns": r[4], "self_ns": r[5]}
+                      for r in spans],
+            "device_spans": [{"name": n, "id": i, "start_ms": s,
+                              "end_ms": e, "ms": e - s}
+                             for n, i, s, e in self._device_spans],
+            "counters": dict(self.counters),
+        }
+
     def reset(self) -> None:
+        """Start a window: clear the stages and counters, and while
+        enabled the spans too."""
         self.stages.clear()
         self.counters.clear()
+        if self.enabled:
+            self._start_window()

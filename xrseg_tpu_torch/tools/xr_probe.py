@@ -12,7 +12,13 @@ controller that laser-selects the first detection, then N frames of
   point-cloud extraction
 
 reporting sustained fps, per-stage latency split (executor tracer), and
-per-frame point counts. Emits ONE JSON line.
+per-frame point counts. Emits ONE JSON line (one a depth with
+--pipelined), timed with the tracer off. Then a window of as many
+frames a row runs with the tracer enabled and prints a
+`frame_latency {...}` line: the frames' latency on the host (from
+the start of the tick or submit that dispatched each to the end of the
+one that returned it) and their programs' time on the card's clock (the
+tracer's `frame_device` device span).
 
     python -m xrseg_tpu_torch.tools.xr_probe --frames 120
     python -m xrseg_tpu_torch.tools.xr_probe --fused --pipelined 2
@@ -27,6 +33,7 @@ root (a real `bus` lock); detection-guaranteeing fixture weights
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import time
@@ -198,6 +205,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "pipelined_depth": depth,
         }
 
+    def traced_window(next_latency, depth):
+        """`--frames` latencies from `next_latency()` with the tracer
+        enabled, printed with the window's `frame_device` summary (a line
+        of its own, so the rows keep the JAX tool's keys)."""
+        ex.tracer.reset()
+        ex.tracer.enable(True)
+        lat = [next_latency() for _ in range(args.frames)]
+        dev = ex.tracer.summary().get("frame_device", {})
+        ex.tracer.enable(False)
+        host = np.percentile(lat, [50, 95]) * 1e3
+        print("frame_latency " + json.dumps({
+            "pipelined_depth": depth, "frames": len(lat),
+            "host_p50_ms": float(host[0]), "host_p95_ms": float(host[1]),
+            "device_frames": dev.get("count", 0),
+            "device_p50_ms": dev.get("p50_ms", 0.0),
+            "device_p95_ms": dev.get("p95_ms", 0.0)}), flush=True)
+
     if args.pipelined:
         # timed windows: SAME-process A/B, depth=1 first (exactly the
         # sequential fused tick), then depth=K: one process, one build
@@ -232,6 +256,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             row = make_row(n_timed, t_last - t0, point_counts, lost, depth)
             rows.append(row)
             print(json.dumps(row), flush=True)
+        for depth in depths:           # after every row: the same frames
+            runner = PipelinedTickRunner(ex, depth=depth)
+            submitted = collections.deque()     # each frame's submit start
+
+            def pipelined_latency():
+                for fd in frames_iter:
+                    submitted.append(time.perf_counter())
+                    if runner.submit(fd) is not None:
+                        return time.perf_counter() - submitted.popleft()
+            traced_window(pipelined_latency, depth)
+            for _ in runner.drain():
+                pass
         if args.out:
             payload = rows[-1] if len(rows) == 1 else {
                 f"depth{d}": r for d, r in zip(depths, rows)}
@@ -246,6 +282,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     n_timed = results - timed_started[0]
     row = make_row(n_timed, elapsed, point_counts, lost, 0)
     print(json.dumps(row), flush=True)
+
+    def tick_latency():
+        t_disp = None
+        for fd in frames_iter:
+            t = time.perf_counter()
+            if t_disp is None and not ex.is_running():
+                t_disp = t             # this tick dispatches the frame
+            if loop.tick(fd) is not None and t_disp is not None:
+                return time.perf_counter() - t_disp
+    traced_window(tick_latency, 0)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(row, f, indent=1)
