@@ -33,6 +33,13 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      on seeded inputs: the zeroed pixels must equal the plain version's
      and the values lie within 1e-5. Also timed beside the library
      formulation torch.sigmoid(coefs @ protos.T) + crop.
+   - The conv epilogue (conv_epilogue_cuda) at the batch cell's shapes:
+     every epilogue a YOLO11x-seg forward at b=32 runs (186, in the layout
+     the forward gives each), on seeded inputs: every output must EQUAL the
+     plain version's bit for bit. Each distinct shape is timed beside the
+     plain version and its bytes bound, and the three are summed over the
+     186 epilogues of the forward; then its launches for one call of the
+     b=32 YOLO11x-seg pipeline and of the b=1 YOLO11n-seg one.
 3. segment pipeline: YOLO11n-seg at full width (640x640, 80 classes, 32
    protos at 160x160, 8400 anchors, max_det 50) with detection_params
    weights, on 480x640 uint8 frames (stretch): build_pipeline at b=1 and
@@ -383,8 +390,9 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      ab_distill's ranking, pseudo-labelling and every evaluation do.
    One line "tools: {...}" gives the readings, the launches and the
    seconds beside the card's name and power limit.
-17. one line {"kernels": [...]} (K1-K6; launches are counted on the path
-   that runs each kernel, K1's over the segment path, the fused ticks,
+17. one line {"kernels": [...]} (K1-K6 and the conv epilogue; launches
+   are counted on the path that runs each kernel, K1's over the segment
+   path, the fused ticks,
    the serve loads, the runners, the task paths, the NMS ensemble, the
    segment and pose evals, the training validations, the transferred
    fit's validation, the pseudo-labels and both rankings, phase 12's
@@ -393,7 +401,8 @@ Run from the root of a checkout. Phases, each printed as it finishes:
    and phase 16's tools, K3's
    over the obb, obb-TTA, obb eval, obb training-validation, obb DP,
    task-report and obb mesh fit validation paths, K5's and K6's over
-   phase 8's WBF paths; no path runs K4, as in the JAX package), then the
+   phase 8's WBF paths, the epilogue's over every phase; no path runs
+   K4, as in the JAX package), then the
    last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -402,6 +411,7 @@ device it exits 2 and runs nothing.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -459,6 +469,7 @@ from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.models.yolo11 import model_info
 from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
                                        rotated_inputs, steps_run)
+from xrseg_tpu_torch.ops import conv_epilogue as ce
 from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import masks as mask_ops
@@ -493,8 +504,8 @@ from xrseg_tpu_torch.runtime.streaming import (PipelinedTickRunner,
 from xrseg_tpu_torch.runtime.video import VideoFrameSource
 from xrseg_tpu_torch.runtime.xr_loop import (ControllerState, XRLoop,
                                              aim_controller_at_frame_point)
-from xrseg_tpu_torch.testing import (detection_params, sentis_template,
-                                     xr_frames)
+from xrseg_tpu_torch.testing import (detection_params, epilogue_calls,
+                                     sentis_template, xr_frames)
 from xrseg_tpu_torch.tools import ab_active as tool_ab_active
 from xrseg_tpu_torch.tools import ab_distill as tool_ab_distill
 from xrseg_tpu_torch.tools import ab_letterbox as tool_ab_letterbox
@@ -554,6 +565,9 @@ K3_BATCHES = (1, 8, 32)
 K_FULL, K_COMPACT = 8400, 1024
 K_OBB = OBB_MODEL.num_anchors         # 21504
 K4_SHAPE = dict(B=8, D=MAX_DET, nm=MODEL.num_masks, hw=MODEL.mask_size)
+# the conv epilogue at the batch cell's model and batch
+EPILOGUE_MODEL = ModelConfig(scale="x")
+EPILOGUE_BATCH = 32
 # the serve phase: 16 distinct 480x640 frames sent as npy bodies by 16
 # client threads, 16 requests each, to a server at micro-batch 1 and 8
 SERVE_FRAMES, SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 16, 16
@@ -678,6 +692,11 @@ K4 = dict(name="mask_synth_crop_cuda", route="cuda",
           launches_note="no path of build_pipeline runs K4: as in the JAX "
                         "package, the pipeline keeps the unfused "
                         "synthesize_masks + crop_masks formulation")
+K7 = dict(name="conv_epilogue_cuda", route="cuda",
+          source="xrseg_tpu_torch/csrc/conv_epilogue.cu", replaces="none",
+          replaces_note="the port's own kernel: the JAX conv_apply "
+                        "(xrseg_tpu/models/layers.py) leaves bias, SiLU and "
+                        "the cast to XLA's fusion")
 WBF_NOTE = ("the port's own kernel: no TPU kernel computes WBF; it stands for "
             "the JAX package's lax.scan, one sequential step a candidate")
 K5 = dict(name="wbf_scan_cuda", route="cuda",
@@ -947,6 +966,78 @@ def phase_k4_seeded():
     args = [torch.from_numpy(a).to(DEVICE) for a in (coefs, protos, boxes)]
     case = k4_case(*args, f"K4 seeded B={B} D={D} {nm}x{h}x{w}")
     return dict(K4, main=case, cases=[case])
+
+
+def epilogue_case(shape, act: bool, channels_last: bool, seed: int,
+                   n: int, iters: int = 20) -> dict:
+    """The epilogue at one shape: bit-equal to the plain version, then
+    timed beside it and its bound (2 bytes read and 2 written an
+    element); `n` epilogues of the forward have this shape."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    y = (torch.randn(shape, generator=g, device=DEVICE) * 3).to(
+        torch.bfloat16)
+    if channels_last:
+        y = y.contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(shape[1], generator=g, device=DEVICE)
+    want = ce.conv_epilogue_torch(y, bias, act)
+    got = ce.conv_epilogue_cuda(y.clone(memory_format=torch.preserve_format),
+                                bias, act)
+    torch.cuda.synchronize()
+    label = (f"conv_epilogue {'x'.join(map(str, shape))} "
+             f"{'silu' if act else 'bias'} "
+             f"{'channels-last' if channels_last else 'nchw'}")
+    check(got.stride() == want.stride() and torch.equal(
+        got.view(torch.int16), want.view(torch.int16)),
+        f"{label}: the kernel differs from the plain version")
+    err = float((got.float() - want.float()).abs().max())
+    ms = cuda_ms(lambda: ce.conv_epilogue_cuda(y, bias, act), iters)
+    plain_ms = cuda_ms(lambda: ce.conv_epilogue_torch(y, bias, act), 5, 1)
+    bound_ms, bound_by = bound(4 * y.numel(), 0)
+    return dict(case=label, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_conv_epilogue() -> dict:
+    model = yolo11.YOLO11(EPILOGUE_MODEL).to(DEVICE)
+    H, W = EPILOGUE_MODEL.input_size
+    calls = collections.Counter(epilogue_calls(
+        model, torch.zeros(EPILOGUE_BATCH, H, W, 3, device=DEVICE)))
+    cases = [epilogue_case(shape, act, cl, i, n) for i, ((shape, act, cl), n)
+             in enumerate(sorted(calls.items()))]
+    n = sum(calls.values())
+    total = {k: sum(c["n"] * c[k] for c in cases)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    main = dict(case=f"conv_epilogue YOLO11x-seg b={EPILOGUE_BATCH}: the "
+                     f"{n} epilogues of a forward", n=n,
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                bound_by="bytes", **total)
+    largest = max(cases, key=lambda c: c["bound_ms"])
+    print(f"kernels: {main['case']} ({len(cases)} shapes, "
+          f"{sum(c['n'] for c in cases if 'channels-last' in c['case'])} "
+          f"channels-last): bit-equal, {total['ms']:.4f} ms summed (plain "
+          f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms by "
+          f"bytes, {100 * total['bound_ms'] / total['ms']:.1f}% of it); "
+          f"largest {largest['case']}: {largest['ms']:.4f} ms (plain "
+          f"{largest['plain_ms']:.4f} ms, bound {largest['bound_ms']:.5f} ms)",
+          flush=True)
+    # its launches on the batch cell's path and on the XR model's b=1 path
+    by_path = {}
+    for name, cfg, batch in (("batch x b=32", EPILOGUE_MODEL, EPILOGUE_BATCH),
+                             ("segment n b=1", MODEL, 1)):
+        pipe = build_pipeline(ExecutorConfig(model=cfg), model if cfg is
+                              EPILOGUE_MODEL else yolo11.YOLO11(cfg),
+                              frame_hw=FRAME_HW, batch=batch,
+                              device=DEVICE).warmup()
+        before = ce.conv_epilogue_cuda.launches
+        pipe(pipe.dummy_input())["slate"].cpu()
+        by_path[name] = ce.conv_epilogue_cuda.launches - before
+        n_modules = sum(isinstance(m, (L.Conv, L.Proto))
+                        for m in pipe.params.modules())
+        check(by_path[name] == n_modules,
+              f"{name}: {by_path[name]} epilogue launches a call, "
+              f"{n_modules} conv epilogues in the model")
+    print(f"kernels: conv_epilogue launches a call {by_path}", flush=True)
+    return dict(K7, main=main, cases=[main] + cases, launches_by_path=by_path)
 
 
 # ---------------------------------------------------------------------------
@@ -1855,7 +1946,8 @@ def phase_options(cfg, model, frames, b1) -> dict:
     zero_counters()
     det = pipe(frames[:1])
     torch.cuda.synchronize()
-    check(sum(read_counters().values()) == 0, "the o2o path launched NMS")
+    check(sum(post_counts(read_counters()).values()) == 0,
+          "the o2o path launched NMS")
     check_det(det, 1, True, "o2o")
     print("options: the o2o head gives 50/50 detections with no NMS launch",
           flush=True)
@@ -2845,7 +2937,7 @@ def phase_eval(smi: str) -> dict:
         "segment eval")
     batches = -(-EVAL_N // 8)
     check(seg_l[K1["name"]] == batches and seg_b == {8: batches}
-          and sum(seg_l.values()) == batches,
+          and sum(post_counts(seg_l).values()) == batches,
           f"segment eval: launches {seg_l}, K1 by batch {seg_b}; expected "
           f"K1 x{batches} at B=8 and nothing else")
     scan_pipe = build_pipeline(ExecutorConfig(model=MODEL, post=post("scan")),
@@ -2875,7 +2967,7 @@ def phase_eval(smi: str) -> dict:
         out, pi, lc, by_b = eval_run(lambda: evaluate_task_dataset(
             model.cfg, model, data, batch=4, device=DEVICE), f"{name} eval")
         kern = K3 if name == "obb" else K1
-        check(lc[kern["name"]] == 2 and sum(lc.values()) == 2
+        check(lc[kern["name"]] == 2 and sum(post_counts(lc).values()) == 2
               and (name == "obb" or by_b == {4: 2}),
               f"{name} eval: launches {lc}, K1 by batch {by_b}; expected "
               f"{kern['name']} x2 at B=4 and nothing else")
@@ -3120,7 +3212,7 @@ def phase_train(smi: str) -> dict:
     finite_steps(rec.rows, 2 * per_epoch, "fit")
     check(tr.preflight_bytes is not None, "the memory preflight did not run")
     check(len(val_counts) == 2 and all(
-        c[K1["name"]] == 1 and sum(c.values()) == 1
+        c[K1["name"]] == 1 and sum(post_counts(c).values()) == 1
         and by_b == {TRAIN_BATCH: 1} for c, by_b in val_counts),
         f"fit validation launches {val_counts}; expected K1 once a "
         f"validation at B={TRAIN_BATCH} and nothing else")
@@ -3220,7 +3312,7 @@ def phase_train(smi: str) -> dict:
         finite_steps(r.rows, 2, f"{name} fit")
         if val is not None:
             check(len(counts) == 1 and counts[0][0][K3["name"]] == 1
-                  and sum(counts[0][0].values()) == 1,
+                  and sum(post_counts(counts[0][0]).values()) == 1,
                   f"obb validation launches {counts}; expected K3 once")
             launches["train obb validation"] = counts[0][0][K3["name"]]
         numbers["tasks"][name] = {"losses": [x["loss"] for x in r.rows],
@@ -3312,7 +3404,7 @@ def transfer_phase(donor, ds, val_ds) -> dict:
         hist = tr.fit(ds, val_dataset=val_ds, verbose=False)
     finite_steps(rec.rows, len(ds) // TRAIN_BATCH, "fit from the transfer")
     check(len(counts) == 1 and counts[0][0][K1["name"]] == 1
-          and sum(counts[0][0].values()) == 1
+          and sum(post_counts(counts[0][0]).values()) == 1
           and counts[0][1] == {TRAIN_BATCH: 1},
           f"fit from the transfer: validation launches {counts}; expected "
           f"K1 once at B={TRAIN_BATCH}")
@@ -3440,7 +3532,8 @@ def label_phase(donor, frames) -> dict:
         sec = time.perf_counter() - t
         c, by_b = read_counters(), dict(
             nk.nms_select_batched_cuda.launches_by_batch)
-        check(c[K1["name"]] == expect and sum(c.values()) == expect
+        check(c[K1["name"]] == expect
+              and sum(post_counts(c).values()) == expect
               and by_b == {1: expect},
               f"{what}: launches {c} by batch {by_b}; expected K1 {expect} "
               "times at B=1 and nothing else")
@@ -3649,7 +3742,7 @@ def counted(launches: dict, path: str, fn):
 def only(counts: dict, want: dict, what: str) -> None:
     """The path launched exactly `want` ({wrapper name: n}) and nothing
     else."""
-    got = {k: v for k, v in counts.items() if v}
+    got = {k: v for k, v in post_counts(counts).items() if v}
     check(got == want, f"{what}: launches {got}, expected {want}")
 
 
@@ -4201,7 +4294,7 @@ def phase_mesh_train(smi: str) -> dict:
     check(tr.preflight_bytes is not None,
           "mesh fit: the memory preflight did not run")
     check(len(val_counts) == 1 and val_counts[0][0][K1["name"]] == 1
-          and sum(val_counts[0][0].values()) == 1
+          and sum(post_counts(val_counts[0][0]).values()) == 1
           and val_counts[0][1] == {MESH_BATCH: 1},
           f"mesh fit validation launches {val_counts}; expected K1 once at "
           f"B={MESH_BATCH} and nothing else")
@@ -4275,7 +4368,7 @@ def phase_mesh_train(smi: str) -> dict:
             n=4, hw=OBB_FRAME_HW, seed=1), verbose=False)
     finite_steps(r.rows, 2, "obb mesh fit")
     check(len(counts) == 1 and counts[0][0][K3["name"]] == 1
-          and sum(counts[0][0].values()) == 1,
+          and sum(post_counts(counts[0][0]).values()) == 1,
           f"obb mesh validation launches {counts}; expected K3 once")
     launches["mesh train obb validation"] = counts[0][0][K3["name"]]
     seconds["obb"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -4403,7 +4496,7 @@ def phase_sentis(smi: str) -> dict:
     torch.cuda.synchronize()
     launches["sentis serve"] = read_counters()
     check(launches["sentis serve"][K1["name"]] == 2
-          and sum(launches["sentis serve"].values()) == 2,
+          and sum(post_counts(launches["sentis serve"]).values()) == 2,
           f"sentis serve launches {launches['sentis serve']}; expected K1 "
           "once at b=1 and once at b=8")
     for b, det in runs.items():
@@ -4491,7 +4584,7 @@ def phase_sentis(smi: str) -> dict:
     torch.cuda.synchronize()
     launches["sentis redeploy"] = read_counters()
     check(launches["sentis redeploy"][K1["name"]] == 1
-          and sum(launches["sentis redeploy"].values()) == 1,
+          and sum(post_counts(launches["sentis redeploy"]).values()) == 1,
           f"redeployed model launches {launches['sentis redeploy']}")
     check(bool(det["slate"].isfinite().all())
           and torch.equal(det["slate"], ref["slate"]),
@@ -5087,7 +5180,8 @@ def phase_tools(smi: str) -> dict:
 
 WRAPPERS = (nk.nms_select_batched_cuda, nk.nms_select_cuda,
             nk.nms_rotated_batched_cuda, mk.mask_synth_crop_cuda,
-            wbf.wbf_scan_cuda, wbf.wbf_rotated_scan_cuda)
+            wbf.wbf_scan_cuda, wbf.wbf_rotated_scan_cuda,
+            ce.conv_epilogue_cuda)
 
 
 def zero_counters() -> None:
@@ -5100,8 +5194,15 @@ def read_counters() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
+def post_counts(counts: dict) -> dict:
+    """The counts of K1-K6 alone: the conv epilogue (K7) runs once a
+    conv in every bf16 forward, so the checks of which postprocessing
+    kernels a path launched leave it out."""
+    return {k: v for k, v in counts.items() if k != K7["name"]}
+
+
 CASE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "cluster", "steps", "us_per_step", "inside_share")
+             "cluster", "steps", "us_per_step", "inside_share", "n")
 
 
 def kernel_line(kernels) -> dict:
@@ -5117,6 +5218,8 @@ def kernel_line(kernels) -> dict:
             shape=m["case"],
             check=("crop equal to the plain version, values within 1e-5"
                    if k["name"] == K4["name"] else
+                   "every output bit-equal to the plain version"
+                   if k["name"] == K7["name"] else
                    "every output equal to the plain scan in every case"
                    if k["name"] in (K5["name"], K6["name"]) else
                    "idx/ok equal to the plain version in every case"),
@@ -5138,6 +5241,7 @@ def main() -> int:
     try:
         smi = phase_device()
         kernels = phase_nms_kernels() + [phase_k4_seeded()]
+        epilogue = phase_conv_epilogue()
         seconds["device, kernels"] = time.perf_counter() - t0
         det, seg = phase_segment()
         kernels[-1]["cases"].append(k4_case(
@@ -5230,6 +5334,19 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", flush=True)
         return 1
+    # K7 by path, from the same zeroed counters as K1 (its timed cases
+    # above are on no path and are not counted)
+    by_path, ep = epilogue["launches_by_path"], K7["name"]
+    by_path.update({"segment": seg[ep], "obb": obb[ep], "tick": tick[ep],
+                    "serve": serve["serve"][ep],
+                    "stream": serve["stream"][ep],
+                    "tasks": tasks["launches"][ep],
+                    "tasks serve": tasks["serve"][ep],
+                    "ensemble": acc["launches"][ep]})
+    by_path.update({f"eval {path}": c[ep] for path, c in ev.items()})
+    by_path.update({path: c[ep] for path, c in par.items() if c[ep]})
+    epilogue["launches"] = sum(by_path.values())
+    kernels.append(epilogue)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; by phase "
           f"{ {k: round(v, 1) for k, v in seconds.items()} }", flush=True)

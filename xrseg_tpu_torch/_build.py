@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("nms_select", "nms_rotated", "mask_synth_crop", "wbf")
+SOURCES = ("nms_select", "nms_rotated", "mask_synth_crop", "wbf",
+           "conv_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -9,7 +9,10 @@ Numerics follow the JAX `conv_apply`: the convolution runs in the compute
 dtype, then bias and SiLU are applied in float32 and the result is rounded
 once to the compute dtype. A torch bf16 convolution returns bf16, so the
 port rounds one extra time (before the bias) in bf16 mode; in float32 mode
-the two compute the same function.
+the two compute the same function. The epilogue (bias, SiLU, rounding) is
+ops/conv_epilogue's: on the card, for a bf16 conv whose output needs no
+gradient, one hand-written pass bit-equal to the four-op float32
+composition that runs everywhere else.
 
 Every parameter is stored in float32 and cast to the compute dtype at use,
 as the JAX code does.
@@ -21,6 +24,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from xrseg_tpu_torch.ops.conv_epilogue import (conv_epilogue_cuda,
+                                               conv_epilogue_torch)
 
 
 class Conv(nn.Module):
@@ -56,10 +62,7 @@ def conv_apply(conv: Conv, x: torch.Tensor, weight: torch.Tensor,
     k = weight.shape[-1]
     y = F.conv2d(x.to(conv.dtype), weight.to(conv.dtype), None,
                  conv.stride, k // 2, 1, groups)
-    y = y.float() + bias.float()[:, None, None]
-    if conv.act:
-        y = F.silu(y)
-    return y.to(conv.dtype)
+    return _epilogue(y, bias, conv.act)
 
 
 def conv_transpose_apply(proto: "Proto", y: torch.Tensor,
@@ -68,7 +71,19 @@ def conv_transpose_apply(proto: "Proto", y: torch.Tensor,
     """The Proto's k=2 s=2 transposed conv with the given weight [in,
     out, 2, 2] and bias (a slice of its output channels, for parallel/)."""
     y = F.conv_transpose2d(y, up_w.to(proto.dtype), None, stride=2)
-    return (y.float() + up_b.float()[:, None, None]).to(proto.dtype)
+    return _epilogue(y, up_b, False)
+
+
+def _epilogue(y: torch.Tensor, bias: torch.Tensor, act: bool
+              ) -> torch.Tensor:
+    """Bias, optional SiLU and the rounding to y's dtype: the kernel for a
+    bf16 output on the card when no gradient is needed, neither through
+    y (from x or the weight) nor to the bias (the fresh conv output is
+    overwritten), else the composition."""
+    if (y.is_cuda and y.dtype == torch.bfloat16 and not y.requires_grad
+            and not (bias.requires_grad and torch.is_grad_enabled())):
+        return conv_epilogue_cuda(y, bias.float(), act)
+    return conv_epilogue_torch(y, bias, act)
 
 
 class HeadConv(Conv):

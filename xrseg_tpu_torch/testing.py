@@ -112,6 +112,28 @@ def xr_frames(n: int, frame_hw: Tuple[int, int],
             for i in range(n)]
 
 
+def epilogue_calls(model: yolo11.YOLO11, x: torch.Tensor
+                   ) -> List[Tuple[Tuple[int, ...], bool, bool]]:
+    """The conv epilogues one inference forward of `model` on `x` (NHWC)
+    runs, in order: (shape of the conv output [B, C, H, W], act,
+    channels_last) for each conv and transposed conv, as
+    models/layers._epilogue receives them."""
+    from xrseg_tpu_torch.models import layers
+    calls, run = [], layers._epilogue
+
+    def record(y, bias, act):
+        calls.append((tuple(y.shape), bool(act), not y.is_contiguous()))
+        return run(y, bias, act)
+
+    layers._epilogue = record
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        layers._epilogue = run
+    return calls
+
+
 # ---------------------------------------------------------------------------
 # a synthetic .sentis template
 # ---------------------------------------------------------------------------

@@ -20,7 +20,10 @@ Emits ONE JSON line: the device, frames_per_s_off and frames_per_s_on
 (one per window), "traced" (per enabled window: queued_batches =
 queued_at_submit / batches_submitted; <span>_ms = the mean self time of
 each span a batch; batch_device_ms and its p95 on the card's clock;
-spans and device spans a batch).
+spans and device spans a batch), and conv_epilogue_launches_per_batch
+(per window: the hand-written conv epilogue's launches a batch, which
+is the model's conv count when the batch goes through the kernel, and 0
+on the CPU).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from xrseg_tpu_torch.compile import build_pipeline
     from xrseg_tpu_torch.config import TEST_PRESET, ExecutorConfig, ModelConfig
+    from xrseg_tpu_torch.ops.conv_epilogue import conv_epilogue_cuda
     from xrseg_tpu_torch.runtime.streaming import StreamingRunner
     from xrseg_tpu_torch.testing import detection_params
 
@@ -77,12 +81,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tracer = runner.tracer
 
     fps = {False: [], True: []}
-    traced = []
+    traced, epilogues = [], []
     for on in [False, True, True, False] * (args.rounds // 2) + \
             [False, True] * (args.rounds % 2):
         tracer.reset()
         tracer.enable(on)
-        fps[on].append(window(runner, batches, args.seconds))
+        launches = conv_epilogue_cuda.launches
+        rate, n = window(runner, batches, args.seconds)
+        fps[on].append(rate)
+        epilogues.append((conv_epilogue_cuda.launches - launches) / n)
         if on:
             traced.append(readings(tracer.export()))
         tracer.enable(False)
@@ -92,7 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
            "scale": args.scale, "batch": args.batch, "depth": DEPTH,
            "seed": args.seed, "seconds": args.seconds,
            "frames_per_s_off": fps[False], "frames_per_s_on": fps[True],
-           "traced": traced}
+           "traced": traced, "conv_epilogue_launches_per_batch": epilogues}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
@@ -101,10 +108,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
-def window(runner, batches, seconds: float, warm: int = 0) -> float:
+def window(runner, batches, seconds: float, warm: int = 0):
     """Submit batches in a closed loop for `seconds` (or `warm` batches),
-    then drain: frames / the time from the first submit to the last
-    result."""
+    then drain: (frames / the time from the first submit to the last
+    result, batches completed)."""
     done, i = 0, 0
     t0 = time.perf_counter()
     t_end = t0 + seconds
@@ -114,7 +121,7 @@ def window(runner, batches, seconds: float, warm: int = 0) -> float:
         i += 1
     for _ in runner.drain():
         done += 1
-    return done * batches[0].shape[0] / (time.perf_counter() - t0)
+    return done * batches[0].shape[0] / (time.perf_counter() - t0), done
 
 
 def readings(exp: Dict) -> Dict[str, float]:
