@@ -14,7 +14,7 @@ On the card (marker `cuda`; the file imports no JAX):
         tests/test_torch_conv_epilogue.py
 
 the kernel is bit-equal to the composition at every epilogue shape of
-YOLO11n-seg and YOLO11x-seg, on special values, on its scalar path and
+YOLO11n-seg, YOLO11x-seg and YOLO12x-seg, on special values, on its scalar path and
 through whole forwards, and a forward launches it once an epilogue.
 """
 import pytest
@@ -205,6 +205,27 @@ def test_every_epilogue_shape_is_bit_equal(card, scale, batch):
                               device=card)
             _kernel_equals_composition(y, bias, act)
     print(f"{scale} b={batch}: {len(shapes)} distinct epilogues, "
+          f"{sum(cl for *_, cl in shapes)} channels-last")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+def test_every_yolo12x_epilogue_shape_is_bit_equal(card, batch):
+    """The same for YOLO12x-seg at its cell's 960x1280, whose ABlock MLP
+    is 460 channels wide (not a multiple of 8: the scalar path when
+    channels-last); b=8, since the inputs are drawn on the host."""
+    model = yolo11.YOLO11(ModelConfig(arch="yolo12", scale="x",
+                                      input_size=(960, 1280))).to(card)
+    x = torch.zeros(1, 960, 1280, 3, device=card)
+    shapes = sorted({(s[1:], act, cl) for s, act, cl in
+                     epilogue_calls(model, x)})
+    assert any(chw[0] == 460 for chw, _, _ in shapes)
+    for i, (chw, act, channels_last) in enumerate(shapes):
+        for layout in (channels_last, not channels_last):
+            y, bias = _inputs((batch, *chw), torch.bfloat16, layout, seed=i,
+                              device=card)
+            _kernel_equals_composition(y, bias, act)
+    print(f"yolo12x b={batch}: {len(shapes)} distinct epilogues, "
           f"{sum(cl for *_, cl in shapes)} channels-last")
 
 

@@ -251,6 +251,30 @@ NO_PORT = {
 }
 
 
+# (port module, name) -> why the JAX package has no twin of it
+PORT_ONLY = {
+    **{(mod, name): "no JAX counterpart: YOLO12 exists only in the port"
+       for mod, name in (("models/layers.py", "AAttn"),
+                         ("models/layers.py", "ABlock"),
+                         ("models/layers.py", "A2C2f"),
+                         ("models/yolo11.py", "YOLO12_SCALES"),
+                         ("models/yolo11.py", "refuse_yolo12"),
+                         ("ops/attention.py", "area_attention"),
+                         ("ops/attention.py", "area_attention_cuda"),
+                         ("ops/attention.py", "area_attention_torch"))},
+}
+
+
+@pytest.mark.parametrize("rel,name", sorted(PORT_ONLY))
+def test_port_only_names_have_no_jax_twin(rel, name):
+    """Each name listed as the port's own is bound in the port's module
+    and in no JAX module of the same path, so the list stays true."""
+    assert name in _bound(PORT / rel), f"{rel} binds no {name}"
+    twin = JAX_PKG / rel
+    assert not (twin.exists() and name in _bound(twin)), \
+        f"xrseg_tpu/{rel} has {name}: list it as a counterpart instead"
+
+
 def _defined(path: Path) -> set:
     """The public top-level functions and classes of a module."""
     return {n.name for n in ast.parse(path.read_text()).body
@@ -260,13 +284,15 @@ def _defined(path: Path) -> set:
 
 def _bound(path: Path) -> set:
     """Every top-level name a module binds (defs, classes, assignments,
-    imports)."""
+    annotated ones too, imports)."""
     names = set()
     for n in ast.parse(path.read_text()).body:
         if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
             names.add(n.name)
         elif isinstance(n, ast.Assign):
             names |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            names.add(n.target.id)
         elif isinstance(n, (ast.Import, ast.ImportFrom)):
             names |= {(a.asname or a.name).split(".")[0] for a in n.names}
     return names

@@ -218,6 +218,7 @@ def _check_tta(mcfg: ModelConfig, emit_masks: str, kpt_flip_idx,
                views) -> None:
     """build_pipeline(tta=True)'s checks, word for word the JAX
     package's."""
+    yolo11.refuse_yolo12(mcfg, "test-time augmentation")
     if mcfg.task == "classify":
         raise ValueError("tta unsupported for task 'classify'"
                          " (nothing to merge pre-NMS)")
@@ -692,6 +693,7 @@ def build_xr_tick_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     storage, as in build_pipeline.
     """
     mcfg = cfg.model
+    yolo11.refuse_yolo12(mcfg, "the XR tick")
     if mcfg.task != "segment":
         raise ValueError(f"fused_tick requires task='segment', "
                          f"got {mcfg.task!r}")

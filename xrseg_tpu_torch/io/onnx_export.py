@@ -26,7 +26,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from xrseg_tpu_torch.io.weights import params_to_tree
-from xrseg_tpu_torch.models.yolo11 import YOLO11, Spec, make_anchors
+from xrseg_tpu_torch.models.yolo11 import (YOLO11, Spec, make_anchors,
+                                           refuse_yolo12)
 from xrseg_tpu_torch.viz.labels import COCO_LABELS
 
 # ---------------------------------------------------------------------------
@@ -315,6 +316,7 @@ def export_onnx(params, cfg, path: str,
         params = params_to_tree(params)
     Spec(cfg)                                  # validates cfg
     H, W = cfg.input_size
+    refuse_yolo12(cfg, "ONNX export")
     g = _G()
     x0 = "images"
 

@@ -1,4 +1,6 @@
-"""YOLO11 building blocks as torch modules (counterpart of xrseg_tpu/models/layers.py).
+"""YOLO11 building blocks as torch modules (counterpart of
+xrseg_tpu/models/layers.py), and YOLO12's area-attention blocks (AAttn,
+ABlock, A2C2f), which exist only in the port.
 
 Activations are NCHW inside the network; the model's public functions keep
 the JAX package's NHWC layout. Module and parameter names mirror the JAX
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xrseg_tpu_torch.ops.attention import area_attention
 from xrseg_tpu_torch.ops.conv_epilogue import (conv_epilogue_cuda,
                                                conv_epilogue_torch)
 
@@ -262,6 +265,108 @@ class C2PSA(nn.Module):
         for blk in self.m:
             b = blk(b)
         return self.cv2(torch.cat([a, b], 1))
+
+
+class AAttn(nn.Module):
+    """YOLO12's area attention (Ultralytics AAttn) over a [B, C, H, W] map,
+    heads of width C / num_heads.
+
+    qkv = 1x1 conv to 3C, its tokens in row-major order with channels
+    last; with area a > 1 the N tokens split into a bands of N/a
+    consecutive tokens (H/a whole rows where a divides H), each attended
+    alone. A token's 3C channels read per head as [q | k | v] of head_dim
+    each: an NCHW split of the 3C channels would take q, k and v from the
+    wrong channels. out = proj(o + pe(v)), pe a depthwise 7x7 conv on v.
+    qkv made channels-last is the block's one layout copy (none where the
+    conv left it so): it gives q, k and v a dense last dim, which the
+    card's fused attention needs; pe needs v as its own dense map."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.area, self.num_heads = area, num_heads
+        self.head_dim = dim // num_heads
+        self.qkv = Conv(dim, 3 * dim, 1, act=False, dtype=dtype)
+        self.proj = Conv(dim, dim, 1, act=False, dtype=dtype)
+        self.pe = dwconv(dim, 7, act=False, dtype=dtype)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        a, nh, hd = self.area, self.num_heads, self.head_dim
+        if (H * W) % a:
+            raise ValueError(f"AAttn: {H}x{W} tokens do not split into "
+                             f"{a} areas")
+        t = self.qkv(x).permute(0, 2, 3, 1).contiguous().view(
+            B * a, H * W // a, nh, 3 * hd)
+        q, k, v = t.transpose(1, 2).split(hd, dim=-1)   # [B*a, nh, N/a, hd]
+        o = area_attention(q, k, v, hd ** -0.5)
+        o = o.transpose(1, 2).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        v = v.transpose(1, 2).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        return self.proj(o + self.pe(v))
+
+
+class ABlock(nn.Module):
+    """x + AAttn(x), then x + mlp(x): 1x1 conv to int(dim * mlp_ratio)
+    with SiLU, 1x1 conv back without (Ultralytics ABlock)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2,
+                 area: int = 1, dtype=torch.bfloat16):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, num_heads, area, dtype)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1, dtype=dtype),
+                                 Conv(hidden, dim, 1, act=False, dtype=dtype))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """YOLO12's R-ELAN block (Ultralytics A2C2f, e=0.5): y = [cv1(x)] of
+    c_ = c2/2 channels, each of the n modules maps y[-1] to the next y,
+    out = cv2(cat y). A module is two ABlocks (heads of width 32) when a2
+    is set, else C3k(c_, c_, 2) with its shortcut.
+    With a2 and residual, out = x + gamma * out, gamma a learned vector
+    per channel (Ultralytics starts it at 0.01).
+
+    An attention-bearing block runs inside a profiler range
+    `xrseg.a2c2f` while a profiler records; the others (the neck's) open
+    none."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True,
+                 area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0, dtype=torch.bfloat16):
+        super().__init__()
+        c_ = c2 // 2
+        if c_ % 32:
+            raise ValueError(f"A2C2f: hidden width {c_} is not a multiple "
+                             "of the head width 32")
+        self.a2 = a2
+        self.cv1 = Conv(c1, c_, 1, dtype=dtype)
+        self.cv2 = Conv((1 + n) * c_, c2, 1, dtype=dtype)
+        self.gamma = (nn.Parameter(torch.full((c2,), 0.01))
+                      if a2 and residual else None)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area, dtype)
+                            for _ in range(2)))
+            if a2 else C3k(c_, c_, 2, dtype=dtype)
+            for _ in range(n))
+
+    def forward(self, x):
+        if not (self.a2 and torch.autograd._profiler_enabled()):
+            return self._forward(x)
+        with torch.profiler.record_function("xrseg.a2c2f"):
+            return self._forward(x)
+
+    def _forward(self, x):
+        y = [self.cv1(x)]
+        for m in self.m:
+            y.append(m(y[-1]))
+        y = self.cv2(torch.cat(y, 1))
+        if self.gamma is None:
+            return y
+        return x + self.gamma.to(y.dtype)[:, None, None] * y
 
 
 class Proto(nn.Module):

@@ -1,4 +1,4 @@
-"""YOLO11 and YOLOv8 networks as torch modules (counterpart of
+"""YOLO11, YOLOv8 and YOLO12 networks as torch modules (counterpart of
 xrseg_tpu/models/yolo11.py).
 
 `YOLO11(cfg)(x)` takes NHWC input [B, H, W, 3] and returns the JAX
@@ -26,8 +26,11 @@ o2o_box_logits/o2o_cls_logits/o2o_boxes_xywh with cfg.o2o; the classify
 task returns the head's logits and probs. Its anchors follow the batch's
 own (H, W), so multi-scale batches need no config of their own.
 
-Both archs ("yolo11", "yolov8") and every task of the JAX package
-("segment", "detect", "obb", "pose", "classify") are ported.
+Both archs of the JAX package ("yolo11", "yolov8") and every task of
+it ("segment", "detect", "obb", "pose", "classify") are ported. The port
+adds "yolo12" (Ultralytics yolo12-seg.yaml: area attention in A2C2f
+blocks at P4 and P5), for the segment and detect tasks only; the JAX
+package has no twin of it.
 """
 from __future__ import annotations
 
@@ -65,6 +68,21 @@ YOLOV8_SCALES: Dict[str, Tuple[float, float, int]] = {
 }
 
 
+# The published YOLO12 ladder (cfg.arch == "yolo12", yolo12-seg.yaml): at
+# l and x every A2C2f takes residual=True and mlp_ratio=1.2, at m, l and x
+# every C3k2 runs C3k (Ultralytics parse_model).
+YOLO12_SCALES: Dict[str, Tuple[float, float, int]] = {
+    "n": (0.50, 0.25, 1024),
+    "s": (0.50, 0.50, 1024),
+    "m": (0.50, 1.00, 512),
+    "l": (1.00, 1.00, 512),
+    "x": (1.00, 1.50, 512),
+}
+
+SCALES = {"yolo11": YOLO11_SCALES, "yolov8": YOLOV8_SCALES,
+          "yolo12": YOLO12_SCALES}
+
+
 def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(x + divisor / 2) // divisor * divisor)
 
@@ -72,17 +90,33 @@ def make_divisible(x: float, divisor: int = 8) -> int:
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the JAX package refuses: an unknown arch or scale, and
     the one-to-one head (o2o) with a task that has no detect head to pair
-    it with (the classify init ignores o2o, as JAX's does)."""
-    if cfg.arch not in ("yolo11", "yolov8"):
+    it with (the classify init ignores o2o, as JAX's does); and yolo12
+    with a task other than segment and detect. The port also builds
+    yolo12 (YOLO12_SCALES), which the JAX package has not; the message for
+    an unknown arch stays the JAX package's."""
+    if cfg.arch not in SCALES:
         raise ValueError(
             f"Unknown arch {cfg.arch!r}; expected 'yolo11' or 'yolov8'")
-    table = YOLO11_SCALES if cfg.arch == "yolo11" else YOLOV8_SCALES
+    table = SCALES[cfg.arch]
     if cfg.scale not in table:
         raise ValueError(f"Unknown {cfg.arch} scale {cfg.scale!r}; expected "
                          f"one of {sorted(table)}")
+    if cfg.arch == "yolo12" and cfg.task not in ("segment", "detect"):
+        raise ValueError(f"arch 'yolo12' runs the segment and detect tasks, "
+                         f"not {cfg.task!r}")
     if cfg.o2o and cfg.task not in ("detect", "segment", "classify"):
         raise ValueError(
             f"o2o (NMS-free) supports detect/segment, not {cfg.task}")
+
+
+def refuse_yolo12(cfg: ModelConfig, path: str) -> None:
+    """Raise for a path that knows only the YOLO11 and YOLOv8 layers (a
+    weight format, a parallel layout, a pipeline variant) when cfg is a
+    yolo12: it would build, load or split the wrong network."""
+    if cfg.arch == "yolo12":
+        raise ValueError(f"{path} does not support arch 'yolo12' (it runs "
+                         "build_pipeline and StreamingRunner, segment and "
+                         "detect)")
 
 
 class Spec:
@@ -94,10 +128,12 @@ class Spec:
             raise ValueError(f"input_size {cfg.input_size} must be a "
                              "multiple of 32 (the P5 stride)")
         self.arch = cfg.arch
-        table = YOLO11_SCALES if cfg.arch == "yolo11" else YOLOV8_SCALES
-        depth, width, max_ch = table[cfg.scale]
-        # the wide scales force C3k blocks (YOLO11 only: v8 has none)
-        self.force_c3k = cfg.arch == "yolo11" and cfg.scale in ("m", "l", "x")
+        depth, width, max_ch = SCALES[cfg.arch][cfg.scale]
+        # the wide scales force C3k blocks (v8 has none)
+        self.force_c3k = cfg.arch != "yolov8" and cfg.scale in ("m", "l", "x")
+        # YOLO12's A2C2f at l and x: the gamma residual, a 1.2x MLP
+        self.a2_residual = cfg.arch == "yolo12" and cfg.scale in ("l", "x")
+        self.mlp_ratio = 1.2 if self.a2_residual else 2.0
 
         def ch(c: int) -> int:
             return make_divisible(min(c, max_ch) * width, 8)
@@ -107,6 +143,7 @@ class Spec:
         self.n2 = max(round(2 * depth), 1)
         self.n3 = max(round(3 * depth), 1)      # v8 backbone/neck repeats
         self.n6 = max(round(6 * depth), 1)
+        self.n4 = max(round(4 * depth), 1)      # v12 backbone A2C2f repeats
         nc, reg_max = cfg.num_classes, cfg.reg_max
         self.head_ch = (self.c256, self.c512, self.c1024)   # P3, P4, P5
         self.c2 = max(16, self.head_ch[0] // 4, reg_max * 4)
@@ -258,7 +295,8 @@ def _flatten(maps, c: int) -> torch.Tensor:
 
 
 class YOLO11(nn.Module):
-    """A YOLO11 or YOLOv8 network (cfg.arch) for one task at one scale."""
+    """A YOLO11, YOLOv8 or YOLO12 network (cfg.arch) for one task at one
+    scale."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -267,6 +305,8 @@ class YOLO11(nn.Module):
         self.cfg, self.dtype = cfg, dt
         if s.arch == "yolov8":
             self._init_backbone_v8(s, dt, with_sppf=cfg.task != "classify")
+        elif s.arch == "yolo12":
+            self._init_backbone_v12(s, dt)
         else:
             self._init_backbone(s, dt)
         if cfg.task == "classify":
@@ -275,6 +315,8 @@ class YOLO11(nn.Module):
             return
         if s.arch == "yolov8":
             self._init_neck_v8(s, dt)
+        elif s.arch == "yolo12":
+            self._init_neck_v12(s, dt)
         else:
             self._init_neck(s, dt)
         self.det = DetectHead(s, cfg, dt)
@@ -328,6 +370,22 @@ class YOLO11(nn.Module):
         if with_sppf:
             self.b9 = L.SPPF(s.c1024, s.c1024, dtype=dt)
 
+    def _init_backbone_v12(self, s: Spec, dt) -> None:
+        """yolo12-seg.yaml layers 0-8: the P2 and P3 downsampling convs in
+        2 and 4 groups, four A2C2f (area attention) at P4 in 4 row bands
+        and at P5 over the whole map, no SPPF and no C2PSA."""
+        self.b0 = L.Conv(3, s.c64, 3, 2, dtype=dt)
+        self.b1 = L.Conv(s.c64, s.c128, 3, 2, groups=2, dtype=dt)
+        self.b2 = L.C3k2(s.c128, s.c256, s.n2, s.c3k(False), 0.25, dtype=dt)
+        self.b3 = L.Conv(s.c256, s.c256, 3, 2, groups=4, dtype=dt)
+        self.b4 = L.C3k2(s.c256, s.c512, s.n2, s.c3k(False), 0.25, dtype=dt)
+        self.b5 = L.Conv(s.c512, s.c512, 3, 2, dtype=dt)
+        self.b6 = L.A2C2f(s.c512, s.c512, s.n4, True, 4, s.a2_residual,
+                          s.mlp_ratio, dtype=dt)
+        self.b7 = L.Conv(s.c512, s.c1024, 3, 2, dtype=dt)
+        self.b8 = L.A2C2f(s.c1024, s.c1024, s.n4, True, 1, s.a2_residual,
+                          s.mlp_ratio, dtype=dt)
+
     def _init_neck(self, s: Spec, dt) -> None:
         self.h13 = L.C3k2(s.c1024 + s.c512, s.c512, s.n2, s.c3k(False), 0.5,
                           dtype=dt)
@@ -354,9 +412,21 @@ class YOLO11(nn.Module):
         self.h22 = L.C2f(s.c512 + s.c1024, s.c1024, s.n3, shortcut=False,
                          dtype=dt)
 
+    def _init_neck_v12(self, s: Spec, dt) -> None:
+        """yolo12-seg.yaml layers 9-20: A2C2f without attention (C3k
+        modules) at layers 11, 14 and 17, C3k2 at layer 20."""
+        self.h11 = L.A2C2f(s.c1024 + s.c512, s.c512, s.n2, False, dtype=dt)
+        self.h14 = L.A2C2f(s.c512 + s.c512, s.c256, s.n2, False, dtype=dt)
+        self.h15 = L.Conv(s.c256, s.c256, 3, 2, dtype=dt)
+        self.h17 = L.A2C2f(s.c256 + s.c512, s.c512, s.n2, False, dtype=dt)
+        self.h18 = L.Conv(s.c512, s.c512, 3, 2, dtype=dt)
+        self.h20 = L.C3k2(s.c512 + s.c1024, s.c1024, s.n2, True, 0.5,
+                          dtype=dt)
+
     def backbone(self, x: torch.Tensor):
         """NCHW input -> the (x4, x6, x10) skip features: x10 is C2PSA's
-        output for yolo11, SPPF's (or for v8-cls the last C2f's) for v8."""
+        output for yolo11, SPPF's (or for v8-cls the last C2f's) for v8,
+        the last A2C2f's (layer 8) for yolo12."""
         x = self.b2(self.b1(self.b0(x)))
         x4 = self.b4(self.b3(x))
         x6 = self.b6(self.b5(x4))
@@ -375,6 +445,12 @@ class YOLO11(nn.Module):
         """The backbone's (x4, x6, x10) -> (P3, P4, P5) features: the stage
         boundary of parallel/pipeline.PipelinedRunner."""
         x4, x6, x10 = feats
+        if self.cfg.arch == "yolo12":
+            x11 = self.h11(torch.cat([L.upsample2x_nearest(x10), x6], 1))
+            x14 = self.h14(torch.cat([L.upsample2x_nearest(x11), x4], 1))
+            x17 = self.h17(torch.cat([self.h15(x14), x11], 1))
+            x20 = self.h20(torch.cat([self.h18(x17), x10], 1))
+            return x14, x17, x20
         x13 = self.h13(torch.cat([L.upsample2x_nearest(x10), x6], 1))
         x16 = self.h16(torch.cat([L.upsample2x_nearest(x13), x4], 1))
         x19 = self.h19(torch.cat([self.h17(x16), x13], 1))

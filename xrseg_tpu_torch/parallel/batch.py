@@ -271,6 +271,7 @@ def build_sharded_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
     same way). tp_min_channels below a model's widest conv turns on
     tensor parallelism there; the default leaves it off (DP only)."""
     mcfg, pcfg = cfg.model, cfg.post
+    yolo11.refuse_yolo12(mcfg, "data and tensor parallelism")
     d = mesh.shape["data"]
     if batch % d:
         raise ValueError(f"batch {batch} not divisible by data axis {d}")

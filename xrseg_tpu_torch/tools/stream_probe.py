@@ -7,9 +7,9 @@ process, so `frames_per_s_off` against `frames_per_s_on` is what tracing
 costs. The enabled windows give the batch's per-step readings from
 `Tracer.export()`.
 
-    python -m xrseg_tpu_torch.tools.stream_probe [--scale x] [--batch 32]
-        [--seconds 10] [--rounds 2] [--seed 0] [--device cuda] [--size N]
-        [--out PATH]
+    python -m xrseg_tpu_torch.tools.stream_probe [--arch yolo11] [--scale x]
+        [--batch 32] [--seconds 10] [--rounds 2] [--seed 0] [--device cuda]
+        [--size N] [--out PATH]
 
 Weights: detection_params from the seed (every anchor fires, so the NMS
 sees all of them); bfloat16 compute; TEST_PRESET thresholds; 480x640
@@ -20,10 +20,12 @@ Emits ONE JSON line: the device, frames_per_s_off and frames_per_s_on
 (one per window), "traced" (per enabled window: queued_batches =
 queued_at_submit / batches_submitted; <span>_ms = the mean self time of
 each span a batch; batch_device_ms and its p95 on the card's clock;
-spans and device spans a batch), and conv_epilogue_launches_per_batch
+spans and device spans a batch), conv_epilogue_launches_per_batch
 (per window: the hand-written conv epilogue's launches a batch, which
 is the model's conv count when the batch goes through the kernel, and 0
-on the CPU).
+on the CPU), and area_attention_calls_per_batch (per window: the fused
+attention calls a batch by SDPA backend, 16 a YOLO12x batch and none of
+them "MATH"; empty for YOLO11, YOLOv8 and on the CPU).
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ DEPTH = 2                  # batches queued behind the one being read
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="yolo11",
+                    choices=["yolo11", "yolov8", "yolo12"])
     ap.add_argument("--scale", default="x")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seconds", type=float, default=10.0,
@@ -57,16 +61,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from xrseg_tpu_torch.compile import build_pipeline
     from xrseg_tpu_torch.config import TEST_PRESET, ExecutorConfig, ModelConfig
+    from xrseg_tpu_torch.ops.attention import area_attention_cuda
     from xrseg_tpu_torch.ops.conv_epilogue import conv_epilogue_cuda
     from xrseg_tpu_torch.runtime.streaming import StreamingRunner
     from xrseg_tpu_torch.testing import detection_params
 
     if args.size:
-        mcfg = ModelConfig(scale=args.scale, input_size=(args.size,) * 2,
-                           dtype="float32")
+        mcfg = ModelConfig(arch=args.arch, scale=args.scale,
+                           input_size=(args.size,) * 2, dtype="float32")
         frame_hw = (args.size, args.size)
     else:
-        mcfg = ModelConfig(scale=args.scale, dtype="bfloat16")
+        mcfg = ModelConfig(arch=args.arch, scale=args.scale,
+                           dtype="bfloat16")
         frame_hw = (480, 640)
     cfg = ExecutorConfig(model=mcfg, post=TEST_PRESET.post)
     model = detection_params(torch.Generator().manual_seed(args.seed), mcfg,
@@ -81,15 +87,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tracer = runner.tracer
 
     fps = {False: [], True: []}
-    traced, epilogues = [], []
+    traced, epilogues, attention = [], [], []
     for on in [False, True, True, False] * (args.rounds // 2) + \
             [False, True] * (args.rounds % 2):
         tracer.reset()
         tracer.enable(on)
         launches = conv_epilogue_cuda.launches
+        calls = dict(area_attention_cuda.by_backend)
         rate, n = window(runner, batches, args.seconds)
         fps[on].append(rate)
         epilogues.append((conv_epilogue_cuda.launches - launches) / n)
+        attention.append({k: (v - calls.get(k, 0)) / n for k, v in
+                          area_attention_cuda.by_backend.items()})
         if on:
             traced.append(readings(tracer.export()))
         tracer.enable(False)
@@ -99,7 +108,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
            "scale": args.scale, "batch": args.batch, "depth": DEPTH,
            "seed": args.seed, "seconds": args.seconds,
            "frames_per_s_off": fps[False], "frames_per_s_on": fps[True],
-           "traced": traced, "conv_epilogue_launches_per_batch": epilogues}
+           "arch": args.arch, "traced": traced,
+           "conv_epilogue_launches_per_batch": epilogues,
+           "area_attention_calls_per_batch": attention}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -691,6 +691,7 @@ def shard_train_state(state: TrainState, mesh: Mesh,
     are moved, not copied, so read the result, not the argument. A state
     placed before is gathered first. Across processes every process takes
     rank 0's weights and moments."""
+    yolo11.refuse_yolo12(state.params.cfg, "training over a mesh")
     if fsdp and mesh.multiprocess:
         raise ValueError(FSDP_ACROSS_PROCESSES)
     if state.placement is not None:
