@@ -33,13 +33,17 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      on seeded inputs: the zeroed pixels must equal the plain version's
      and the values lie within 1e-5. Also timed beside the library
      formulation torch.sigmoid(coefs @ protos.T) + crop.
-   - The conv epilogue (conv_epilogue_cuda) at the batch cell's shapes:
-     every epilogue a YOLO11x-seg forward at b=32 runs (186, in the layout
-     the forward gives each), on seeded inputs: every output must EQUAL the
+   - The conv epilogue (conv_epilogue_cuda) at the batch cells' shapes:
+     every epilogue a YOLO11x-seg forward at b=32 and 640x640 runs (186)
+     and every one a YOLO12x-seg forward at b=32 and 960x1280 runs (224,
+     its 460-channel MLP on the 8-byte vectors), in the layout the
+     forward gives each, on seeded inputs: every output must EQUAL the
      plain version's bit for bit. Each distinct shape is timed beside the
      plain version and its bytes bound, and the three are summed over the
-     186 epilogues of the forward; then its launches for one call of the
-     b=32 YOLO11x-seg pipeline and of the b=1 YOLO11n-seg one.
+     epilogues of each forward; then its launches for one call of the
+     b=32 YOLO11x-seg and YOLO12x-seg pipelines and of the b=1 YOLO11n-seg
+     one, counted from zero, every one of them on a channels-last output
+     (launches_channels_last).
 3. segment pipeline: YOLO11n-seg at full width (640x640, 80 classes, 32
    protos at 160x160, 8400 anchors, max_det 50) with detection_params
    weights, on 480x640 uint8 frames (stretch): build_pipeline at b=1 and
@@ -567,6 +571,8 @@ K_OBB = OBB_MODEL.num_anchors         # 21504
 K4_SHAPE = dict(B=8, D=MAX_DET, nm=MODEL.num_masks, hw=MODEL.mask_size)
 # the conv epilogue at the batch cell's model and batch
 EPILOGUE_MODEL = ModelConfig(scale="x")
+EPILOGUE_MODEL_12 = ModelConfig(arch="yolo12", scale="x",
+                                input_size=(960, 1280))
 EPILOGUE_BATCH = 32
 # the serve phase: 16 distinct 480x640 frames sent as npy bodies by 16
 # client threads, 16 requests each, to a server at micro-batch 1 and 8
@@ -997,18 +1003,21 @@ def epilogue_case(shape, act: bool, channels_last: bool, seed: int,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_conv_epilogue() -> dict:
-    model = yolo11.YOLO11(EPILOGUE_MODEL).to(DEVICE)
-    H, W = EPILOGUE_MODEL.input_size
+def epilogue_forward(name: str, cfg: ModelConfig, seed: int) -> tuple:
+    """Every epilogue a b=EPILOGUE_BATCH forward of `cfg` runs, each
+    distinct shape held bit-equal to the plain version and timed: (the
+    summary of the forward, its cases, the model)."""
+    model = yolo11.YOLO11(cfg).to(DEVICE)
+    H, W = cfg.input_size
     calls = collections.Counter(epilogue_calls(
         model, torch.zeros(EPILOGUE_BATCH, H, W, 3, device=DEVICE)))
-    cases = [epilogue_case(shape, act, cl, i, n) for i, ((shape, act, cl), n)
-             in enumerate(sorted(calls.items()))]
+    cases = [epilogue_case(shape, act, cl, seed + i, n)
+             for i, ((shape, act, cl), n) in enumerate(sorted(calls.items()))]
     n = sum(calls.values())
     total = {k: sum(c["n"] * c[k] for c in cases)
              for k in ("ms", "plain_ms", "bound_ms")}
-    main = dict(case=f"conv_epilogue YOLO11x-seg b={EPILOGUE_BATCH}: the "
-                     f"{n} epilogues of a forward", n=n,
+    main = dict(case=f"conv_epilogue {name} b={EPILOGUE_BATCH} at {H}x{W}: "
+                     f"the {n} epilogues of a forward", n=n,
                 max_abs_err=max(c["max_abs_err"] for c in cases),
                 bound_by="bytes", **total)
     largest = max(cases, key=lambda c: c["bound_ms"])
@@ -1020,24 +1029,41 @@ def phase_conv_epilogue() -> dict:
           f"largest {largest['case']}: {largest['ms']:.4f} ms (plain "
           f"{largest['plain_ms']:.4f} ms, bound {largest['bound_ms']:.5f} ms)",
           flush=True)
-    # its launches on the batch cell's path and on the XR model's b=1 path
-    by_path = {}
-    for name, cfg, batch in (("batch x b=32", EPILOGUE_MODEL, EPILOGUE_BATCH),
-                             ("segment n b=1", MODEL, 1)):
-        pipe = build_pipeline(ExecutorConfig(model=cfg), model if cfg is
-                              EPILOGUE_MODEL else yolo11.YOLO11(cfg),
+    return main, cases, model
+
+
+def phase_conv_epilogue() -> dict:
+    main, cases, model = epilogue_forward("YOLO11x-seg", EPILOGUE_MODEL, 0)
+    main12, cases12, model12 = epilogue_forward(
+        "YOLO12x-seg", EPILOGUE_MODEL_12, len(cases))
+    # its launches on the batch cells' paths and on the XR model's b=1
+    # path, every one on a channels-last output (the network's layout)
+    by_path, channels_last = {}, {}
+    for name, cfg, m, batch in (
+            ("batch yolo11x b=32", EPILOGUE_MODEL, model, EPILOGUE_BATCH),
+            ("batch yolo12x b=32", EPILOGUE_MODEL_12, model12,
+             EPILOGUE_BATCH),
+            ("segment n b=1", MODEL, yolo11.YOLO11(MODEL), 1)):
+        pipe = build_pipeline(ExecutorConfig(model=cfg), m,
                               frame_hw=FRAME_HW, batch=batch,
                               device=DEVICE).warmup()
-        before = ce.conv_epilogue_cuda.launches
+        ce.conv_epilogue_cuda.launches = 0
+        ce.conv_epilogue_cuda.launches_channels_last = 0
         pipe(pipe.dummy_input())["slate"].cpu()
-        by_path[name] = ce.conv_epilogue_cuda.launches - before
-        n_modules = sum(isinstance(m, (L.Conv, L.Proto))
-                        for m in pipe.params.modules())
-        check(by_path[name] == n_modules,
+        by_path[name] = ce.conv_epilogue_cuda.launches
+        channels_last[name] = ce.conv_epilogue_cuda.launches_channels_last
+        n_modules = sum(isinstance(mod, (L.Conv, L.Proto))
+                        for mod in pipe.params.modules())
+        check(by_path[name] == channels_last[name] == n_modules,
               f"{name}: {by_path[name]} epilogue launches a call, "
+              f"{channels_last[name]} of them channels-last, "
               f"{n_modules} conv epilogues in the model")
-    print(f"kernels: conv_epilogue launches a call {by_path}", flush=True)
-    return dict(K7, main=main, cases=[main] + cases, launches_by_path=by_path)
+        del pipe
+    print(f"kernels: conv_epilogue launches a call {by_path}, channels-last "
+          f"{channels_last}", flush=True)
+    return dict(K7, main=main, cases=[main, main12] + cases + cases12,
+                launches_by_path=by_path,
+                launches_channels_last_by_path=channels_last)
 
 
 # ---------------------------------------------------------------------------
@@ -5187,6 +5213,7 @@ WRAPPERS = (nk.nms_select_batched_cuda, nk.nms_select_cuda,
 def zero_counters() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    ce.conv_epilogue_cuda.launches_channels_last = 0
     nk.nms_select_batched_cuda.launches_by_batch.clear()
 
 

@@ -301,6 +301,8 @@ def test_stream_probe_runs_on_the_cpu(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu" and len(out["frames_per_s_off"]) == 1
     assert len(out["frames_per_s_on"]) == len(out["traced"]) == 1
+    assert out["conv_epilogue_launches_per_batch"] == [0.0, 0.0]
+    assert out["conv_epilogue_channels_last_per_batch"] == [0.0, 0.0]
     t = out["traced"][0]
     assert t["queued_batches"] == 0.0 and t["device_spans_per_batch"] == 0
     for name in BATCH_SPANS:

@@ -42,7 +42,11 @@
 //   division a vector, and one bias load serves all 8.
 //   Channels-last with C % 8 == 0: the vector holds channels c0..c0+7 of
 //   one pixel, c0 from one 32-bit remainder a vector.
-// - Anything else (an odd plane or channel count, a start off a 16-byte
+// - Where the plane or the channels come in fours only (YOLO12's ABlock
+//   MLP, 460 channels, channels-last on the card), the same kernel on
+//   8-byte vectors of 4 bf16, four of them a thread: still 32 bytes in
+//   flight and one 32-bit division or remainder a vector.
+// - Anything else (an odd plane or channel count, a start off the vector's
 //   boundary) takes a scalar path, one element a thread.
 // - One vector pair a thread and no grid-stride loop: a 20^2 plane of the
 //   head at b=32 is still tens of thousands of threads, and the 320^2 stem
@@ -55,23 +59,25 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVecPerThread = 2;
-constexpr int kVecElems = 8;                 // bf16 in 16 bytes
+constexpr int kBytesPerThread = 32;          // in flight, in either width
 
 __device__ __forceinline__ float epilogue(float y, float b, bool act) {
   const float x = __fadd_rn(y, b);
   return act ? __fdiv_rn(x, __fadd_rn(1.0f, expf(-x))) : x;
 }
 
-// kChannelsLast false: `div` is the vectors a plane (H*W / 8); true: `div`
-// is the vectors a pixel (C / 8).
-template <bool kAct, bool kChannelsLast>
+// V is uint4 (8 bf16) or uint2 (4 bf16). kChannelsLast false: `div` is the
+// vectors a plane (H*W / lanes); true: `div` is the vectors a pixel
+// (C / lanes).
+template <typename V, bool kAct, bool kChannelsLast>
 __global__ void __launch_bounds__(kThreads)
-conv_epilogue_vec_kernel(const uint4* y, const float* bias, uint4* out,
+conv_epilogue_vec_kernel(const V* y, const float* bias, V* out,
                          uint32_t n_vec, uint32_t div, uint32_t C) {
+  constexpr int kLanes = sizeof(V) / 2;
+  constexpr int kVecPerThread = kBytesPerThread / sizeof(V);
   const uint32_t base =
       blockIdx.x * (kThreads * kVecPerThread) + threadIdx.x;
-  uint4 r[kVecPerThread];
+  V r[kVecPerThread];
 #pragma unroll
   for (int k = 0; k < kVecPerThread; ++k) {
     const uint32_t v = base + k * kThreads;
@@ -81,19 +87,19 @@ conv_epilogue_vec_kernel(const uint4* y, const float* bias, uint4* out,
   for (int k = 0; k < kVecPerThread; ++k) {
     const uint32_t v = base + k * kThreads;
     if (v >= n_vec) continue;
-    float b[kVecElems];
+    float b[kLanes];
     if (kChannelsLast) {
-      const float* bc = bias + (v % div) * kVecElems;
+      const float* bc = bias + (v % div) * kLanes;
 #pragma unroll
-      for (int j = 0; j < kVecElems; ++j) b[j] = __ldg(bc + j);
+      for (int j = 0; j < kLanes; ++j) b[j] = __ldg(bc + j);
     } else {
       const float bc = __ldg(bias + (v / div) % C);
 #pragma unroll
-      for (int j = 0; j < kVecElems; ++j) b[j] = bc;
+      for (int j = 0; j < kLanes; ++j) b[j] = bc;
     }
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r[k]);
 #pragma unroll
-    for (int j = 0; j < kVecElems / 2; ++j) {
+    for (int j = 0; j < kLanes / 2; ++j) {
       const float2 f = __bfloat1622float2(h[j]);
       h[j] = __floats2bfloat162_rn(epilogue(f.x, b[2 * j], kAct),
                                    epilogue(f.y, b[2 * j + 1], kAct));
@@ -116,29 +122,39 @@ conv_epilogue_scalar_kernel(const __nv_bfloat16* y, const float* bias,
   }
 }
 
+// The vector kernel on vectors V (sizeof(V) / 2 bf16), or false where y,
+// out, the plane and the channels do not allow them.
+template <typename V, bool kAct>
+bool launch_vec(const void* y, const float* bias, void* out, long long n,
+                long long inner, int C, cudaStream_t stream) {
+  constexpr int kLanes = sizeof(V) / 2;
+  const bool aligned = (reinterpret_cast<uintptr_t>(y) % sizeof(V) == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % sizeof(V) == 0);
+  const bool nchw = inner % kLanes == 0;
+  const bool nhwc = inner == 1 && C % kLanes == 0;
+  const long long n_vec = n / kLanes;
+  if (!aligned || !(nchw || nhwc) || n_vec >= (1LL << 31)) return false;
+  const int per_block = kThreads * (kBytesPerThread / sizeof(V));
+  const unsigned grid =
+      static_cast<unsigned>((n_vec + per_block - 1) / per_block);
+  const V* yv = static_cast<const V*>(y);
+  V* ov = static_cast<V*>(out);
+  if (nchw)
+    conv_epilogue_vec_kernel<V, kAct, false><<<grid, kThreads, 0, stream>>>(
+        yv, bias, ov, static_cast<uint32_t>(n_vec),
+        static_cast<uint32_t>(inner / kLanes), static_cast<uint32_t>(C));
+  else
+    conv_epilogue_vec_kernel<V, kAct, true><<<grid, kThreads, 0, stream>>>(
+        yv, bias, ov, static_cast<uint32_t>(n_vec),
+        static_cast<uint32_t>(C / kLanes), static_cast<uint32_t>(C));
+  return true;
+}
+
 template <bool kAct>
 cudaError_t launch(const void* y, const float* bias, void* out, long long n,
                    long long inner, int C, cudaStream_t stream) {
-  const bool aligned = (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const bool nchw_vec = inner % kVecElems == 0;
-  const bool nhwc_vec = inner == 1 && C % kVecElems == 0;
-  const long long n_vec = n / kVecElems;
-  if (aligned && (nchw_vec || nhwc_vec) && n_vec < (1LL << 31)) {
-    const int per_block = kThreads * kVecPerThread;
-    const unsigned grid =
-        static_cast<unsigned>((n_vec + per_block - 1) / per_block);
-    const uint4* yv = static_cast<const uint4*>(y);
-    uint4* ov = static_cast<uint4*>(out);
-    if (nchw_vec)
-      conv_epilogue_vec_kernel<kAct, false><<<grid, kThreads, 0, stream>>>(
-          yv, bias, ov, static_cast<uint32_t>(n_vec),
-          static_cast<uint32_t>(inner / kVecElems), static_cast<uint32_t>(C));
-    else
-      conv_epilogue_vec_kernel<kAct, true><<<grid, kThreads, 0, stream>>>(
-          yv, bias, ov, static_cast<uint32_t>(n_vec),
-          static_cast<uint32_t>(C / kVecElems), static_cast<uint32_t>(C));
-  } else {
+  if (!launch_vec<uint4, kAct>(y, bias, out, n, inner, C, stream) &&
+      !launch_vec<uint2, kAct>(y, bias, out, n, inner, C, stream)) {
     const long long blocks = (n + kThreads - 1) / kThreads;
     const unsigned grid =
         static_cast<unsigned>(blocks < 65536 ? blocks : 65536);

@@ -2,8 +2,16 @@
 xrseg_tpu/models/layers.py), and YOLO12's area-attention blocks (AAttn,
 ABlock, A2C2f), which exist only in the port.
 
-Activations are NCHW inside the network; the model's public functions keep
-the JAX package's NHWC layout. Module and parameter names mirror the JAX
+Activations are [B, C, H, W] inside the network; the model's public
+functions keep the JAX package's NHWC layout. Every activation and every
+conv weight is channels-last in memory (NHWC strides under the [B, C, H,
+W] shape), from the stem to the head: cuDNN's bf16 convs on sm90 run NHWC
+kernels, and take an NCHW operand only through a layout transpose in and
+another out. The weights are made so where they are made (Conv, Proto),
+`Module.to` keeps that, and `conv_apply`'s cast to the compute dtype
+returns them so whatever layout they arrive in; `channels_last` makes the
+stem's input and the C3k2 / C2PSA halves dense, and every op between two
+convs keeps the layout. Module and parameter names mirror the JAX
 params pytree key for key ("w" -> "weight", "b" -> "bias"), so
 io/bridge.py maps one onto the other without a lookup table.
 
@@ -32,16 +40,42 @@ from xrseg_tpu_torch.ops.conv_epilogue import (conv_epilogue_cuda,
                                                conv_epilogue_torch)
 
 
+def channels_last(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """`x`, cast to `dtype` if one is given, as a dense channels-last map or
+    weight: x itself where it is one already, else one copy. A channel
+    slice of a channels-last map (a C3k2's or C2PSA's half) is strided,
+    and every conv that read it would copy it."""
+    if dtype is not None and dtype != x.dtype:
+        return x.to(dtype, memory_format=torch.channels_last)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _weight(*shape: int) -> nn.Parameter:
+    """A zero conv weight, channels-last from the start."""
+    return nn.Parameter(torch.zeros(shape).contiguous(
+        memory_format=torch.channels_last))
+
+
+def _uniform_(w: torch.Tensor, lo: float, hi: float,
+              gen: torch.Generator) -> None:
+    """Fill `w` uniformly in [lo, hi) from `gen` in OIHW order, whatever
+    its layout: a seed gives the weights it gave OIHW weights (an in-place
+    uniform_ fills memory in order)."""
+    w.copy_(torch.empty(w.shape, dtype=w.dtype, device=w.device).uniform_(
+        lo, hi, generator=gen))
+
+
 class Conv(nn.Module):
     """Conv2d (explicit k//2 padding) + folded-BN bias + optional SiLU.
 
-    weight: [c2, c1/groups, k, k] (OIHW), bias: [c2]."""
+    weight: [c2, c1/groups, k, k] (OIHW in shape, channels-last in
+    memory), bias: [c2]."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  groups: int = 1, act: bool = True,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(c2, c1 // groups, k, k))
+        self.weight = _weight(c2, c1 // groups, k, k)
         self.bias = nn.Parameter(torch.zeros(c2))
         self.stride, self.groups, self.act, self.dtype = s, groups, act, dtype
 
@@ -53,7 +87,7 @@ class Conv(nn.Module):
         c2, ci, k, _ = self.weight.shape
         bound = math.sqrt(1.0 / (ci * k * k)) * math.sqrt(3.0)
         with torch.no_grad():
-            self.weight.uniform_(-bound, bound, generator=gen)
+            _uniform_(self.weight, -bound, bound, gen)
             self.bias.zero_()
 
 
@@ -63,7 +97,7 @@ def conv_apply(conv: Conv, x: torch.Tensor, weight: torch.Tensor,
     bias and group count: Conv.forward, and parallel/batch.py's tensor
     parallelism, which runs a conv on a slice of its channels."""
     k = weight.shape[-1]
-    y = F.conv2d(x.to(conv.dtype), weight.to(conv.dtype), None,
+    y = F.conv2d(x.to(conv.dtype), channels_last(weight, conv.dtype), None,
                  conv.stride, k // 2, 1, groups)
     return _epilogue(y, bias, conv.act)
 
@@ -73,7 +107,8 @@ def conv_transpose_apply(proto: "Proto", y: torch.Tensor,
                          ) -> torch.Tensor:
     """The Proto's k=2 s=2 transposed conv with the given weight [in,
     out, 2, 2] and bias (a slice of its output channels, for parallel/)."""
-    y = F.conv_transpose2d(y, up_w.to(proto.dtype), None, stride=2)
+    y = F.conv_transpose2d(y, channels_last(up_w, proto.dtype), None,
+                           stride=2)
     return _epilogue(y, up_b, False)
 
 
@@ -98,8 +133,8 @@ class HeadConv(Conv):
     def reset_parameters(self, gen: torch.Generator) -> None:
         bound = math.sqrt(1.0 / self.weight.shape[1])
         with torch.no_grad():
-            self.weight.uniform_(-bound * math.sqrt(3.0),
-                                 bound * math.sqrt(3.0), generator=gen)
+            _uniform_(self.weight, -bound * math.sqrt(3.0),
+                      bound * math.sqrt(3.0), gen)
             self.bias.uniform_(-bound, bound, generator=gen)
 
 
@@ -167,6 +202,7 @@ class C3k2(nn.Module):
 
     def forward(self, x):
         a, b = self.cv1(x).chunk(2, 1)
+        b = channels_last(b)
         outs = [a, b]
         for blk in self.m:
             b = blk(b)
@@ -262,6 +298,7 @@ class C2PSA(nn.Module):
 
     def forward(self, x):
         a, b = self.cv1(x).split([self.c, self.c], 1)
+        b = channels_last(b)
         for blk in self.m:
             b = blk(b)
         return self.cv2(torch.cat([a, b], 1))
@@ -277,9 +314,10 @@ class AAttn(nn.Module):
     alone. A token's 3C channels read per head as [q | k | v] of head_dim
     each: an NCHW split of the 3C channels would take q, k and v from the
     wrong channels. out = proj(o + pe(v)), pe a depthwise 7x7 conv on v.
-    qkv made channels-last is the block's one layout copy (none where the
-    conv left it so): it gives q, k and v a dense last dim, which the
-    card's fused attention needs; pe needs v as its own dense map."""
+    The qkv conv leaves its output channels-last, which gives q, k and v
+    the dense last dim the fused attention needs with no copy (the
+    `.contiguous()` is a no-op); pe needs v as its own dense map, one
+    copy."""
 
     def __init__(self, dim: int, num_heads: int, area: int = 1,
                  dtype=torch.bfloat16):
@@ -385,7 +423,7 @@ class Proto(nn.Module):
         self.cv1 = Conv(c1, c_, 3, dtype=dtype)
         self.cv2 = Conv(c_, c_, 3, dtype=dtype)
         self.cv3 = Conv(c_, nm, 1, dtype=dtype)
-        self.up_w = nn.Parameter(torch.zeros(c_, c_, 2, 2))
+        self.up_w = _weight(c_, c_, 2, 2)
         self.up_b = nn.Parameter(torch.zeros(c_))
         self.dtype = dtype
 
@@ -396,13 +434,15 @@ class Proto(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         bound = math.sqrt(1.0 / (self.up_w.shape[0] * 4)) * math.sqrt(3.0)
         with torch.no_grad():
-            self.up_w.uniform_(-bound, bound, generator=gen)
+            _uniform_(self.up_w, -bound, bound, gen)
             self.up_b.zero_()
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour x2 upsample of an NCHW map."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest-neighbour x2 upsample of a [B, C, H, W] map in x's own
+    layout (channels-last stays channels-last): a copy, bit-equal to
+    repeating each row and each column twice."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
 def reset_parameters(model: nn.Module, gen: torch.Generator) -> None:

@@ -10,9 +10,10 @@ boxes); for the pose task kpts [B,A,K,D] f32 (decoded keypoints, input
 pixels, visibility as a probability when D == 3). With concat_preds also
 preds: [B,A,4+nc(+nm)], [B,A,4+nc+K*D] for pose, or [xywh of the rotated
 box, scores, angle] for obb. The anchor axis is P3, P4, P5, row-major
-within a level, channels last: each level's NCHW map is permuted to NHWC
-before it is flattened. The classify task returns logits [B,nc] and probs
-[B,nc] (softmax), both f32.
+within a level, channels last: each level's [B, C, H, W] map is permuted
+to NHWC before it is flattened (a view: the maps are channels-last in
+memory; models/layers.py). The classify task returns logits [B,nc] and
+probs [B,nc] (softmax), both f32.
 
 With cfg.o2o (detect and segment) a second detect head, det_o2o, of the
 same structure runs beside det and adds o2o_boxes_xywh [B,A,4] and
@@ -289,7 +290,8 @@ def _call(module: nn.Module, x):
 
 
 def _flatten(maps, c: int) -> torch.Tensor:
-    """Per-level NCHW maps -> [B, A, c] in anchor order (channels last)."""
+    """Per-level [B, c, H, W] maps -> [B, A, c] in anchor order (channels
+    last; each level's permute a free view of a channels-last map)."""
     return torch.cat([m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, c)
                       for m in maps], 1)
 
@@ -424,10 +426,11 @@ class YOLO11(nn.Module):
                           dtype=dt)
 
     def backbone(self, x: torch.Tensor):
-        """NCHW input -> the (x4, x6, x10) skip features: x10 is C2PSA's
-        output for yolo11, SPPF's (or for v8-cls the last C2f's) for v8,
-        the last A2C2f's (layer 8) for yolo12."""
-        x = self.b2(self.b1(self.b0(x)))
+        """[B, 3, H, W] input -> the (x4, x6, x10) skip features: x10 is
+        C2PSA's output for yolo11, SPPF's (or for v8-cls the last C2f's)
+        for v8, the last A2C2f's (layer 8) for yolo12. The input is made
+        channels-last here, and every map after it stays so."""
+        x = self.b2(self.b1(self.b0(L.channels_last(x))))
         x4 = self.b4(self.b3(x))
         x6 = self.b6(self.b5(x4))
         x = self.b8(self.b7(x6))
@@ -438,7 +441,7 @@ class YOLO11(nn.Module):
         return x4, x6, x
 
     def backbone_neck(self, x: torch.Tensor):
-        """NCHW input -> (P3, P4, P5) features."""
+        """[B, 3, H, W] input -> (P3, P4, P5) features."""
         return self.neck(self.backbone(x))
 
     def neck(self, feats):
@@ -507,8 +510,8 @@ class YOLO11(nn.Module):
     def head_outputs(self, feats, concat_preds: bool = True, apply=_call
                      ) -> Dict[str, torch.Tensor]:
         """(P3, P4, P5) -> the raw-head dict. `apply(branch, feat)` runs
-        each per-level branch (and the Proto) and returns its NCHW map;
-        parallel/spatial.py passes one that runs it on row bands."""
+        each per-level branch (and the Proto) and returns its [B, C, H, W]
+        map; parallel/spatial.py passes one that runs it on row bands."""
         cfg = self.cfg
         _, cls_flat, ltrb, xywh = self._detect(self.det, feats, apply=apply)
         scores = torch.sigmoid(cls_flat.float())

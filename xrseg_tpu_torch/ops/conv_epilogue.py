@@ -2,9 +2,11 @@
 convolution, in one pass (its wrapper and its plain version).
 
 The CUDA source is xrseg_tpu_torch/csrc/conv_epilogue.cu (16-byte vectors
-of 8 bf16, one bias load a vector where the vector's lanes share a channel,
-a scalar path for odd shapes and unaligned starts). It replaces no Pallas
-kernel: the JAX package's conv_apply leaves the epilogue to XLA's fusion.
+of 8 bf16, or 8-byte vectors of 4 where the channels or the plane come in
+fours only, one bias load a vector where the vector's lanes share a
+channel, a scalar path for odd shapes and unaligned starts). It replaces
+no Pallas kernel: the JAX package's conv_apply leaves the epilogue to
+XLA's fusion.
 
   conv_epilogue_cuda   y [B,C,H,W] bf16 (NCHW or channels-last), bias [C]
                        f32, act -> bf16_rn([silu](float(y) + bias)), in y's
@@ -19,7 +21,9 @@ CPU, float32 compute, autograd).
 
 The wrapper takes CUDA tensors only: it launches the kernel or raises
 (models/layers makes the choice between it and the plain version). It
-counts its launches in `conv_epilogue_cuda.launches`. A traced tensor
+counts its launches in `conv_epilogue_cuda.launches`, and those on a
+channels-last output (the network's layout on the card) in
+`conv_epilogue_cuda.launches_channels_last`. A traced tensor
 (torch.export's fake and functional tensors) goes through the custom op
 `xrseg::conv_epilogue`, so an exported program holds the kernel. An eager
 tensor skips the dispatcher, which a forward would pay once a conv: on an
@@ -86,6 +90,8 @@ def _launch(y: torch.Tensor, bias: torch.Tensor, act: bool,
         y.shape[1], act, dev, torch._C._cuda_getCurrentRawStream(dev))
     _build.check_launch(lib, err, "conv_epilogue")
     conv_epilogue_cuda.launches += 1
+    if inner == 1:
+        conv_epilogue_cuda.launches_channels_last += 1
 
 
 @torch.library.custom_op("xrseg::conv_epilogue", mutates_args=())
@@ -118,3 +124,4 @@ def conv_epilogue_cuda(y: torch.Tensor, bias: torch.Tensor,
 
 
 conv_epilogue_cuda.launches = 0
+conv_epilogue_cuda.launches_channels_last = 0

@@ -23,7 +23,9 @@ each span a batch; batch_device_ms and its p95 on the card's clock;
 spans and device spans a batch), conv_epilogue_launches_per_batch
 (per window: the hand-written conv epilogue's launches a batch, which
 is the model's conv count when the batch goes through the kernel, and 0
-on the CPU), and area_attention_calls_per_batch (per window: the fused
+on the CPU), conv_epilogue_channels_last_per_batch (per window: those of
+them on a channels-last output, all of them on the card), and
+area_attention_calls_per_batch (per window: the fused
 attention calls a batch by SDPA backend, 16 a YOLO12x batch and none of
 them "MATH"; empty for YOLO11, YOLOv8 and on the CPU).
 """
@@ -87,16 +89,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tracer = runner.tracer
 
     fps = {False: [], True: []}
-    traced, epilogues, attention = [], [], []
+    traced, epilogues, epilogues_cl, attention = [], [], [], []
     for on in [False, True, True, False] * (args.rounds // 2) + \
             [False, True] * (args.rounds % 2):
         tracer.reset()
         tracer.enable(on)
         launches = conv_epilogue_cuda.launches
+        launches_cl = conv_epilogue_cuda.launches_channels_last
         calls = dict(area_attention_cuda.by_backend)
         rate, n = window(runner, batches, args.seconds)
         fps[on].append(rate)
         epilogues.append((conv_epilogue_cuda.launches - launches) / n)
+        epilogues_cl.append(
+            (conv_epilogue_cuda.launches_channels_last - launches_cl) / n)
         attention.append({k: (v - calls.get(k, 0)) / n for k, v in
                           area_attention_cuda.by_backend.items()})
         if on:
@@ -110,6 +115,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
            "frames_per_s_off": fps[False], "frames_per_s_on": fps[True],
            "arch": args.arch, "traced": traced,
            "conv_epilogue_launches_per_batch": epilogues,
+           "conv_epilogue_channels_last_per_batch": epilogues_cl,
            "area_attention_calls_per_batch": attention}
     line = json.dumps(out)
     print(line, flush=True)
