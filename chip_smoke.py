@@ -42,8 +42,8 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      plain version and its bytes bound, and the three are summed over the
      epilogues of each forward; then its launches for one call of the
      b=32 YOLO11x-seg and YOLO12x-seg pipelines and of the b=1 YOLO11n-seg
-     one, counted from zero, every one of them on a channels-last output
-     (launches_channels_last).
+     one, counted from zero in ops/launches, every one of them on a
+     channels-last output (its "channels_last" detail).
 3. segment pipeline: YOLO11n-seg at full width (640x640, 80 classes, 32
    protos at 160x160, 8400 anchors, max_det 50) with detection_params
    weights, on 480x640 uint8 frames (stretch): build_pipeline at b=1 and
@@ -475,6 +475,7 @@ from xrseg_tpu_torch.nms_times import (GATE, IOU, MAX_DET, cuda_ms, nms_inputs,
                                        rotated_inputs, steps_run)
 from xrseg_tpu_torch.ops import conv_epilogue as ce
 from xrseg_tpu_torch.ops import depth_fusion as df
+from xrseg_tpu_torch.ops import launches as launch_counts
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import masks as mask_ops
 from xrseg_tpu_torch.ops import nms as nms_ops
@@ -877,7 +878,7 @@ def refusal_cases() -> None:
         K = nk.max_candidates(what, torch.device(DEVICE)) + 1
         geo = torch.zeros(shape(K), device=DEVICE)
         masked = torch.zeros((1, K), device=DEVICE)
-        before = kernel.launches
+        before = launch_counts.read()[kernel.__name__]
         try:
             kernel(geo, masked, IOU, MAX_DET)
         except ValueError as e:
@@ -885,7 +886,8 @@ def refusal_cases() -> None:
                   f"{what}: the refusal does not name the limit: {e}")
         else:
             raise SmokeFailure(f"{what}: K={K} beyond the largest was taken")
-        check(kernel.launches == before, f"{what}: a refused call counted")
+        check(launch_counts.read()[kernel.__name__] == before,
+              f"{what}: a refused call counted")
         print(f"kernels: {what} refuses K={K} (largest {K - 1})", flush=True)
 
 
@@ -1047,11 +1049,11 @@ def phase_conv_epilogue() -> dict:
         pipe = build_pipeline(ExecutorConfig(model=cfg), m,
                               frame_hw=FRAME_HW, batch=batch,
                               device=DEVICE).warmup()
-        ce.conv_epilogue_cuda.launches = 0
-        ce.conv_epilogue_cuda.launches_channels_last = 0
+        launch_counts.reset()
         pipe(pipe.dummy_input())["slate"].cpu()
-        by_path[name] = ce.conv_epilogue_cuda.launches
-        channels_last[name] = ce.conv_epilogue_cuda.launches_channels_last
+        counts = launch_counts.read()
+        by_path[name] = counts[K7["name"]]
+        channels_last[name] = counts[K7["name"], "channels_last"]
         n_modules = sum(isinstance(mod, (L.Conv, L.Proto))
                         for mod in pipe.params.modules())
         check(by_path[name] == channels_last[name] == n_modules,
@@ -1121,7 +1123,7 @@ def phase_segment():
                                device=DEVICE)
 
     # --- the main path, with the launch counters zeroed around it
-    zero_counters()
+    launch_counts.reset()
     runs = {}
     for name, pipe in kern.items():
         B = pipe.input_shape[0]
@@ -1200,7 +1202,7 @@ def phase_obb() -> dict:
             for n, b in (("b1", 1), ("b8", 8))}
 
     # --- the main path, with the launch counters zeroed around it
-    zero_counters()
+    launch_counts.reset()
     runs, last = {}, {}
     for name, pipe in kern.items():
         B = pipe.input_shape[0]
@@ -1332,7 +1334,7 @@ def check_packed_parts(cfg, model, frame, locked) -> None:
     # operation that waits for the card raises here
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = tick.run(x, depth, a)
+        out = tick.enqueue((x, depth, a))
         tick.readback.start(out["packed"])
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -1409,7 +1411,7 @@ def phase_tick() -> dict:
 
     # --- the main path (fused ticks only), with the launch counters zeroed
     # around it
-    zero_counters()
+    launch_counts.reset()
     before = fused.tracer.counters["frames_dispatched"]
     start_tracking(loops["fused"], frames)
     first_locked = fused.tracker.locked_box
@@ -1677,7 +1679,7 @@ def phase_server(cfg, model, frames, b1) -> tuple:
         # one server takes both loads: its dispatch thread reads the cap
         # for every batch, so micro-batch 1 is the same server capped at 1
         numbers, hist = {}, {}
-        zero_counters()
+        launch_counts.reset()
         for mb in (1, 8):
             srv.micro_batch = mb
             srv._batch_hist.clear()
@@ -1699,7 +1701,7 @@ def phase_server(cfg, model, frames, b1) -> tuple:
                   f"p50 ms {stages}; batches {hist[mb]}; answers against the"
                   f" b=1 pipeline: {found}", flush=True)
         launches = read_counters()
-        by_batch = dict(nk.nms_select_batched_cuda.launches_by_batch)
+        by_batch = k1_by_batch()
         check(hist[1] == {"1": SERVE_CLIENTS * SERVE_PER_CLIENT},
               f"micro-batch 1 ran other batches: {hist[1]}")
         check(any(int(n) > 4 for n in hist[8]),
@@ -1823,7 +1825,7 @@ def phase_streaming(pipes, frames) -> tuple:
         for depth in (1, 2, 3):
             runner = StreamingRunner(pipe, depth=depth)
             torch.cuda.synchronize()
-            zero_counters()
+            launch_counts.reset()
             with spent("stream timed"):
                 t0 = time.perf_counter()
                 results = list(runner.run(iter(batches)))
@@ -1876,7 +1878,7 @@ def phase_pipelined_ticks(model) -> tuple:
         runner = PipelinedTickRunner(ex, depth=depth)
         got, ms = [], []
         torch.cuda.synchronize()
-        zero_counters()
+        launch_counts.reset()
         with spent("tick timed"):
             for f in frames[1:]:
                 t0 = time.perf_counter()
@@ -1969,7 +1971,7 @@ def phase_options(cfg, model, frames, b1) -> dict:
     o2o.det_o2o.load_state_dict(o2o.det.state_dict())    # seeded from det
     pipe = build_pipeline(o2o_cfg, o2o, frame_hw=FRAME_HW, batch=1,
                           device=DEVICE).warmup()
-    zero_counters()
+    launch_counts.reset()
     det = pipe(frames[:1])
     torch.cuda.synchronize()
     check(sum(post_counts(read_counters()).values()) == 0,
@@ -2139,7 +2141,7 @@ def serve_task(task: str, cfg, model, pipe, frames) -> tuple:
             ref.append(srv._format(host, 0.0))
         warm_buckets(srv, bodies)
         numbers, hist = {}, {}
-        zero_counters()
+        launch_counts.reset()
         for mb in (1, 8):
             srv.micro_batch = mb
             srv._batch_hist.clear()
@@ -2228,7 +2230,7 @@ def phase_tasks(smi: str) -> dict:
     # --- the main path, with the launch counters zeroed around it; the
     # NMS launches' inputs are recorded to be held against the plain
     # versions afterwards
-    zero_counters()
+    launch_counts.reset()
     runs = {}
     with Recorder("nms_select_batched_cuda") as k1, \
             Recorder("nms_rotated_batched_cuda") as k3:
@@ -2593,10 +2595,10 @@ def model_io(model, frames) -> dict:
     t = time.perf_counter()
     run = load_compiled(str(art))
     seconds["load_compiled"] = time.perf_counter() - t
-    before = nk.nms_select_batched_cuda.launches
+    before = launch_counts.read()[K1["name"]]
     got = run(frames[:1])
     torch.cuda.synchronize()
-    check(nk.nms_select_batched_cuda.launches == before + 1,
+    check(launch_counts.read()[K1["name"]] == before + 1,
           "the compiled artifact did not launch K1")
     check(torch.equal(got["slate"], want["slate"]),
           "load_compiled: the slate differs from the source pipeline's")
@@ -2694,7 +2696,7 @@ def phase_accuracy(smi: str) -> dict:
         return frames if n.endswith("b8") else frames[:1]
 
     # --- the paths, with the launch counters zeroed around them
-    zero_counters()
+    launch_counts.reset()
     with StreamRecorder() as streams:
         runs = {n: p(inputs(n)) for n, p in kern.items()}
         torch.cuda.synchronize()
@@ -2873,12 +2875,12 @@ def same_per_image(got, want, what: str) -> int:
 def eval_run(fn, what: str) -> tuple:
     """fn() with the launch counters zeroed around it and the per-image
     lists captured: (result, per_image, launches, K1 launches by batch)."""
-    zero_counters()
+    launch_counts.reset()
     with CapturedPerImage() as cap:
         out = fn()
     torch.cuda.synchronize()
     launches = read_counters()
-    by_batch = dict(nk.nms_select_batched_cuda.launches_by_batch)
+    by_batch = k1_by_batch()
     check(len(cap.calls) >= 1, f"{what}: no per-image lists were scored")
     return out, cap.calls[0], launches, by_batch
 
@@ -3121,11 +3123,11 @@ def counted_evaluate(trainer: Trainer) -> list:
     real, counts = trainer.evaluate, []
 
     def evaluate(*args, **kwargs):
-        zero_counters()
+        launch_counts.reset()
         out = real(*args, **kwargs)
         torch.cuda.synchronize()
         counts.append((read_counters(),
-                       dict(nk.nms_select_batched_cuda.launches_by_batch)))
+                       k1_by_batch()))
         return out
 
     trainer.evaluate = evaluate
@@ -3551,13 +3553,12 @@ def label_phase(donor, frames) -> dict:
     out, launches = {}, {}
 
     def counted(what, fn, expect):
-        zero_counters()
+        launch_counts.reset()
         t = time.perf_counter()
         got = fn(ex)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
-        c, by_b = read_counters(), dict(
-            nk.nms_select_batched_cuda.launches_by_batch)
+        c, by_b = read_counters(), k1_by_batch()
         check(c[K1["name"]] == expect
               and sum(post_counts(c).values()) == expect
               and by_b == {1: expect},
@@ -3758,7 +3759,7 @@ def phase_label_efficiency(smi: str) -> dict:
 def counted(launches: dict, path: str, fn):
     """fn() with the launch counters zeroed just before and read just
     after (the card synchronised), under launches[path]."""
-    zero_counters()
+    launch_counts.reset()
     out = fn()
     torch.cuda.synchronize()
     launches[path] = read_counters()
@@ -4517,7 +4518,7 @@ def phase_sentis(smi: str) -> dict:
     kern, plain, npz = pipes(cfg, model), pipes(scan, model), pipes(cfg, twin)
 
     # --- serve: the main path, with the launch counters zeroed around it
-    zero_counters()
+    launch_counts.reset()
     runs = {b: kern[b](frames[:b]) for b in (1, 8)}
     torch.cuda.synchronize()
     launches["sentis serve"] = read_counters()
@@ -4543,7 +4544,7 @@ def phase_sentis(smi: str) -> dict:
                   params=model, frame_hw=FRAME_HW, device=DEVICE)
     loop = XRLoop(ex)
     tick_until_result(loop, xr[0])                # binds the tick program
-    zero_counters()
+    launch_counts.reset()
     before = ex.tracer.counters["frames_dispatched"]
     start_tracking(loop, xr)
     for i, frame in enumerate(xr[2:]):
@@ -4605,7 +4606,7 @@ def phase_sentis(smi: str) -> dict:
                               batch=8, device=DEVICE).warmup()
     ref = build_pipeline(scan, back, frame_hw=FRAME_HW, batch=8,
                          device=DEVICE)(frames)
-    zero_counters()
+    launch_counts.reset()
     det = reloaded(frames)
     torch.cuda.synchronize()
     launches["sentis redeploy"] = read_counters()
@@ -4695,14 +4696,14 @@ def run_tool(main_fn, argv, what: str) -> tuple:
     (its JSON rows, its stdout, its stderr, the counts, K1 by batch, the
     call counts, seconds)."""
     err = io.StringIO()
-    zero_counters()
+    launch_counts.reset()
     t0 = time.perf_counter()
     with dispatch_counts() as calls, contextlib.redirect_stderr(err):
         out = run_script(main_fn, argv, what)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = read_counters()
-    by_b = dict(nk.nms_select_batched_cuda.launches_by_batch)
+    by_b = k1_by_batch()
     rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     check(bool(rows), f"{what} printed no JSON row: {out[-2000:]}")
     return rows, out, err.getvalue(), counts, by_b, calls, sec
@@ -4949,10 +4950,10 @@ def k1_per_call(targets):
 
     def wrap(name, fn):
         def counted_fn(*args, **kwargs):
-            k0 = nk.nms_select_batched_cuda.launches
+            k0 = launch_counts.read()[K1["name"]]
             out = fn(*args, **kwargs)
             log.append((name, args, kwargs,
-                        nk.nms_select_batched_cuda.launches - k0))
+                        launch_counts.read()[K1["name"]] - k0))
             return out
         return counted_fn
 
@@ -5065,14 +5066,14 @@ def tools_stage_profile(smi: str, numbers, launches, seconds) -> None:
           f"stage_profile: stages 2-7 {total / 1e9} GFLOPs, model_info "
           f"{info} x {STAGE_BATCH}")
     fn, args = stages["postprocess"]
-    zero_counters()
+    launch_counts.reset()
     with torch.no_grad():
         det = fn(*args)
     check(bool((det["count"] == MAX_DET).all()),
           f"stage_profile detection_params postprocess: count "
           f"{det['count'].tolist()}")
     post_ms = tool_stage_profile.best_ms(lambda: fn(*args), DEVICE)
-    post_k1 = dict(nk.nms_select_batched_cuda.launches_by_batch)
+    post_k1 = k1_by_batch()
     check(post_k1 == {STAGE_BATCH: 1 + 1 + 2 * 20},
           f"stage_profile detection_params postprocess: K1 {post_k1}")
     launches["tools stage_profile detection_params postprocess"] = \
@@ -5204,21 +5205,16 @@ def phase_tools(smi: str) -> dict:
 # launch counters and the kernel line
 # ---------------------------------------------------------------------------
 
-WRAPPERS = (nk.nms_select_batched_cuda, nk.nms_select_cuda,
-            nk.nms_rotated_batched_cuda, mk.mask_synth_crop_cuda,
-            wbf.wbf_scan_cuda, wbf.wbf_rotated_scan_cuda,
-            ce.conv_epilogue_cuda)
-
-
-def zero_counters() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-    ce.conv_epilogue_cuda.launches_channels_last = 0
-    nk.nms_select_batched_cuda.launches_by_batch.clear()
-
-
 def read_counters() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """K1-K7's launches since the last launch_counts.reset()."""
+    counts = launch_counts.read()
+    return {k["name"]: counts[k["name"]] for k in (K1, K2, K3, K4, K5, K6, K7)}
+
+
+def k1_by_batch() -> dict:
+    """K1's launches since the last launch_counts.reset(), by batch size."""
+    return {key[1]: n for key, n in launch_counts.read().items()
+            if isinstance(key, tuple) and key[0] == K1["name"]}
 
 
 def post_counts(counts: dict) -> dict:

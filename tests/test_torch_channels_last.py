@@ -29,6 +29,7 @@ from xrseg_tpu_torch.io.weights import cast_params
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.ops import conv_epilogue as ce
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.testing import epilogue_calls, limit_cpu_threads
 
 limit_cpu_threads()
@@ -241,15 +242,15 @@ def _profiled_forward(model, x):
     with torch.inference_mode():
         model(x)
         torch.cuda.synchronize()
-        n, n_cl = (ce.conv_epilogue_cuda.launches,
-                   ce.conv_epilogue_cuda.launches_channels_last)
+        n, n_cl = (launches.read()["conv_epilogue_cuda"],
+                   launches.read()["conv_epilogue_cuda", "channels_last"])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(x)
             torch.cuda.synchronize()
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (kernels, ce.conv_epilogue_cuda.launches - n,
-            ce.conv_epilogue_cuda.launches_channels_last - n_cl)
+    return (kernels, launches.read()["conv_epilogue_cuda"] - n,
+            launches.read()["conv_epilogue_cuda", "channels_last"] - n_cl)
 
 
 @pytest.mark.cuda
@@ -293,10 +294,10 @@ def test_epilogue_460_channels_last_is_bit_equal(card, shape, start, act):
     assert _is_channels_last(y) and y.data_ptr() % 16 == 2 * start % 16
     bias = torch.randn(C, generator=g, device=card)
     want = ce.conv_epilogue_torch(y, bias, act)
-    before = ce.conv_epilogue_cuda.launches_channels_last
+    before = launches.read()["conv_epilogue_cuda", "channels_last"]
     got = ce.conv_epilogue_cuda(y, bias, act)
     torch.cuda.synchronize()
-    assert ce.conv_epilogue_cuda.launches_channels_last == before + 1
+    assert launches.read()["conv_epilogue_cuda", "channels_last"] == before + 1
     assert torch.equal(got.contiguous().view(torch.int16),
                        want.contiguous().view(torch.int16))
 

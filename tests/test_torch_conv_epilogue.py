@@ -25,6 +25,7 @@ from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.ops import conv_epilogue as ce
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.testing import epilogue_calls, limit_cpu_threads
 
 limit_cpu_threads()
@@ -89,7 +90,7 @@ def test_cpu_float32_and_grad_take_the_composition(kind, grad, dtype,
         raise AssertionError("the kernel's wrapper was called on the CPU")
 
     monkeypatch.setattr(L, "conv_epilogue_cuda", refuse)
-    before = ce.conv_epilogue_cuda.launches
+    before = launches.read()["conv_epilogue_cuda"]
     x = torch.randn(2, 8, 12, 12, generator=torch.Generator().manual_seed(3))
     with torch.set_grad_enabled(bool(grad)):
         if kind == "transposed":
@@ -114,7 +115,7 @@ def test_cpu_float32_and_grad_take_the_composition(kind, grad, dtype,
                                conv.bias, conv.act)
     assert got.requires_grad == bool(grad)
     assert torch.equal(got, want)
-    assert ce.conv_epilogue_cuda.launches == before
+    assert launches.read()["conv_epilogue_cuda"] == before
     if grad:
         got.float().sum().backward()
         assert b.grad is not None and bool(b.grad.abs().sum() > 0)
@@ -139,10 +140,10 @@ def _refused_cases():
 @pytest.mark.parametrize("case", sorted(_refused_cases()))
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     y, bias, err = _refused_cases()[case]
-    before = ce.conv_epilogue_cuda.launches
+    before = launches.read()["conv_epilogue_cuda"]
     with pytest.raises(err):
         ce.conv_epilogue_cuda(y, bias, True)
-    assert ce.conv_epilogue_cuda.launches == before
+    assert launches.read()["conv_epilogue_cuda"] == before
 
 
 class _Epilogue(torch.nn.Module):
@@ -299,18 +300,18 @@ def test_forward_is_bit_equal_and_launches_once_an_epilogue(card, scale):
     n = sum(isinstance(m, (L.Conv, L.Proto)) for m in model.modules())
     x = torch.rand(2, 640, 640, 3, generator=torch.Generator().manual_seed(1)
                    ).to(card)
-    before = ce.conv_epilogue_cuda.launches
+    before = launches.read()["conv_epilogue_cuda"]
     with torch.inference_mode():
         fast = model(x, concat_preds=False)
     torch.cuda.synchronize()
-    assert ce.conv_epilogue_cuda.launches - before == n
+    assert launches.read()["conv_epilogue_cuda"] - before == n
     for p in model.parameters():
         p.requires_grad_(True)
-    before = ce.conv_epilogue_cuda.launches
+    before = launches.read()["conv_epilogue_cuda"]
     with torch.enable_grad():
         slow = model(x, concat_preds=False)
     torch.cuda.synchronize()
-    assert ce.conv_epilogue_cuda.launches == before
+    assert launches.read()["conv_epilogue_cuda"] == before
     assert fast.keys() == slow.keys()
     for k in fast:
         a, b = fast[k], slow[k].detach()
@@ -329,7 +330,7 @@ def test_trainable_bias_alone_takes_the_composition(card, kind):
     bf16 = torch.bfloat16
     x = torch.randn(2, 8, 12, 12, generator=torch.Generator().manual_seed(3)
                     ).to(card, bf16)
-    before = ce.conv_epilogue_cuda.launches
+    before = launches.read()["conv_epilogue_cuda"]
     if kind == "transposed":
         proto = L.Proto(8, 8, 4, dtype=bf16)
         proto.reset_parameters(torch.Generator().manual_seed(4))
@@ -349,7 +350,8 @@ def test_trainable_bias_alone_takes_the_composition(card, kind):
         y = F.conv2d(x, w.to(bf16), None, 1, 1, 1, 1)
         act = True
     torch.cuda.synchronize()
-    assert ce.conv_epilogue_cuda.launches == before and got.requires_grad
+    assert launches.read()["conv_epilogue_cuda"] == before
+    assert got.requires_grad
     want = composition(y, b.detach(), act)
     assert torch.equal(_bits(got.detach()), _bits(want))
     got.float().sum().backward()
@@ -365,6 +367,6 @@ def test_batch_pipeline_launches_the_kernel_for_every_epilogue(card):
     n = sum(isinstance(m, (L.Conv, L.Proto)) for m in model.modules())
     pipe = build_pipeline(cfg, model, frame_hw=(480, 640), batch=2,
                           device=card).warmup()
-    before = ce.conv_epilogue_cuda.launches
+    before = launches.read()["conv_epilogue_cuda"]
     pipe(pipe.dummy_input())["slate"].cpu()
-    assert ce.conv_epilogue_cuda.launches - before == n == 186
+    assert launches.read()["conv_epilogue_cuda"] - before == n == 186

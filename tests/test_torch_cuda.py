@@ -26,6 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from xrseg_tpu_torch.compile import build_pipeline, decode_task_outputs, pack_slate
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfig
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
@@ -77,12 +78,12 @@ def _check_nms(what, kernel, plain, args, B, K, cluster, card, thr):
         with pytest.raises(ValueError, match="cannot hold"):
             kernel(*args, thr, 50, cluster=cluster)
         return
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     got = kernel(*args, thr, 50, cluster=cluster)
     ref = plain(*args, thr, 50)
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
 
 
 CASES = {"random": {}, "ties": dict(ties=True),
@@ -195,9 +196,9 @@ def test_pipeline_goes_through_the_kernels(card):
                              device=card)
     frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
                                                np.uint8)
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     got = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)(frames)
-    assert tk.nms_select_batched_cuda.launches == before + 1
+    assert launches.read()["nms_select_batched_cuda"] == before + 1
     ref = build_pipeline(scan, model, frame_hw=(96, 128), batch=2)(frames)
     assert torch.equal(got["slate"], ref["slate"])
     assert int(got["count"].min()) == 50
@@ -291,9 +292,9 @@ def test_task_and_tta_pipelines_go_through_the_kernels(card, task, tta,
                                                np.uint8)
     kernel = (tk.nms_rotated_batched_cuda if task == "obb"
               else tk.nms_select_batched_cuda)
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     got = build_pipeline(cfg, model, **kw)(frames)
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
     # the plain NMS: pose and obb postprocess take their own backend
     # argument ("auto"), so the reference forces "scan" underneath
     for name in ("nms_fixed_batched", "nms_fixed_rotated_batched"):
@@ -301,7 +302,7 @@ def test_task_and_tta_pipelines_go_through_the_kernels(card, task, tta,
         monkeypatch.setattr(tnms, name, lambda *a, _f=real, **k: _f(
             *a, **dict(k, backend="scan")))
     ref = build_pipeline(cfg, model, **kw)(frames)
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
     assert torch.equal(got["slate"], ref["slate"])
     assert torch.equal(got["indices"], ref["indices"])
     assert int(got["count"].min()) == 50
@@ -330,14 +331,14 @@ def test_k4_equals_plain(card, B, D, hw, input_size):
     if B is None:
         args = [a[0] for a in args]
     args = [a.to(card) for a in args]
-    before = mk.mask_synth_crop_cuda.launches
+    before = launches.read()["mask_synth_crop_cuda"]
     got = mk.mask_synth_crop_cuda(*args, hw, input_size)
     ref = mk.mask_synth_crop_torch(*args, hw, input_size)
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert torch.equal(got == 0, ref == 0)
     assert float((got - ref).abs().max()) <= 1e-5
-    assert mk.mask_synth_crop_cuda.launches == before + 1
+    assert launches.read()["mask_synth_crop_cuda"] == before + 1
 
 
 def test_obb_pipeline_goes_through_k3(card):
@@ -348,9 +349,9 @@ def test_obb_pipeline_goes_through_k3(card):
     frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
                                                np.uint8)
     pipe = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)
-    before = tk.nms_rotated_batched_cuda.launches
+    before = launches.read()["nms_rotated_batched_cuda"]
     got = pipe(frames)
-    assert tk.nms_rotated_batched_cuda.launches == before + 1
+    assert launches.read()["nms_rotated_batched_cuda"] == before + 1
     assert int(got["count"].min()) == 50 and got["slate"].shape == (2, 401)
     # the scan comparison on the same raw outputs
     x = preprocess(torch.from_numpy(frames).to(card), (128, 128),
@@ -389,12 +390,12 @@ def test_k4_ragged_sizes_and_outside_boxes(card, hw, input_size, D):
 def test_k4_refuses_misaligned_inputs(card):
     coefs, protos, boxes = [a.to(card) for a in
                             _mask_inputs(3, 1, 4, (16, 16), (64, 64))]
-    before = mk.mask_synth_crop_cuda.launches
+    before = launches.read()["mask_synth_crop_cuda"]
     shifted = torch.empty(coefs.numel() + 1, device=card)[1:].view_as(coefs)
     with pytest.raises(ValueError, match="16-byte"):
         mk.mask_synth_crop_cuda(shifted.copy_(coefs), protos, boxes, (16, 16),
                                 (64, 64))
-    assert mk.mask_synth_crop_cuda.launches == before
+    assert launches.read()["mask_synth_crop_cuda"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +464,7 @@ def test_executor_on_the_card_polls_events(card):
             ex.update()
         assert ex.last_result.count == 50
     assert ExecState.REQUESTING_OUTPUTS in seen and ExecState.SUCCESS in seen
-    assert tk.nms_select_batched_cuda.launches > 0
+    assert launches.read()["nms_select_batched_cuda"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -655,11 +656,11 @@ def test_wbf_scan_equals_plain(card, rotated, B, K, D, class_aware,
                          empty_last=B > 1, device=card)
     kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
     plain = wbf.wbf_rotated_scan_plain if rotated else wbf.wbf_scan_plain
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     got = kernel(*stream, 0.55, 0.3, D, class_aware)
     ref = plain(*stream, 0.55, 0.3, D, class_aware)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
     for i, (g, r) in enumerate(zip(got, ref)):
         assert torch.equal(g, r), i
     if B > 1:
@@ -675,20 +676,20 @@ def test_wbf_scan_does_not_synchronise(card, rotated):
     kernel = wbf.wbf_rotated_scan_cuda if rotated else wbf.wbf_scan_cuda
     kernel(*stream, 0.55, 0.3, 50)              # built and loaded
     torch.cuda.synchronize()
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = kernel(*stream, 0.55, 0.3, 50)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
     ref = kernel(*stream, 0.55, 0.3, 50)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def test_wbf_wrapper_refuses_what_the_kernel_does_not_take(card):
     stream = _wbf_stream(0, 1, 64, device=card)
-    before = wbf.wbf_scan_cuda.launches
+    before = launches.read()["wbf_scan_cuda"]
     with pytest.raises(ValueError, match="1 to 1024 clusters"):
         wbf.wbf_scan_cuda(*stream, 0.55, 0.3, 1025)
     with pytest.raises(TypeError, match="int32"):
@@ -696,7 +697,7 @@ def test_wbf_wrapper_refuses_what_the_kernel_does_not_take(card):
                           0.55, 0.3, 50)
     with pytest.raises(ValueError, match=r"boxes \[B,K,5\]"):
         wbf.wbf_rotated_scan_cuda(*stream, 0.55, 0.3, 50)
-    assert wbf.wbf_scan_cuda.launches == before
+    assert launches.read()["wbf_scan_cuda"] == before
 
 
 @pytest.mark.parametrize("task", ["segment", "obb"])
@@ -714,9 +715,9 @@ def test_wbf_pipeline_goes_through_the_kernels(card, task):
                                                np.uint8)
     kernel = wbf.wbf_rotated_scan_cuda if task == "obb" else \
         wbf.wbf_scan_cuda
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     got = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)(frames)
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
     if task == "obb":
         # decode_task_outputs leaves the obb backend to its own "auto"
         x = preprocess(torch.from_numpy(frames).to(card), (128, 128),
@@ -750,10 +751,10 @@ def test_ensemble_goes_through_k5_or_k1(card, merge):
                                                np.uint8)
     kernel = wbf.wbf_scan_cuda if merge == "wbf" else \
         tk.nms_select_batched_cuda
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     got = build_ensemble_pipeline(cfg, models, cfgs, frame_hw=(96, 128),
                                   batch=1)(frames)
-    assert kernel.launches == before + 1
+    assert launches.read()[kernel.__name__] == before + 1
     ref = build_ensemble_pipeline(scan, models, cfgs, frame_hw=(96, 128),
                                   batch=1)(frames)
     for k in ("slate", "indices", "masks"):
@@ -778,9 +779,9 @@ def test_compiled_artifact_holds_the_kernels(card, tmp_path):
         path = str(tmp_path / f"{merge}.xrseg")
         export_compiled(pipe, path)
         run = load_compiled(path)
-        before = kernel.launches
+        before = launches.read()[kernel.__name__]
         got = run(frames)
-        assert kernel.launches == before + 1
+        assert launches.read()[kernel.__name__] == before + 1
         want = pipe(frames)
         assert torch.equal(got["slate"], want["slate"])
 
@@ -808,7 +809,7 @@ def test_dataset_eval_on_the_card_equals_scan(card, task, monkeypatch):
     monkeypatch.setattr(de, "evaluate", capture)
     kernel = tk.nms_rotated_batched_cuda if task == "obb" \
         else tk.nms_select_batched_cuda
-    before = kernel.launches
+    before = launches.read()[kernel.__name__]
     if task == "segment":
         ds = data_lib.SyntheticShapesDataset(n=6, hw=(96, 128))
         got = de.evaluate_dataset(mcfg, model, ds, batch=4)
@@ -831,7 +832,7 @@ def test_dataset_eval_on_the_card_equals_scan(card, task, monkeypatch):
                     out["boxes_xywhr"], out["cls_logits"], auto.cfg.post,
                     scores_are_logits=True, backend="scan")
     torch.cuda.synchronize()
-    assert kernel.launches == before + 2
+    assert launches.read()[kernel.__name__] == before + 2
     want = (de.evaluate_dataset(mcfg, model, ds, batch=4, pipe=pipe)
             if task == "segment" else
             de.evaluate_task_dataset(mcfg, model, ds, batch=4, pipe=pipe))
@@ -916,10 +917,10 @@ def test_trainer_validation_on_the_card_equals_scan(card, monkeypatch):
                                    warmup_steps=1, log_every=0,
                                    val_max_images=8), params=weights,
                  device=card)
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     hist = tr.fit(ds, val_dataset=ds, verbose=False)
     torch.cuda.synchronize()
-    assert tk.nms_select_batched_cuda.launches == before + 1
+    assert launches.read()["nms_select_batched_cuda"] == before + 1
     assert np.isfinite(hist[-1]["loss"]) and tr.preflight_bytes > 0
     calls = []
     real = de.evaluate
@@ -962,11 +963,11 @@ def test_pseudo_labels_launch_k1_once_a_frame(card):
     model = detection_params(torch.Generator().manual_seed(0), mcfg,
                              device=card)
     frames = _label_frames(4)
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     got = generate_pseudo_samples(ExecutorConfig(model=mcfg), model, frames,
                                   score_gate=0.3)
     torch.cuda.synchronize()
-    assert tk.nms_select_batched_cuda.launches == before + len(frames)
+    assert launches.read()["nms_select_batched_cuda"] == before + len(frames)
     want = generate_pseudo_samples(
         ExecutorConfig(model=mcfg, post=PostprocessConfig(
             nms_backend="scan")), model, frames, score_gate=0.3)
@@ -989,11 +990,12 @@ def test_flip_ranking_launches_k1_twice_a_frame(card):
     model = detection_params(torch.Generator().manual_seed(1), mcfg,
                              device=card)
     frames = _label_frames(3, seed=1)
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     got = rank_frames(ExecutorConfig(model=mcfg), model, frames,
                       strategy="flip")
     torch.cuda.synchronize()
-    assert tk.nms_select_batched_cuda.launches == before + 2 * len(frames)
+    assert launches.read()["nms_select_batched_cuda"] == \
+        before + 2 * len(frames)
     want = rank_frames(ExecutorConfig(model=mcfg, post=PostprocessConfig(
         nms_backend="scan")), model, frames, strategy="flip")
     assert got == want
@@ -1074,10 +1076,10 @@ def test_dp_shards_equal_per_shard_pipelines(card):
     fn, sp = pbatch.build_sharded_pipeline(cfg, model, mesh, batch=4,
                                            frame_hw=(96, 128))
     fn(sp, frames)                       # warm: cuDNN picks its algorithms
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     det = fn(sp, frames)
     torch.cuda.synchronize()
-    assert tk.nms_select_batched_cuda.launches == before + 2
+    assert launches.read()["nms_select_batched_cuda"] == before + 2
     shard = build_pipeline(cfg, model, frame_hw=(96, 128), batch=2)
     for i in range(2):
         ref = shard(frames[2 * i:2 * i + 2])
@@ -1098,9 +1100,9 @@ def test_pp_run_stream_equals_direct(card):
     direct = build_pipeline(cfg, model, frame_hw=(96, 128), batch=1)
     frames = [np.random.default_rng(i).integers(0, 256, (1, 96, 128, 3),
                                                 np.uint8) for i in range(6)]
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     outs = runner.run_stream(iter(frames), max_inflight=2)
-    assert tk.nms_select_batched_cuda.launches == before + 6
+    assert launches.read()["nms_select_batched_cuda"] == before + 6
     for f, o in zip(frames, outs, strict=True):
         assert torch.equal(o["slate"], direct(f)["slate"])
 
@@ -1193,11 +1195,11 @@ def test_sentis_model_on_the_card_equals_plain_and_npz(card, tmp_path):
     twin, _ = load_params_auto(str(tmp_path / "m.npz"), cfg.model)
     frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3),
                                                np.uint8)
-    before = tk.nms_select_batched_cuda.launches
+    before = launches.read()["nms_select_batched_cuda"]
     got = build_pipeline(cfg, model.to(card), frame_hw=(96, 128),
                          batch=2)(frames)
     torch.cuda.synchronize()
-    assert tk.nms_select_batched_cuda.launches == before + 1
+    assert launches.read()["nms_select_batched_cuda"] == before + 1
     ref = build_pipeline(scan, model, frame_hw=(96, 128), batch=2)(frames)
     npz = build_pipeline(cfg, twin.to(card), frame_hw=(96, 128),
                          batch=2)(frames)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from xrseg_tpu.ops import pallas_kernels as pk
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops import mask_kernels as mk
 from xrseg_tpu_torch.testing import limit_cpu_threads
 
@@ -75,11 +76,11 @@ def test_batched_equals_per_image():
 def test_wrapper_on_cpu_runs_plain_and_does_not_count():
     coefs, protos, boxes = _inputs(2, 2, 5, (16, 24), (64, 96))
     args = [torch.from_numpy(a) for a in (coefs, protos, boxes)]
-    n = mk.mask_synth_crop_cuda.launches
+    n = launches.read()["mask_synth_crop_cuda"]
     got = mk.mask_synth_crop_cuda(*args, (16, 24), (64, 96))
     ref = mk.mask_synth_crop_torch(*args, (16, 24), (64, 96))
     assert torch.equal(got, ref)
-    assert mk.mask_synth_crop_cuda.launches == n
+    assert launches.read()["mask_synth_crop_cuda"] == n
 
 
 @pytest.mark.parametrize("bad", ["mask_hw", "boxes", "rank"])

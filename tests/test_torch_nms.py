@@ -15,6 +15,7 @@ import torch
 
 from xrseg_tpu.ops import nms as jnms
 from xrseg_tpu.ops import pallas_kernels as pk
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
 from xrseg_tpu_torch.testing import limit_cpu_threads
@@ -157,16 +158,16 @@ def test_wrappers_on_cpu_run_plain_and_do_not_count():
     boxes, scores, labels = _scene(41, 2, 100)
     corners, masked = _kernel_inputs(boxes, scores, labels, 0.3)
     c, m = torch.from_numpy(corners), torch.from_numpy(masked)
-    n1 = tk.nms_select_batched_cuda.launches
-    n2 = tk.nms_select_cuda.launches
+    n1 = launches.read()["nms_select_batched_cuda"]
+    n2 = launches.read()["nms_select_cuda"]
     got = tk.nms_select_batched_cuda(c, m, 0.5, 10)
     ref = tk.nms_select_batched_torch(c, m, 0.5, 10)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     got = tk.nms_select_cuda(c[0], m[0], 0.5, 10)
     ref = tk.nms_select_torch(c[0], m[0], 0.5, 10)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert tk.nms_select_batched_cuda.launches == n1
-    assert tk.nms_select_cuda.launches == n2
+    assert launches.read()["nms_select_batched_cuda"] == n1
+    assert launches.read()["nms_select_cuda"] == n2
 
 
 def test_resolve_backend():

@@ -30,6 +30,7 @@ from xrseg_tpu_torch import compile as tcompile
 from xrseg_tpu_torch import config as tconfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
 from xrseg_tpu_torch.models import yolo11 as ty
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops import nms as tnms
 from xrseg_tpu_torch.ops import nms_kernels as tk
 from xrseg_tpu_torch.ops import postprocess as tpost
@@ -298,11 +299,11 @@ def test_rotated_wrapper_on_cpu_runs_plain_and_does_not_count():
     rows = tk.rotated_gaussian_rows(torch.from_numpy(boxes))
     masked = torch.where(torch.from_numpy(scores) > 0.3,
                          torch.from_numpy(scores), tk.NEG)
-    n = tk.nms_rotated_batched_cuda.launches
+    n = launches.read()["nms_rotated_batched_cuda"]
     got = tk.nms_rotated_batched_cuda(rows, masked, 0.4, 10)
     ref = tk.nms_rotated_batched_torch(rows, masked, 0.4, 10)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert tk.nms_rotated_batched_cuda.launches == n
+    assert launches.read()["nms_rotated_batched_cuda"] == n
 
 
 # ---------------------------------------------------------------------------

@@ -325,6 +325,60 @@ def test_span_list_is_capped_and_open_spans_have_no_times(monkeypatch):
     assert tr.summary()["inner"]["count"] == 4   # stages keep every one
 
 
+def test_an_interval_past_the_cap_is_counted_as_dropped(monkeypatch):
+    """An interval records its span the way a section does: within the
+    cap, with its profiler range; past it, counted as spans_dropped."""
+    monkeypatch.setattr(Tracer, "MAX_SPANS", 2)
+    ranges = []
+    real = torch.profiler.record_function
+
+    def record(name):
+        ranges.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", record)
+    tr = Tracer()
+    tr.enable(True)
+    with tr.section("readback", 3):
+        tr.interval("device_wait", 1.0, 1.25, 3)
+        tr.interval("device_wait", 2.0, 2.5, 4)
+    spans = tr.export()["spans"]
+    assert [(s["name"], s["id"], s["parent"]) for s in spans] == [
+        ("readback", 3, None), ("device_wait", 3, 0)]
+    assert spans[1]["self_ns"] == 250_000_000
+    assert tr.counters["spans_dropped"] == 1
+    assert ranges == ["xrseg.readback", "xrseg.device_wait",
+                      "xrseg.device_wait"]
+    assert tr.summary()["device_wait"]["count"] == 2  # stages keep both
+
+
+@pytest.mark.parametrize("fmt", ["rgb", "yuv420"])
+def test_submit_uploads_a_host_batch_once(model, fmt, monkeypatch):
+    """StreamingRunner.submit copies each host batch to the device once:
+    the upload span's copy, and no second pass through upload in the
+    enqueue."""
+    from xrseg_tpu_torch import compile as tcompile
+    copies = []
+    real = tcompile.to_device
+
+    def to_device(x, dev):
+        copies.append(type(x))
+        return real(x, dev)
+
+    monkeypatch.setattr(tcompile, "to_device", to_device)
+    pipe = build_pipeline(CFG, model, batch=1, device="cpu",
+                          input_format=fmt)
+    runner = StreamingRunner(pipe, depth=1)
+    planes = 3 if fmt == "yuv420" else 1
+    for i, frames in enumerate(_batches(3)):
+        if fmt == "yuv420":
+            frames = (frames[..., 0], frames[:, ::2, ::2, 1].copy(),
+                      frames[:, ::2, ::2, 2].copy())
+        runner.submit(frames)
+        assert copies == [np.ndarray] * planes * (i + 1)
+    assert len(list(runner.drain())) == 1
+
+
 @pytest.mark.parametrize("fmt", ["rgb", "yuv420"])
 def test_pipeline_upload_keeps_the_form_of_the_frames(model, fmt):
     pipe = build_pipeline(CFG, model, batch=1, device="cpu",

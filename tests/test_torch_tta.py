@@ -1,5 +1,5 @@
 """Test-time augmentation in the port (build_pipeline(tta=True),
-compile._decode_tta) against the JAX package's build_pipeline(tta=True),
+compile.TTAPipeline) against the JAX package's build_pipeline(tta=True),
 on the CPU.
 
 Weights: tests/torch_parity.detecting_tree (the JAX init's structure,

@@ -27,6 +27,7 @@ from xrseg_tpu.ops import wbf as jwbf
 from xrseg_tpu_torch import compile as tcompile
 from xrseg_tpu_torch import config as tconfig
 from xrseg_tpu_torch.io.bridge import params_from_jax
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops import wbf as twbf
 from xrseg_tpu_torch.testing import limit_cpu_threads
 from torch_parity import detecting_tree
@@ -180,12 +181,12 @@ def test_backends_agree_and_the_wrapper_counts_nothing_on_cpu():
     boxes, scores, labels = candidates(7, 2, 300)
     args = [torch.from_numpy(a) for a in (boxes, scores, labels)]
     kw = dict(iou_threshold=0.55, score_threshold=0.3, max_det=30)
-    before = twbf.wbf_scan_cuda.launches
+    before = launches.read()["wbf_scan_cuda"]
     auto = twbf.wbf_fixed_batched(*args, **kw)
     scan = twbf.wbf_fixed_batched(*args, backend="scan", **kw)
     for k in auto:
         assert torch.equal(auto[k], scan[k]), k
-    assert twbf.wbf_scan_cuda.launches == before
+    assert launches.read()["wbf_scan_cuda"] == before
     with pytest.raises(ValueError, match="backend"):
         twbf.wbf_fixed_batched(*args, backend="pallas", **kw)
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 from benchmark.harness import arch, compare, traffic
 from benchmark.reference import pipeline as ref_pipeline
@@ -29,7 +30,7 @@ from benchmark.reference import yolo, yolo12
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
-from xrseg_tpu_torch.ops import attention
+from xrseg_tpu_torch.ops import attention, launches
 from xrseg_tpu_torch.testing import limit_cpu_threads
 
 limit_cpu_threads()
@@ -340,33 +341,41 @@ def test_fused_attention_at_the_cells_shapes(card, area):
     t = torch.randn(8 * area, 1200, 12, 96, generator=g, device=card,
                     dtype=torch.bfloat16)
     q, k, v = t.transpose(1, 2).split(32, dim=-1)
-    before = attention.area_attention_cuda.calls
+    before = launches.read()["area_attention_cuda"]
     got = attention.area_attention(q, k, v, 32 ** -0.5)
     want = attention.area_attention_torch(q.float(), k.float(), v.float(),
                                           32 ** -0.5)
     torch.cuda.synchronize()
-    assert attention.area_attention_cuda.calls == before + 1
+    assert launches.read()["area_attention_cuda"] == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     err = (got.float() - want).abs().max().item()
     assert err < 2e-2 * want.abs().max().item(), err
 
 
 @pytest.mark.cuda
-def test_x_forward_makes_16_fused_calls(card):
+def test_x_forward_makes_16_fused_calls(card, monkeypatch):
     """A YOLO12x-seg forward at 960x1280, bf16: 16 fused attention calls,
-    none through the math backend, and finite outputs."""
+    each one with the math backend shut out of SDPA's choice, and finite
+    outputs."""
     model = yolo11.YOLO11(ModelConfig(arch="yolo12", scale="x",
                                       input_size=(960, 1280))).to(card)
     x = torch.rand(1, 960, 1280, 3, device=card)
-    calls = attention.area_attention_cuda.calls
-    backends = dict(attention.area_attention_cuda.by_backend)
+    allowed = []
+    sdpa_kernel = attention.sdpa_kernel
+
+    def recorded(backends):
+        allowed.append(set(backends))
+        return sdpa_kernel(backends)
+
+    monkeypatch.setattr(attention, "sdpa_kernel", recorded)
+    calls = launches.read()["area_attention_cuda"]
     with torch.no_grad():
         out = model(x)
     torch.cuda.synchronize()
-    assert attention.area_attention_cuda.calls - calls == 16
-    by = {n: c - backends.get(n, 0)
-          for n, c in attention.area_attention_cuda.by_backend.items()}
-    assert sum(by.values()) == 16 and by.get("MATH", 0) == 0, by
+    assert launches.read()["area_attention_cuda"] - calls == 16
+    fused = {SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION}
+    assert len(allowed) == 16 and all(a == fused for a in allowed), allowed
     assert torch.isfinite(out["preds"]).all()
 
 
@@ -385,10 +394,10 @@ def test_aattn_takes_the_fused_path_from_either_layout(card, batch):
     m = L.AAttn(384, 12, 4).to(card)
     m.load_state_dict(m32.state_dict())
     for layout in (torch.contiguous_format, torch.channels_last):
-        calls = attention.area_attention_cuda.calls
+        calls = launches.read()["area_attention_cuda"]
         with torch.no_grad():
             got = m(x.to(card).contiguous(memory_format=layout)).float()
-        assert attention.area_attention_cuda.calls == calls + 1
+        assert launches.read()["area_attention_cuda"] == calls + 1
         err = (got.cpu() - want).abs().max().item()
         assert err < 3e-2 * want.abs().max().item(), (layout, err)
 

@@ -82,44 +82,51 @@ class CompiledPipeline:
     readback: Optional[Readback] = None     # of the [B, L] slate
     input_format: str = "rgb"
     mask_display_hw: Optional[Tuple[int, int]] = None
-    tta_views: Optional[Tuple[Tuple[float, bool], ...]] = None  # None: off
-    tta_kpt_flip_idx: Optional[Tuple[int, ...]] = None
 
     def __call__(self, frames) -> Dict[str, torch.Tensor]:
         """frames: uint8 [B,H,W,3], or with input_format="yuv420" a tuple
         (y [B,H,W], u [B,H/2,W/2], v [B,H/2,W/2]) of uint8 planes; numpy
         or tensors, on any device."""
-        with torch.inference_mode(), \
-                precision_scope(self.cfg.model.matmul_precision):
-            x = self.upload(frames)
-            return self.run(*x) if self.input_format == "yuv420" \
-                else self.run(x)
+        return self.enqueue(self.upload(frames))
 
     def upload(self, frames):
-        """`frames`, as `__call__` takes them, on the device in the same
-        form; what is already there is not copied."""
+        """`frames`, as `__call__` takes them, on the device in the form
+        `enqueue` takes; a pageable copy of what is not there yet."""
         if self.input_format == "yuv420":
             return tuple(to_device(p, self.device) for p in frames)
         return to_device(frames, self.device)
+
+    def enqueue(self, frames) -> Dict[str, torch.Tensor]:
+        """`run` on what `upload` returned, under inference mode and the
+        model's matmul precision: every runner enters the program here."""
+        with torch.inference_mode(), \
+                precision_scope(self.cfg.model.matmul_precision):
+            return self.run(*frames) if isinstance(frames, tuple) \
+                else self.run(frames)
 
     def run(self, *frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The program on frames that already lie on the device (one uint8
         tensor, or the three yuv420 planes): what export_compiled traces.
         The caller sets the grad mode and the matmul precision."""
+        return self.decode(self.forward(self.preprocess(*frames)))
+
+    def preprocess(self, *frames: torch.Tensor) -> torch.Tensor:
+        """Uploaded frames -> the network's NHWC input, compute dtype."""
         mcfg = self.cfg.model
         x = yuv420_to_rgb(*frames) if self.input_format == "yuv420" \
             else frames[0]
-        x = pre_ops.preprocess(x, mcfg.input_size, mode=self.resize_mode,
-                               dtype=getattr(torch, mcfg.dtype))
-        if self.tta_views is not None:
-            return _decode_tta(
-                self.params, x, mcfg, self.cfg.post,
-                crop_masks=self.crop_masks, mask_dtype=self.mask_dtype,
-                mask_display_hw=self.mask_display_hw,
-                kpt_flip_idx=self.tta_kpt_flip_idx, views=self.tta_views)
-        out = self.params(x, concat_preds=False)
+        return pre_ops.preprocess(x, mcfg.input_size, mode=self.resize_mode,
+                                  dtype=getattr(torch, mcfg.dtype))
+
+    def forward(self, x: torch.Tensor):
+        """The network's raw-head dict (concat_preds=False); TTA, the
+        ensemble and the parallel runners replace it."""
+        return self.params(x, concat_preds=False)
+
+    def decode(self, out) -> Dict[str, torch.Tensor]:
+        """The forward's outputs -> the detection dict with the slate."""
         return decode_task_outputs(
-            out, mcfg, self.cfg.post, crop_masks=self.crop_masks,
+            out, self.cfg.model, self.cfg.post, crop_masks=self.crop_masks,
             mask_dtype=self.mask_dtype, emit_masks=self.emit_masks,
             mask_display_hw=self.mask_display_hw)
 
@@ -182,36 +189,40 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     anchor axis (A -> V*A) before one NMS call. Segment survivors
     synthesize their masks against the protos of their own view (flipped
     protos flipped back). The validations are the JAX package's."""
+    check_output_options(emit_masks, mask_display_hw, input_format)
+    if tta:
+        _check_tta(cfg.model, emit_masks, tta_kpt_flip_idx, tta_views)
+    _check_merge(cfg.post)
+    params = bind_params(cfg, params, params_dtype)
+    dev = resolve_device(device)
+    B = batch or cfg.batch_size
+    fh, fw = frame_hw or cfg.model.input_size
+    pipe = dict(cfg=cfg, params=params.to(dev).eval(),
+                input_shape=(B, fh, fw, 3), device=dev,
+                resize_mode=resize_mode, crop_masks=crop_masks,
+                mask_dtype=getattr(torch, mask_dtype), emit_masks=emit_masks,
+                readback=Readback(B * task_slate_length(
+                    cfg.model, cfg.post.max_detections), dev),
+                input_format=input_format,
+                mask_display_hw=(None if mask_display_hw is None
+                                 else tuple(mask_display_hw)))
+    if not tta:
+        return CompiledPipeline(**pipe)
+    return TTAPipeline(
+        **pipe, views=tuple(tta_views) if tta_views else DEFAULT_TTA_VIEWS,
+        kpt_flip_idx=(None if tta_kpt_flip_idx is None
+                      else tuple(int(i) for i in tta_kpt_flip_idx)))
+
+
+def check_output_options(emit_masks: str, mask_display_hw,
+                         input_format: str) -> None:
+    """build_pipeline's option checks, shared with parallel/batch."""
     if emit_masks not in ("all", "none"):
         raise ValueError(f"emit_masks {emit_masks!r}: expected 'all'|'none'")
     if mask_display_hw is not None and emit_masks != "all":
         raise ValueError("mask_display_hw requires emit_masks='all'")
     if input_format not in ("rgb", "yuv420"):
         raise ValueError(f"unknown input_format {input_format!r}")
-    if tta:
-        _check_tta(cfg.model, emit_masks, tta_kpt_flip_idx, tta_views)
-    _check_merge(cfg.post)
-    params = _bind_params(cfg, params, params_dtype)
-    dev = resolve_device(device)
-    B = batch or cfg.batch_size
-    fh, fw = frame_hw or cfg.model.input_size
-    return CompiledPipeline(cfg=cfg, params=params.to(dev).eval(),
-                            input_shape=(B, fh, fw, 3), device=dev,
-                            resize_mode=resize_mode, crop_masks=crop_masks,
-                            mask_dtype=getattr(torch, mask_dtype),
-                            emit_masks=emit_masks,
-                            readback=Readback(
-                                B * task_slate_length(
-                                    cfg.model, cfg.post.max_detections), dev),
-                            input_format=input_format,
-                            mask_display_hw=(None if mask_display_hw is None
-                                             else tuple(mask_display_hw)),
-                            tta_views=((tuple(tta_views) if tta_views
-                                        else DEFAULT_TTA_VIEWS)
-                                       if tta else None),
-                            tta_kpt_flip_idx=(
-                                None if tta_kpt_flip_idx is None
-                                else tuple(int(i) for i in tta_kpt_flip_idx)))
 
 
 def _check_tta(mcfg: ModelConfig, emit_masks: str, kpt_flip_idx,
@@ -267,133 +278,129 @@ def _flip_index_on(idx: Tuple[int, ...], device: torch.device
     return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
-def _decode_tta(model: yolo11.YOLO11, x: torch.Tensor, mcfg: ModelConfig,
-                pcfg: PostprocessConfig, *, crop_masks: bool, mask_dtype,
-                mask_display_hw, kpt_flip_idx, views
-                ) -> Dict[str, torch.Tensor]:
-    """The multi-view forward, merge and decode of build_pipeline(tta=True).
-    x: preprocessed [B,H,W,3] in the compute dtype."""
-    H, W = mcfg.input_size
-    B = x.shape[0]
+@dataclasses.dataclass(kw_only=True)
+class TTAPipeline(CompiledPipeline):
+    """build_pipeline(tta=True): every view of the batch in one forward,
+    the candidates of all views in one merge."""
+    views: Tuple[Tuple[float, bool], ...]
+    kpt_flip_idx: Optional[Tuple[int, ...]]   # pose: checked at build
 
-    def make_view(scale, flip):
-        xv = x
-        if scale != 1.0:
-            sh, sw = int(round(H * scale)), int(round(W * scale))
-            xv = torch.full_like(x, 114.0 / 255.0)
-            xv[:, :sh, :sw] = pre_ops.resize_bilinear(x, (sh, sw))
-        return xv.flip(2) if flip else xv
+    def forward(self, x: torch.Tensor):
+        """Every view of the preprocessed [B,H,W,3] batch, stacked
+        [V*B, ...], in one forward: each scaled view letterboxed top left
+        into the same canvas (gray fill), each flipped view mirrored."""
+        H, W = x.shape[1], x.shape[2]
 
-    out = model(torch.cat([make_view(s, f) for s, f in views]),
-                concat_preds=False)
+        def make_view(scale, flip):
+            xv = x
+            if scale != 1.0:
+                sh, sw = int(round(H * scale)), int(round(W * scale))
+                xv = torch.full_like(x, 114.0 / 255.0)
+                xv[:, :sh, :sw] = pre_ops.resize_bilinear(x, (sh, sw))
+            return xv.flip(2) if flip else xv
 
-    def per_view(v):
-        return v.split(B)
+        return self.params(torch.cat([make_view(s, f)
+                                      for s, f in self.views]),
+                           concat_preds=False)
 
-    cls_parts = per_view(out["cls_logits"])
-    cls_logits = torch.cat(cls_parts, 1)                  # [B,VA,nc]
-    A = cls_parts[0].shape[1]
+    def decode(self, out) -> Dict[str, torch.Tensor]:
+        """The views' candidates mapped back to the frame (flipped views
+        mirrored, scaled ones divided by their scale), merged, decoded."""
+        mcfg, pcfg, views = self.cfg.model, self.cfg.post, self.views
+        W = mcfg.input_size[1]
+        B = out["cls_logits"].shape[0] // len(views)
 
-    if mcfg.task == "pose":
-        flip_idx = _flip_index_on(kpt_flip_idx, x.device)  # checked at build
-        bs, ks = [], []
-        for (scale, flip), b, k in zip(views, per_view(out["boxes_xywh"]),
-                                       per_view(out["kpts"])):
-            if flip:
-                b = torch.cat([W - b[..., 0:1], b[..., 1:]], -1)
-                k = torch.cat([W - k[..., 0:1], k[..., 1:]], -1)
-                k = k.index_select(2, flip_idx)
-            bs.append(b / scale)
-            ks.append(torch.cat([k[..., :2] / scale, k[..., 2:]], -1))
-        det = postprocess_pose_batch(torch.cat(bs, 1), cls_logits,
-                                     torch.cat(ks, 1), pcfg,
-                                     scores_are_logits=True)
+        def per_view(v):
+            return v.split(B)
+
+        cls_logits = torch.cat(per_view(out["cls_logits"]), 1)  # [B,VA,nc]
+        if mcfg.task == "pose":
+            flip_idx = _flip_index_on(self.kpt_flip_idx, out["kpts"].device)
+            bs, ks = [], []
+            for (scale, flip), b, k in zip(
+                    views, per_view(out["boxes_xywh"]), per_view(out["kpts"])):
+                if flip:
+                    b = torch.cat([W - b[..., 0:1], b[..., 1:]], -1)
+                    k = torch.cat([W - k[..., 0:1], k[..., 1:]], -1)
+                    k = k.index_select(2, flip_idx)
+                bs.append(b / scale)
+                ks.append(torch.cat([k[..., :2] / scale, k[..., 2:]], -1))
+            det = postprocess_pose_batch(torch.cat(bs, 1), cls_logits,
+                                         torch.cat(ks, 1), pcfg,
+                                         scores_are_logits=True)
+        elif mcfg.task == "obb":
+            bs = []
+            for (scale, flip), b in zip(views, per_view(out["boxes_xywhr"])):
+                if flip:
+                    b = torch.cat(
+                        [W - b[..., 0:1], b[..., 1:4], -b[..., 4:5]], -1)
+                bs.append(torch.cat([b[..., :4] / scale, b[..., 4:]], -1))
+            det = postprocess_obb_batch(torch.cat(bs, 1), cls_logits, pcfg,
+                                        scores_are_logits=True)
+        else:
+            bs = []
+            for (scale, flip), b in zip(views, per_view(out["boxes_xywh"])):
+                if flip:
+                    b = torch.cat([W - b[..., 0:1], b[..., 1:]], -1)
+                bs.append(b / scale)
+            coefs = protos = None
+            if mcfg.task == "segment":
+                coefs = torch.cat(per_view(out["mask_coefs"]), 1)
+                protos = [p.flip(2) if flip else p for (_, flip), p
+                          in zip(views, per_view(out["protos"]))]
+            return _merge_sources(self, torch.cat(bs, 1), cls_logits, coefs,
+                                  protos)
         det["slate"] = pack_slate(det, pcfg.max_detections)
         return det
 
-    if mcfg.task == "obb":
-        bs = []
-        for (scale, flip), b in zip(views, per_view(out["boxes_xywhr"])):
-            if flip:
-                b = torch.cat([W - b[..., 0:1], b[..., 1:4], -b[..., 4:5]],
-                              -1)
-            bs.append(torch.cat([b[..., :4] / scale, b[..., 4:]], -1))
-        det = postprocess_obb_batch(torch.cat(bs, 1), cls_logits, pcfg,
-                                    scores_are_logits=True)
-        det["slate"] = pack_slate(det, pcfg.max_detections)
-        return det
 
-    bs = []
-    for (scale, flip), b in zip(views, per_view(out["boxes_xywh"])):
-        if flip:
-            b = torch.cat([W - b[..., 0:1], b[..., 1:]], -1)
-        bs.append(b / scale)
-    coefs_all = view_protos = None
-    if mcfg.task == "segment":
-        coefs_all = torch.cat(per_view(out["mask_coefs"]), 1)
-        view_protos = [p.flip(2) if flip else p
-                       for (_, flip), p in zip(views,
-                                               per_view(out["protos"]))]
+def _merge_sources(pipe: CompiledPipeline, boxes, cls_logits, coefs, protos
+                   ) -> Dict[str, torch.Tensor]:
+    """The candidates of several sources (TTA views or ensemble members,
+    A anchors each, concatenated along the anchor axis) in one merge by
+    cfg.post. With `protos` (one per source) each survivor's mask is made
+    against the protos of its own source (indices // A)."""
+    mcfg, dt = pipe.cfg.model, pipe.mask_dtype
     det = postprocess_batch_parts(
-        torch.cat(bs, 1), cls_logits, coefs_all,
-        view_protos[0] if view_protos else None, pcfg, False,
-        mcfg.input_size, mask_dtype=mask_dtype, scores_are_logits=True,
-        with_masks=False)
-    if view_protos is not None:
-        _masks_by_source(det, view_protos, A, mcfg, crop_masks, mask_dtype,
-                         mask_display_hw)
-    det["slate"] = pack_slate(det, pcfg.max_detections)
+        boxes, cls_logits, coefs, protos[0] if protos else None,
+        pipe.cfg.post, False, mcfg.input_size, mask_dtype=dt,
+        scores_are_logits=True, with_masks=False)
+    if protos:
+        det.pop("protos", None)
+        c = det["coefs"].to(dt)
+        A = boxes.shape[1] // len(protos)
+        source = (det["indices"] // A)[..., None, None]        # [B,D,1,1]
+        m = mask_ops.synthesize_masks(c, protos[0].to(dt))
+        for i in range(1, len(protos)):
+            mi = mask_ops.synthesize_masks(c, protos[i].to(dt))
+            m = torch.where(source == i, mi, m)
+        if pipe.crop_masks:
+            m = mask_ops.crop_masks(m, det["boxes_xywh"], mcfg.input_size)
+        if pipe.mask_display_hw is not None:
+            m = upsample_masks(m, pipe.mask_display_hw)
+        det["masks"] = m.to(dt)
+    det["slate"] = pack_slate(det, pipe.cfg.post.max_detections)
     return det
 
 
-def _masks_by_source(det, protos_list, A: int, mcfg: ModelConfig,
-                     crop_masks: bool, mask_dtype, mask_display_hw) -> None:
-    """Each survivor's mask against the protos of its own source (a TTA
-    view or an ensemble member: indices // A), from a coefs-only det; the
-    protos entry is replaced by det["masks"]."""
-    det.pop("protos", None)
-    coefs = det["coefs"].to(mask_dtype)
-    source = (det["indices"] // A)[..., None, None]        # [B,D,1,1]
-    m = mask_ops.synthesize_masks(coefs, protos_list[0].to(mask_dtype))
-    for i in range(1, len(protos_list)):
-        mi = mask_ops.synthesize_masks(coefs, protos_list[i].to(mask_dtype))
-        m = torch.where(source == i, mi, m)
-    if crop_masks:
-        m = mask_ops.crop_masks(m, det["boxes_xywh"], mcfg.input_size)
-    if mask_display_hw is not None:
-        m = upsample_masks(m, mask_display_hw)
-    det["masks"] = m.to(mask_dtype)
-
-
-@dataclasses.dataclass
 class EnsemblePipeline(CompiledPipeline):
     """A model ensemble as one frame -> detections program: `params` is the
-    tuple of member modules and `model_cfgs` their configs
+    tuple of member modules, each built for its own ModelConfig
     (build_ensemble_pipeline)."""
-    model_cfgs: Tuple[ModelConfig, ...] = ()
 
-    def run(self, *frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        mcfg, pcfg = self.cfg.model, self.cfg.post
-        x = pre_ops.preprocess(frames[0], mcfg.input_size,
-                               mode=self.resize_mode,
-                               dtype=getattr(torch, mcfg.dtype))
-        outs = [m(x, concat_preds=False) for m in self.params]
-        A = outs[0]["cls_logits"].shape[1]
-        coefs_all = protos_list = None
-        if mcfg.task == "segment":
-            coefs_all = torch.cat([o["mask_coefs"] for o in outs], 1)
-            protos_list = [o["protos"] for o in outs]
-        det = postprocess_batch_parts(
-            torch.cat([o["boxes_xywh"] for o in outs], 1),
-            torch.cat([o["cls_logits"] for o in outs], 1), coefs_all,
-            protos_list[0] if protos_list else None, pcfg, False,
-            mcfg.input_size, mask_dtype=self.mask_dtype,
-            scores_are_logits=True, with_masks=False)
-        if protos_list is not None:
-            _masks_by_source(det, protos_list, A, mcfg, self.crop_masks,
-                             self.mask_dtype, None)
-        det["slate"] = pack_slate(det, pcfg.max_detections)
-        return det
+    def forward(self, x: torch.Tensor):
+        """Every member's raw-head dict on the same frames."""
+        return [m(x, concat_preds=False) for m in self.params]
+
+    def decode(self, outs) -> Dict[str, torch.Tensor]:
+        """The members' candidates merged (A -> M*A) and decoded."""
+        coefs = protos = None
+        if self.cfg.model.task == "segment":
+            coefs = torch.cat([o["mask_coefs"] for o in outs], 1)
+            protos = [o["protos"] for o in outs]
+        return _merge_sources(
+            self, torch.cat([o["boxes_xywh"] for o in outs], 1),
+            torch.cat([o["cls_logits"] for o in outs], 1), coefs, protos)
 
 
 def build_ensemble_pipeline(cfg: ExecutorConfig, params_list,
@@ -434,7 +441,7 @@ def build_ensemble_pipeline(cfg: ExecutorConfig, params_list,
     _check_merge(cfg.post)
     dev = resolve_device(device)
     members = tuple(
-        _bind_params(dataclasses.replace(cfg, model=mc), p, None).to(dev)
+        bind_params(dataclasses.replace(cfg, model=mc), p, None).to(dev)
         .eval() for p, mc in zip(params_list, model_cfgs))
     B = batch or cfg.batch_size
     fh, fw = frame_hw or mcfg.input_size
@@ -442,12 +449,11 @@ def build_ensemble_pipeline(cfg: ExecutorConfig, params_list,
         cfg=cfg, params=members, input_shape=(B, fh, fw, 3), device=dev,
         resize_mode=resize_mode, crop_masks=crop_masks,
         mask_dtype=getattr(torch, mask_dtype),
-        readback=Readback(B * slate_length(cfg.post.max_detections), dev),
-        model_cfgs=tuple(model_cfgs))
+        readback=Readback(B * slate_length(cfg.post.max_detections), dev))
 
 
-def _bind_params(cfg: ExecutorConfig, params, params_dtype
-                 ) -> yolo11.YOLO11:
+def bind_params(cfg: ExecutorConfig, params, params_dtype
+                ) -> yolo11.YOLO11:
     """Check that `params` is a YOLO11 built for cfg.model and apply the
     weight-storage dtype (a cast copy; the caller's module is untouched)."""
     if not isinstance(params, yolo11.YOLO11):
@@ -547,8 +553,8 @@ def unpack_slate(slate_row, max_det: int, box_dim: int = 4
     }
 
 
-@dataclasses.dataclass
-class XRTickPipeline:
+@dataclasses.dataclass(kw_only=True)
+class XRTickPipeline(CompiledPipeline):
     """The reference's WHOLE tracked-frame workload as ONE program and ONE
     packed readback (ExecutorConfig.fused_tick).
 
@@ -564,18 +570,12 @@ class XRTickPipeline:
 
     as one flat f32 tensor: a single device-to-host copy. Mask and point
     rows are zeroed when unmatched, so consumers read validity from the
-    packed flags.
+    packed flags. The frame's part is CompiledPipeline's, coefs only.
     """
-    cfg: ExecutorConfig
-    params: yolo11.YOLO11
-    input_shape: Tuple[int, ...]
     depth_hw: Tuple[int, int]
     slate_len: int
     mask_hw: Optional[Tuple[int, int]]   # None = mask not emitted
     n_points: int
-    device: torch.device
-    readback: Readback                   # of the packed output
-    input_format: str = "rgb"
 
     # aux layout: focal 2 | principal 2 | sensor 2 | cam_pos 3 |
     #             cam_quat 4 | prev(cx,cy,label,valid) 4 | screen_scale 2
@@ -591,11 +591,15 @@ class XRTickPipeline:
         uint16 numpy or an int16 tensor (ops/depth_fusion.depth_bits);
         aux: f32 [19] (pack_aux). Uploads the three, queues the whole tick
         and returns {"packed", "coefs", "protos"} on the device."""
+        return self.enqueue(self.upload(frames, depth_fp16, aux))
+
+    def upload(self, frames, depth_fp16, aux):
+        """The three on the device, as `run` takes them."""
         depth = depth_fp16.to(self.device) \
             if isinstance(depth_fp16, torch.Tensor) \
             else df.depth_bits(depth_fp16, self.device)
-        return self.run(to_device(frames, self.device), depth,
-                        to_device(aux, self.device))
+        return to_device(frames, self.device), depth, \
+            to_device(aux, self.device)
 
     def run(self, x: torch.Tensor, depth: torch.Tensor, aux: torch.Tensor
             ) -> Dict[str, torch.Tensor]:
@@ -603,34 +607,30 @@ class XRTickPipeline:
         frames, int16 depth bits, f32 aux). Nothing in here reads a value
         back or depends on a device value in Python, so the host only
         queues work."""
-        mcfg, pcfg, dcfg = self.cfg.model, self.cfg.post, self.cfg.depth
-        with torch.inference_mode(), precision_scope(mcfg.matmul_precision):
-            x = pre_ops.preprocess(x, mcfg.input_size,
-                                   dtype=getattr(torch, mcfg.dtype))
-            out = self.params(x, concat_preds=False)
-            det = decode_task_outputs(out, mcfg, pcfg, emit_masks="none")
-            boxes = det["boxes_xywh"][0]
-            prev = aux[13:17]
-            matched, idx = relock_match(
-                boxes, det["labels"][0], det["valid"][0], prev, aux[17:19],
-                gate_px=self.cfg.tracking_gate_px)
-            mask = synthesize_one_mask(det["coefs"][0], det["protos"][0], idx)
-            pts = df.extract_points(
-                depth, mask, select_row(boxes, idx),
-                aux[0:2], aux[2:4], aux[4:6], aux[6:9], aux[9:13],
-                confidence_threshold=dcfg.confidence_threshold,
-                min_depth=dcfg.min_depth_m, max_depth=dcfg.max_depth_m,
-                sampling_step=dcfg.sampling_step,
-                mask_hw=mcfg.mask_size)["packed"]
-            m = matched.to(torch.float32)
-            parts = [det["slate"][0], torch.stack([m, idx.to(torch.float32)])]
-            if self.mask_hw is not None:
-                parts.append(mask.reshape(-1).to(torch.float32) * m)
-            parts.append((pts * m).reshape(-1))
-            # coefs/protos stay on the device for re-ID embeddings and
-            # between-frame laser extraction; never part of the copy
-            return {"packed": torch.cat(parts), "coefs": det["coefs"],
-                    "protos": det["protos"]}
+        mcfg, dcfg = self.cfg.model, self.cfg.depth
+        det = super().run(x)
+        boxes = det["boxes_xywh"][0]
+        prev = aux[13:17]
+        matched, idx = relock_match(
+            boxes, det["labels"][0], det["valid"][0], prev, aux[17:19],
+            gate_px=self.cfg.tracking_gate_px)
+        mask = synthesize_one_mask(det["coefs"][0], det["protos"][0], idx)
+        pts = df.extract_points(
+            depth, mask, select_row(boxes, idx),
+            aux[0:2], aux[2:4], aux[4:6], aux[6:9], aux[9:13],
+            confidence_threshold=dcfg.confidence_threshold,
+            min_depth=dcfg.min_depth_m, max_depth=dcfg.max_depth_m,
+            sampling_step=dcfg.sampling_step,
+            mask_hw=mcfg.mask_size)["packed"]
+        m = matched.to(torch.float32)
+        parts = [det["slate"][0], torch.stack([m, idx.to(torch.float32)])]
+        if self.mask_hw is not None:
+            parts.append(mask.reshape(-1).to(torch.float32) * m)
+        parts.append((pts * m).reshape(-1))
+        # coefs/protos stay on the device for re-ID embeddings and
+        # between-frame laser extraction; never part of the copy
+        return {"packed": torch.cat(parts), "coefs": det["coefs"],
+                "protos": det["protos"]}
 
     def warmup(self) -> "XRTickPipeline":
         """Build the kernels, run one zero tick and wait for its readback."""
@@ -698,17 +698,17 @@ def build_xr_tick_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
         raise ValueError(f"fused_tick requires task='segment', "
                          f"got {mcfg.task!r}")
     _check_merge(cfg.post)
-    params = _bind_params(cfg, params, params_dtype)
+    params = bind_params(cfg, params, params_dtype)
     dev = resolve_device(device)
     fh, fw = frame_hw or mcfg.input_size
     mh4, mw4 = mcfg.mask_size
     step = cfg.depth.sampling_step
     pipe = XRTickPipeline(
         cfg=cfg, params=params.to(dev).eval(), input_shape=(1, fh, fw, 3),
-        depth_hw=tuple(depth_hw),
+        device=dev, emit_masks="none", depth_hw=tuple(depth_hw),
         slate_len=slate_length(cfg.post.max_detections),
         mask_hw=(mh4, mw4) if emit_target_mask else None,
-        n_points=(mh4 // step) * (mw4 // step), device=dev, readback=None)
+        n_points=(mh4 // step) * (mw4 // step))
     pipe.readback = Readback(pipe.packed_len, dev)
     return pipe
 
@@ -753,9 +753,8 @@ def export_compiled(pipe: CompiledPipeline, path: str) -> None:
     program runs on the pipeline's device at its batch and frame size;
     load_compiled reads it back."""
     pipe(pipe.dummy_input())         # the cached device constants, for real
-    frames = pipe.dummy_input()
-    frames = tuple(frames) if pipe.input_format == "yuv420" else (frames,)
-    frames = tuple(to_device(f, pipe.device) for f in frames)
+    frames = pipe.upload(pipe.dummy_input())
+    frames = frames if isinstance(frames, tuple) else (frames,)
     with torch.no_grad(), precision_scope(pipe.cfg.model.matmul_precision):
         program = torch.export.export(_Program(pipe), frames, strict=False)
     meta = {"device": str(pipe.device), "input_shape": pipe.input_shape,

@@ -425,6 +425,11 @@ class YOLO11(nn.Module):
         self.h20 = L.C3k2(s.c512 + s.c1024, s.c1024, s.n2, True, 0.5,
                           dtype=dt)
 
+    def to_input(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC [B, H, W, 3] frames -> the network's [B, 3, H, W] input in
+        the compute dtype (the first step of every forward, split or not)."""
+        return x.permute(0, 3, 1, 2).to(self.dtype)
+
     def backbone(self, x: torch.Tensor):
         """[B, 3, H, W] input -> the (x4, x6, x10) skip features: x10 is
         C2PSA's output for yolo11, SPPF's (or for v8-cls the last C2f's)
@@ -543,7 +548,7 @@ class YOLO11(nn.Module):
                              f"cfg.input_size {self.cfg.input_size} "
                              "(NHWC expected)")
         with precision_scope(self.cfg.matmul_precision):
-            x = x.permute(0, 3, 1, 2).to(self.dtype)
+            x = self.to_input(x)
             if self.cfg.task == "classify":
                 return self.cls_head(self.backbone(x)[2])
             return self.head_outputs(self.backbone_neck(x), concat_preds)
@@ -572,7 +577,7 @@ class YOLO11(nn.Module):
                              "[B, H, W, 3] with H and W multiples of 32")
         H, W = int(x.shape[1]), int(x.shape[2])
         with precision_scope(cfg.matmul_precision):
-            x = x.permute(0, 3, 1, 2).to(self.dtype)
+            x = self.to_input(x)
             if cfg.task == "classify":
                 return self.cls_head(self.backbone(x)[2])
             feats = self.backbone_neck(x)

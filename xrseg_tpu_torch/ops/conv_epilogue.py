@@ -21,14 +21,14 @@ CPU, float32 compute, autograd).
 
 The wrapper takes CUDA tensors only: it launches the kernel or raises
 (models/layers makes the choice between it and the plain version). It
-counts its launches in `conv_epilogue_cuda.launches`, and those on a
-channels-last output (the network's layout on the card) in
-`conv_epilogue_cuda.launches_channels_last`. A traced tensor
-(torch.export's fake and functional tensors) goes through the custom op
-`xrseg::conv_epilogue`, so an exported program holds the kernel. An eager
-tensor skips the dispatcher, which a forward would pay once a conv: on an
-H100 host the op takes 33 us a call against 14 us for the direct launch,
-and a b=1 YOLO11n-seg frame (100 epilogues) 21.1 ms against 16.9 ms.
+counts its launches in ops/launches, those on a channels-last output (the
+network's layout on the card) also under the detail "channels_last". A
+traced tensor (torch.export's fake and functional tensors) goes through
+the custom op `xrseg::conv_epilogue`, so an exported program holds the
+kernel. An eager tensor skips the dispatcher, which a forward would pay
+once a conv: on an H100 host the op takes 33 us a call against 14 us for
+the direct launch, and a b=1 YOLO11n-seg frame (100 epilogues) 21.1 ms
+against 16.9 ms.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from xrseg_tpu_torch import _build
+from xrseg_tpu_torch.ops import launches
 
 
 def conv_epilogue_torch(y: torch.Tensor, bias: torch.Tensor,
@@ -89,9 +90,8 @@ def _launch(y: torch.Tensor, bias: torch.Tensor, act: bool,
         y.data_ptr(), bias.data_ptr(), out.data_ptr(), y.numel(), inner,
         y.shape[1], act, dev, torch._C._cuda_getCurrentRawStream(dev))
     _build.check_launch(lib, err, "conv_epilogue")
-    conv_epilogue_cuda.launches += 1
-    if inner == 1:
-        conv_epilogue_cuda.launches_channels_last += 1
+    launches.count("conv_epilogue_cuda",
+                   "channels_last" if inner == 1 else None)
 
 
 @torch.library.custom_op("xrseg::conv_epilogue", mutates_args=())
@@ -121,7 +121,3 @@ def conv_epilogue_cuda(y: torch.Tensor, bias: torch.Tensor,
         return torch.ops.xrseg.conv_epilogue(y, bias, act)
     _launch(y, bias, act, y, inner)
     return y
-
-
-conv_epilogue_cuda.launches = 0
-conv_epilogue_cuda.launches_channels_last = 0

@@ -18,8 +18,7 @@ launches it.
 
 A wrapper given CPU tensors runs the plain version (mask_synth_crop_torch
 = crop_masks(synthesize_masks(...))); given CUDA tensors it launches the
-kernel or raises. The wrapper counts its launches in
-`mask_synth_crop_cuda.launches`.
+kernel or raises. The wrapper counts its launches in ops/launches.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops import masks as mask_ops
 
 
@@ -119,8 +119,5 @@ def mask_synth_crop_cuda(coefs: torch.Tensor, protos: torch.Tensor,
             coefs.data_ptr(), protos.data_ptr(), boxes_xywh.data_ptr(), B, D,
             h, w, sx, sy, out.data_ptr(), stream)
     _build.check_launch(lib, err, "mask_synth_crop")
-    mask_synth_crop_cuda.launches += 1
+    launches.count("mask_synth_crop_cuda")
     return out if batched else out[0]
-
-
-mask_synth_crop_cuda.launches = 0

@@ -30,9 +30,9 @@ validate what it hands them.
 
 A wrapper given CPU tensors runs the plain version (nms_*_torch),
 which repeats the kernel's arithmetic step by step in torch; given CUDA
-tensors it launches the kernel or raises. Each wrapper counts its own
-launches in `<wrapper>.launches`; K1 also counts them per batch size in
-`nms_select_batched_cuda.launches_by_batch`.
+tensors it launches the kernel or raises. Each wrapper counts its
+launches under its own name in ops/launches; K1 also counts them per batch
+size.
 """
 import ctypes
 import functools
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
+from xrseg_tpu_torch.ops import launches
 
 NEG = float(np.finfo(np.float32).min)
 
@@ -367,14 +368,14 @@ def _select(corners, masked, iou_threshold, max_det, cluster):
                    max_det, cluster, as_f32(iou_threshold))
 
 
-def _check_device(t: torch.Tensor) -> bool:
+def check_device(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; raise for others."""
     if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"the NMS kernels run on cuda or cpu tensors, not "
-                     f"{t.device}")
+    raise ValueError(f"the NMS and WBF kernels run on cuda or cpu "
+                     f"tensors, not {t.device}")
 
 
 # The kernels as torch.library custom ops, so that an exported program
@@ -393,9 +394,7 @@ def _nms_select_batched_op(corners: torch.Tensor, masked: torch.Tensor,
 @_nms_select_batched_op.register_kernel("cuda")
 def _(corners, masked, iou_threshold, max_det, cluster):
     out = _select(corners, masked, iou_threshold, max_det, cluster)
-    nms_select_batched_cuda.launches += 1
-    by_batch = nms_select_batched_cuda.launches_by_batch
-    by_batch[corners.shape[0]] = by_batch.get(corners.shape[0], 0) + 1
+    launches.count("nms_select_batched_cuda", corners.shape[0])
     return out
 
 
@@ -409,7 +408,7 @@ def _nms_select_op(corners: torch.Tensor, masked: torch.Tensor,
 @_nms_select_op.register_kernel("cuda")
 def _(corners, masked, iou_threshold, max_det, cluster):
     out = _select(corners, masked, iou_threshold, max_det, cluster)
-    nms_select_cuda.launches += 1
+    launches.count("nms_select_cuda")
     return out
 
 
@@ -426,7 +425,7 @@ def _(rows, masked, iou_threshold, max_det, cluster):
     out = _launch("nms_rotated", rows, masked, lambda B, K: (B, 6, K),
                   max_det, cluster, as_f32(iou_threshold),
                   as_f32(PROBIOU_EPS))
-    nms_rotated_batched_cuda.launches += 1
+    launches.count("nms_rotated_batched_cuda")
     return out
 
 
@@ -446,7 +445,7 @@ def nms_select_batched_cuda(corners: torch.Tensor, masked: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: corners [B,K,4] f32, masked [B,K] f32 -> (idx, ok) [B,max_det].
     `cluster` forces the blocks per image instead of launch_plan's choice."""
-    _check_device(corners)
+    check_device(corners)
     return torch.ops.xrseg.nms_select_batched(
         corners, masked, float(iou_threshold), int(max_det), cluster)
 
@@ -456,7 +455,7 @@ def nms_select_cuda(corners: torch.Tensor, masked: torch.Tensor,
                     cluster: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: corners [K,4] f32, masked [K] f32 -> (idx, ok) [max_det]."""
-    if _check_device(corners) and (corners.dim() != 2 or masked.dim() != 1):
+    if check_device(corners) and (corners.dim() != 2 or masked.dim() != 1):
         raise ValueError(f"nms_select_cuda takes [K,4] and [K], got "
                          f"{tuple(corners.shape)} and {tuple(masked.shape)}")
     idx, ok = torch.ops.xrseg.nms_select(
@@ -471,12 +470,7 @@ def nms_rotated_batched_cuda(rows: torch.Tensor, masked: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: rows [B,6,K] f32 (rotated_gaussian_rows), masked [B,K] f32 ->
     (idx, ok) [B,max_det]."""
-    _check_device(rows)
+    check_device(rows)
     return torch.ops.xrseg.nms_rotated_batched(
         rows, masked, float(iou_threshold), int(max_det), cluster)
 
-
-nms_select_batched_cuda.launches = 0
-nms_select_batched_cuda.launches_by_batch = {}     # B -> launches
-nms_select_cuda.launches = 0
-nms_rotated_batched_cuda.launches = 0

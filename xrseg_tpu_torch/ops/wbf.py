@@ -38,7 +38,7 @@ kernel, their CPU implementation the plain version (wbf_scan_plain,
 wbf_rotated_scan_plain: the JAX step in torch, over the live prefix of the
 stream, with one host read of its length). A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel or raises.
-Each counts its launches in `<wrapper>.launches`.
+Each counts its launches under its own name in ops/launches.
 """
 import ctypes
 from typing import Dict, NamedTuple, Tuple
@@ -47,8 +47,10 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
+from xrseg_tpu_torch.ops import launches
 from xrseg_tpu_torch.ops.nms import xywh_to_corners
-from xrseg_tpu_torch.ops.nms_kernels import PROBIOU_EPS, as_f32, probiou_gauss
+from xrseg_tpu_torch.ops.nms_kernels import (PROBIOU_EPS, as_f32,
+                                              check_device, probiou_gauss)
 
 MAX_CLUSTERS = 1024              # one cluster a thread of a chain's block
 
@@ -393,7 +395,7 @@ def _wbf_scan_kernel(boxes, scores, labels, order, iou_threshold,
                      score_threshold, max_det, class_aware):
     out = _launch("xrseg_wbf", boxes, scores, labels, order, iou_threshold,
                   score_threshold, max_det, class_aware)
-    wbf_scan_cuda.launches += 1
+    launches.count("wbf_scan_cuda")
     return out
 
 
@@ -418,7 +420,7 @@ def _wbf_rotated_scan_kernel(boxes, scores, labels, order, iou_threshold,
                              score_threshold, max_det, class_aware):
     out = _launch("xrseg_wbf_rotated", boxes, scores, labels, order,
                   iou_threshold, score_threshold, max_det, class_aware)
-    wbf_rotated_scan_cuda.launches += 1
+    launches.count("wbf_rotated_scan_cuda")
     return out
 
 
@@ -428,21 +430,12 @@ def _(boxes, scores, labels, order, iou_threshold, score_threshold,
     return _fake(boxes, 3, max_det)
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"the WBF kernels run on cuda or cpu tensors, not "
-                     f"{t.device}")
-
-
 def wbf_scan_cuda(boxes, scores, labels, order, iou_threshold: float,
                   score_threshold: float, max_det: int,
                   class_aware: bool = True) -> State:
     """K5 on the score-sorted stream (see wbf_scan_plain); CPU tensors run
     the plain version."""
-    _on_card(boxes)
+    check_device(boxes)
     return torch.ops.xrseg.wbf_scan(boxes, scores, labels, order,
                                     float(iou_threshold),
                                     float(score_threshold), int(max_det),
@@ -454,15 +447,11 @@ def wbf_rotated_scan_cuda(boxes, scores, labels, order, iou_threshold: float,
                           class_aware: bool = True) -> State:
     """K6 on the score-sorted stream of rotated boxes (see
     wbf_rotated_scan_plain); CPU tensors run the plain version."""
-    _on_card(boxes)
+    check_device(boxes)
     return torch.ops.xrseg.wbf_rotated_scan(boxes, scores, labels, order,
                                             float(iou_threshold),
                                             float(score_threshold),
                                             int(max_det), bool(class_aware))
-
-
-wbf_scan_cuda.launches = 0
-wbf_rotated_scan_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

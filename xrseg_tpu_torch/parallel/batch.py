@@ -11,9 +11,9 @@ Here the host drives every device itself:
 - `shard_batch` uploads every data shard before any shard computes, and
   no shard waits for the card, so devices overlap as JAX's
   single-controller dispatch does;
-- each shard runs build_pipeline's preprocess, forward and
-  `decode_task_outputs` (K1 on the segment/detect/pose decode, K3 on
-  obb) on its row's first device, under the model's precision scope;
+- each shard runs build_pipeline's frame program (compile.py: its
+  preprocess, forward and decode, K1 on the segment/detect/pose decode,
+  K3 on obb) with its row's module, on its row's first device;
 - TP: a conv whose output channels reach tp_min_channels becomes a
   `_SlicedConv`, each device computing its slice (bias sliced with the
   weight; a depthwise conv takes the matching slice of its input
@@ -36,17 +36,15 @@ import torch
 from torch import nn
 
 from xrseg_tpu_torch import _build
-from xrseg_tpu_torch.compile import (_bind_params, decode_task_outputs,
-                                     task_slate_length)
+from xrseg_tpu_torch.compile import (CompiledPipeline, bind_params,
+                                     check_output_options, task_slate_length)
 from xrseg_tpu_torch.config import ExecutorConfig
 from xrseg_tpu_torch.device import Readback
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
-from xrseg_tpu_torch.ops import preprocess as pre_ops
 from xrseg_tpu_torch.parallel import mesh as mesh_lib
 from xrseg_tpu_torch.parallel.mesh import Mesh
 from xrseg_tpu_torch.parallel.multihost import ProcessShard
-from xrseg_tpu_torch.precision import precision_scope
 
 
 def on_device(dev: torch.device):
@@ -270,33 +268,28 @@ def build_sharded_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
     (multihost.shard_host_batch, returning this process's outputs the
     same way). tp_min_channels below a model's widest conv turns on
     tensor parallelism there; the default leaves it off (DP only)."""
-    mcfg, pcfg = cfg.model, cfg.post
-    yolo11.refuse_yolo12(mcfg, "data and tensor parallelism")
+    yolo11.refuse_yolo12(cfg.model, "data and tensor parallelism")
     d = mesh.shape["data"]
     if batch % d:
         raise ValueError(f"batch {batch} not divisible by data axis {d}")
-    if emit_masks not in ("all", "none"):
-        raise ValueError(f"emit_masks {emit_masks!r}: expected 'all'|'none'")
-    if mask_display_hw is not None and emit_masks != "all":
-        raise ValueError("mask_display_hw requires emit_masks='all'")
+    check_output_options(emit_masks, mask_display_hw, "rgb")
     if isinstance(params, list):
         if len(params) != d:
             raise ValueError(f"{len(params)} placed rows for a mesh with "
                              f"data axis {d}")
         sharded = params
     else:
-        sharded = place_rows(_bind_params(cfg, params, None), mesh,
+        sharded = place_rows(bind_params(cfg, params, None), mesh,
                              tp_min_channels)
-    dtype = getattr(torch, mcfg.dtype)
 
     def run_shard(model: nn.Module, x: torch.Tensor):
-        with on_device(x.device), torch.inference_mode(), \
-                precision_scope(mcfg.matmul_precision):
-            x = pre_ops.preprocess(x, mcfg.input_size, mode=resize_mode,
-                                   dtype=dtype)
-            out = model(x, concat_preds=False)
-            return decode_task_outputs(out, mcfg, pcfg, emit_masks=emit_masks,
-                                       mask_display_hw=mask_display_hw)
+        """The frame program of a data row: its module on its frames."""
+        row = CompiledPipeline(cfg=cfg, params=model,
+                               input_shape=tuple(x.shape), device=x.device,
+                               resize_mode=resize_mode, emit_masks=emit_masks,
+                               mask_display_hw=mask_display_hw)
+        with on_device(x.device):
+            return row.enqueue(x)
 
     def fn(rows: List[nn.Module], frames) -> Dict[str, Any]:
         if isinstance(frames, ProcessShard):

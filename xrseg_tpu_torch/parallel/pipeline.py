@@ -18,6 +18,7 @@ on that device's one stream, in order.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -25,12 +26,10 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch import _build
-from xrseg_tpu_torch.compile import _bind_params, decode_task_outputs
+from xrseg_tpu_torch.compile import CompiledPipeline, bind_params
 from xrseg_tpu_torch.config import ExecutorConfig
 from xrseg_tpu_torch.models import yolo11
-from xrseg_tpu_torch.ops import preprocess as pre_ops
 from xrseg_tpu_torch.parallel.batch import on_device
-from xrseg_tpu_torch.precision import precision_scope
 
 
 def _stage(model: yolo11.YOLO11, backbone: bool, dev: torch.device
@@ -47,12 +46,35 @@ def _stage(model: yolo11.YOLO11, backbone: bool, dev: torch.device
 
 def _upload(frames, dev: torch.device) -> torch.Tensor:
     """Host frames to `dev` without blocking the host: a pinned copy, then
-    a non-blocking upload (a pageable one would wait for dev's queue)."""
+    a non-blocking upload. The one form beside device.to_device, which is
+    pageable and may wait for dev's queue: run_stream queues frame i+1
+    while the card still works on frame i."""
     if not isinstance(frames, torch.Tensor):
         frames = torch.from_numpy(np.ascontiguousarray(frames))
     if dev.type == "cuda" and frames.device.type == "cpu":
         frames = frames.pin_memory()
     return frames.to(dev, non_blocking=True)
+
+
+@dataclasses.dataclass(kw_only=True)
+class _StagedPipeline(CompiledPipeline):
+    """The frame program with its forward split at the backbone|neck
+    boundary: `params` (stage A: preprocess and backbone) on `device`,
+    `stage_b` (neck, heads and decode) on `stage_b_device`."""
+    stage_b: yolo11.YOLO11
+    stage_b_device: torch.device
+
+    def forward(self, x: torch.Tensor):
+        a, b, d1 = self.params, self.stage_b, self.stage_b_device
+        feats = a.backbone(a.to_input(x))
+        # the stage boundary: device 0's maps to device 1
+        feats = tuple(f.to(d1, non_blocking=True) for f in feats)
+        with on_device(d1):
+            return b.head_outputs(b.neck(feats), concat_preds=False)
+
+    def decode(self, out) -> Dict[str, torch.Tensor]:
+        with on_device(self.stage_b_device):
+            return super().decode(out)
 
 
 class PipelinedRunner:
@@ -83,35 +105,16 @@ class PipelinedRunner:
             # boundary (its head hangs off x10 directly)
             raise ValueError("pipeline parallelism does not apply to "
                              "task 'classify' (no neck stage)")
-        params = _bind_params(cfg, params, None)
-        self.cfg, self.d0, self.d1 = cfg, devs[0], devs[1]
-        self.stage_a_model = _stage(params, True, self.d0)
-        self.stage_b_model = _stage(params, False, self.d1)
-        self.resize_mode = resize_mode
-        self.dtype = getattr(torch, mcfg.dtype)
-        fh, fw = frame_hw or mcfg.input_size
-        self.input_shape = (batch, fh, fw, 3)
-
-    def stage_a(self, frames: torch.Tensor):
-        mcfg = self.cfg.model
-        with on_device(self.d0), torch.inference_mode(), \
-                precision_scope(mcfg.matmul_precision):
-            x = pre_ops.preprocess(frames, mcfg.input_size,
-                                   mode=self.resize_mode, dtype=self.dtype)
-            x = x.permute(0, 3, 1, 2).to(self.dtype)
-            return self.stage_a_model.backbone(x)
-
-    def stage_b(self, feats) -> Dict[str, torch.Tensor]:
-        mcfg = self.cfg.model
-        with on_device(self.d1), torch.inference_mode(), \
-                precision_scope(mcfg.matmul_precision):
-            m = self.stage_b_model
-            out = m.head_outputs(m.neck(feats), concat_preds=False)
-            return decode_task_outputs(out, mcfg, self.cfg.post)
-
-    def _hop(self, feats):
-        """The stage boundary: device 0's maps to device 1."""
-        return tuple(f.to(self.d1, non_blocking=True) for f in feats)
+        params = bind_params(cfg, params, None)
+        self.d0, self.d1 = devs[0], devs[1]
+        self.input_shape = (batch, *(frame_hw or mcfg.input_size), 3)
+        self.program = _StagedPipeline(
+            cfg=cfg, params=_stage(params, True, self.d0),
+            input_shape=self.input_shape, device=self.d0,
+            resize_mode=resize_mode, stage_b=_stage(params, False, self.d1),
+            stage_b_device=self.d1)
+        self.stage_a_model = self.program.params
+        self.stage_b_model = self.program.stage_b
 
     def warmup(self) -> "PipelinedRunner":
         if self.d0.type == "cuda" or self.d1.type == "cuda":
@@ -120,8 +123,8 @@ class PipelinedRunner:
         return self
 
     def __call__(self, frames) -> Dict[str, torch.Tensor]:
-        feats = self.stage_a(_upload(frames, self.d0))
-        return self.stage_b(self._hop(feats))
+        with on_device(self.d0):
+            return self.program.enqueue(_upload(frames, self.d0))
 
     def run_stream(self, frames_iter, max_inflight: int = 2
                    ) -> List[Dict[str, Any]]:

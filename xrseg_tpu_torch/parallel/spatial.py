@@ -38,15 +38,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from xrseg_tpu_torch.compile import _bind_params, decode_task_outputs
+from xrseg_tpu_torch.compile import CompiledPipeline, bind_params
 from xrseg_tpu_torch.config import ExecutorConfig
-from xrseg_tpu_torch.device import to_device
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
-from xrseg_tpu_torch.ops import preprocess as pre_ops
 from xrseg_tpu_torch.parallel.batch import on_device
 from xrseg_tpu_torch.parallel.mesh import Mesh
-from xrseg_tpu_torch.precision import precision_scope
 
 Bands = List[torch.Tensor]
 
@@ -153,6 +150,31 @@ def _neck(mods, x4: Bands, x6: Bands, x10: Bands):
     return x16, x19, x22
 
 
+class _BandedPipeline(CompiledPipeline):
+    """The frame program with the network on row bands: `params` is the
+    list of replicas, one per device of the axis (the first holds the
+    frames, the gathered maps and the decode)."""
+
+    def forward(self, x: torch.Tensor):
+        reps, lead = self.params, self.params[0]
+        names = {id(m): name for name, m in lead.named_modules()}
+
+        def apply(module, bands: Bands) -> torch.Tensor:
+            name = names[id(module)]
+            return _gather(run([r.get_submodule(name) for r in reps],
+                               bands))
+
+        x = lead.to_input(x)
+        rows = x.shape[2] // len(reps)
+        bands = [x[:, :, b * rows:(b + 1) * rows].to(
+            next(r.parameters()).device) for b, r in enumerate(reps)]
+        x4, x6, x10 = _backbone(reps, bands)
+        if self.cfg.model.task == "classify":
+            return lead.cls_head(_gather(x10))
+        return lead.head_outputs(_neck(reps, x4, x6, x10),
+                                 concat_preds=False, apply=apply)
+
+
 def build_spatial_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
                            mesh: Mesh, *, axis: str = "data", batch: int = 1,
                            frame_hw: Optional[Tuple[int, int]] = None,
@@ -163,7 +185,7 @@ def build_spatial_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
     Returns (fn, replicated_params); fn(replicated_params, frames). The
     frames are preprocessed on the first device, then split into bands;
     the decode (K1, or K3 for obb) runs on the first device."""
-    mcfg, pcfg = cfg.model, cfg.post
+    mcfg = cfg.model
     yolo11.refuse_yolo12(mcfg, "spatial parallelism")
     devs = mesh.axis_devices(axis)
     n = len(devs)
@@ -171,38 +193,18 @@ def build_spatial_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
         raise ValueError(
             f"input H {mcfg.input_size[0]} must divide into {n} "
             "shards of multiple-of-32 rows")
-    params = _bind_params(cfg, params, None)
+    params = bind_params(cfg, params, None)
     copies: Dict[str, yolo11.YOLO11] = {}
     for d in devs:
         if str(d) not in copies:
             copies[str(d)] = copy.deepcopy(params).to(d).eval()
     replicas = [copies[str(d)] for d in devs]
-    dtype = getattr(torch, mcfg.dtype)
+    shape = (batch, *(frame_hw or mcfg.input_size), 3)
 
     def fn(reps: List[yolo11.YOLO11], frames) -> Dict[str, torch.Tensor]:
-        lead = reps[0]
-        names = {id(m): name for name, m in lead.named_modules()}
-
-        def apply(module, bands: Bands) -> torch.Tensor:
-            name = names[id(module)]
-            return _gather(run([r.get_submodule(name) for r in reps],
-                               bands))
-
-        with on_device(devs[0]), torch.inference_mode(), \
-                precision_scope(mcfg.matmul_precision):
-            x = pre_ops.preprocess(to_device(frames, devs[0]),
-                                   mcfg.input_size, mode=resize_mode,
-                                   dtype=dtype)
-            x = x.permute(0, 3, 1, 2).to(dtype)
-            rows = x.shape[2] // n
-            bands = [x[:, :, b * rows:(b + 1) * rows].to(d)
-                     for b, d in enumerate(devs)]
-            x4, x6, x10 = _backbone(reps, bands)
-            if mcfg.task == "classify":
-                out = lead.cls_head(_gather(x10))
-            else:
-                out = lead.head_outputs(_neck(reps, x4, x6, x10),
-                                        concat_preds=False, apply=apply)
-            return decode_task_outputs(out, mcfg, pcfg)
+        pipe = _BandedPipeline(cfg=cfg, params=reps, input_shape=shape,
+                               device=devs[0], resize_mode=resize_mode)
+        with on_device(devs[0]):
+            return pipe.enqueue(pipe.upload(frames))
 
     return fn, replicas

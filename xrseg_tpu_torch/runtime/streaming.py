@@ -109,7 +109,7 @@ class StreamingRunner:
                 with tr.detail("upload", fid):
                     x = self.pipeline.upload(frames)
                 with tr.detail("enqueue", fid):
-                    out = self.pipeline(x)
+                    out = self.pipeline.enqueue(x)
             with tr.detail("readback_start", fid):
                 slot = self._slots.next(out["slate"].numel())
                 slot.start(out["slate"])

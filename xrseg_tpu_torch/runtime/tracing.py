@@ -212,14 +212,13 @@ class Tracer:
 
     def interval(self, name: str, t0: float, t1: float, id=None) -> None:
         """Record a stage that was measured, not entered: [t0, t1] on
-        time.perf_counter (a wait that the caller polled)."""
+        time.perf_counter (a wait that the caller polled). While enabled
+        its span goes the way of a section's, its profiler range marking
+        the moment it is recorded."""
         self.stages[name].add(t1 - t0)
-        spans = self._spans
-        if spans is not None and len(spans) < self.MAX_SPANS:
-            parents = self._parents()
-            spans.append([name, id, parents[-1] if parents else None,
-                          int(t0 * 1e9), int(t1 * 1e9),
-                          int((t1 - t0) * 1e9)])
+        if self.enabled:
+            self._close(self._open(name, id), int(t0 * 1e9), int(t1 * 1e9),
+                        int((t1 - t0) * 1e9))
 
     def device_span(self, name: str, id, device: torch.device):
         """Time the device work queued inside the block on the card's

@@ -20,14 +20,14 @@ Emits ONE JSON line: the device, frames_per_s_off and frames_per_s_on
 (one per window), "traced" (per enabled window: queued_batches =
 queued_at_submit / batches_submitted; <span>_ms = the mean self time of
 each span a batch; batch_device_ms and its p95 on the card's clock;
-spans and device spans a batch), conv_epilogue_launches_per_batch
-(per window: the hand-written conv epilogue's launches a batch, which
-is the model's conv count when the batch goes through the kernel, and 0
-on the CPU), conv_epilogue_channels_last_per_batch (per window: those of
-them on a channels-last output, all of them on the card), and
-area_attention_calls_per_batch (per window: the fused
-attention calls a batch by SDPA backend, 16 a YOLO12x batch and none of
-them "MATH"; empty for YOLO11, YOLOv8 and on the CPU).
+spans and device spans a batch), and per window, from ops/launches:
+conv_epilogue_launches_per_batch (the hand-written conv epilogue's
+launches a batch, which is the model's conv count when the batch goes
+through the kernel, and 0 on the CPU),
+conv_epilogue_channels_last_per_batch (those of them on a channels-last
+output, all of them on the card) and area_attention_calls_per_batch (the
+fused attention calls a batch: 16 a YOLO12x batch, 0 for YOLO11, YOLOv8
+and on the CPU).
 """
 from __future__ import annotations
 
@@ -63,8 +63,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from xrseg_tpu_torch.compile import build_pipeline
     from xrseg_tpu_torch.config import TEST_PRESET, ExecutorConfig, ModelConfig
-    from xrseg_tpu_torch.ops.attention import area_attention_cuda
-    from xrseg_tpu_torch.ops.conv_epilogue import conv_epilogue_cuda
+    from xrseg_tpu_torch.ops import launches
     from xrseg_tpu_torch.runtime.streaming import StreamingRunner
     from xrseg_tpu_torch.testing import detection_params
 
@@ -94,16 +93,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             [False, True] * (args.rounds % 2):
         tracer.reset()
         tracer.enable(on)
-        launches = conv_epilogue_cuda.launches
-        launches_cl = conv_epilogue_cuda.launches_channels_last
-        calls = dict(area_attention_cuda.by_backend)
+        launches.reset()
         rate, n = window(runner, batches, args.seconds)
         fps[on].append(rate)
-        epilogues.append((conv_epilogue_cuda.launches - launches) / n)
-        epilogues_cl.append(
-            (conv_epilogue_cuda.launches_channels_last - launches_cl) / n)
-        attention.append({k: (v - calls.get(k, 0)) / n for k, v in
-                          area_attention_cuda.by_backend.items()})
+        counts = launches.read()
+        epilogues.append(counts["conv_epilogue_cuda"] / n)
+        epilogues_cl.append(counts["conv_epilogue_cuda", "channels_last"] / n)
+        attention.append(counts["area_attention_cuda"] / n)
         if on:
             traced.append(readings(tracer.export()))
         tracer.enable(False)
