@@ -94,7 +94,8 @@ Run from the root of a checkout. Phases, each printed as it finishes:
      server must answer again after it.
    - StreamingRunner at depth 1, 2, 3 over 64 b=1 frames and 32 b=8
      batches: every result equal to the direct call, in FIFO order;
-     frames/s per depth.
+     frames/s per depth; every batch staged through the pipeline's pinned
+     ring once (`upload_staged`), printed with `slot_wait`.
    - PipelinedTickRunner at depth 1, 2, 3 over 60 tracked ticks: depth 1
      equal to the sequential fused executor (box and points), every depth
      locked on every tick; tick p50/p95 per depth.
@@ -1832,8 +1833,12 @@ def phase_streaming(pipes, frames) -> tuple:
                 fps = n * B / (time.perf_counter() - t0)
             counts = read_counters()
             add_counts(launches, counts)
+            staged = launch_counts.read()
             check(counts[K1["name"]] == n, f"stream b={B} depth {depth}: "
                   f"K1 launched {counts[K1['name']]} times over {n} batches")
+            check(staged["upload_staged"] == n, f"stream b={B} depth "
+                  f"{depth}: {staged['upload_staged']} staged uploads over "
+                  f"{n} batches")
             check([r.frame_id for r in results] == list(range(n)),
                   f"stream b={B} depth {depth}: results out of order")
             for r in results:
@@ -1846,7 +1851,9 @@ def phase_streaming(pipes, frames) -> tuple:
             out[B, depth] = fps
             print(f"stream: StreamingRunner b={B} depth {depth}: {n} "
                   f"batches equal to direct calls in FIFO order, {fps:.1f} "
-                  f"frames/s on {name}", flush=True)
+                  f"frames/s on {name}; upload_staged "
+                  f"{staged['upload_staged']}, slot_wait "
+                  f"{staged['upload_staged', 'slot_wait']}", flush=True)
     return out, launches
 
 

@@ -30,11 +30,18 @@ kernels inside as custom ops) with its converter CLI,
 
 which writes an ultralytics-contract .onnx instead for an .onnx --out.
 
-Every pipeline owns a `device.Readback` (one pinned host buffer, one copy
-stream) of its slate's or packed output's length; the executor starts it
-at dispatch and polls it. It holds one frame; the streaming runners,
-which keep several frames of one pipeline in flight, take a slot per
-frame from `runtime/streaming.ReadbackSlots` of their own.
+A frame's two copies each leave the compute stream for a copy stream of
+their own (`device.py`). On the way in, `CompiledPipeline.upload` stages
+host frames for a card through the pipeline's `device.Upload` (a ring of
+pinned slots; the compute stream waits on the slot's event, the host
+never waits on the card), the one way every runner's batch reaches the
+program. On the way out, every pipeline owns a `device.Readback` (one
+pinned host buffer, one copy stream) of its slate's or packed output's
+length; the executor starts it at dispatch and polls it. It holds one
+frame; the streaming runners, which keep several frames of one pipeline
+in flight, take a slot per frame from `runtime/streaming.ReadbackSlots`
+of their own. The fused XR tick uploads its three inputs with
+`to_device`.
 """
 from __future__ import annotations
 
@@ -49,7 +56,8 @@ import torch
 
 from xrseg_tpu_torch import _build
 from xrseg_tpu_torch.config import ExecutorConfig, ModelConfig, PostprocessConfig
-from xrseg_tpu_torch.device import Readback, resolve_device, to_device
+from xrseg_tpu_torch.device import (Readback, Upload, on_host,
+                                    resolve_device, to_device)
 from xrseg_tpu_torch.io.onnx_export import export_onnx
 from xrseg_tpu_torch.io.weights import cast_params, load_params_auto
 from xrseg_tpu_torch.models import yolo11
@@ -82,6 +90,7 @@ class CompiledPipeline:
     readback: Optional[Readback] = None     # of the [B, L] slate
     input_format: str = "rgb"
     mask_display_hw: Optional[Tuple[int, int]] = None
+    staging: Optional[Upload] = None        # host frames' way to the card
 
     def __call__(self, frames) -> Dict[str, torch.Tensor]:
         """frames: uint8 [B,H,W,3], or with input_format="yuv420" a tuple
@@ -91,10 +100,20 @@ class CompiledPipeline:
 
     def upload(self, frames):
         """`frames`, as `__call__` takes them, on the device in the form
-        `enqueue` takes; a pageable copy of what is not there yet."""
-        if self.input_format == "yuv420":
-            return tuple(to_device(p, self.device) for p in frames)
-        return to_device(frames, self.device)
+        `enqueue` takes. Host frames for a card go through `staging`
+        (made at the first such call, the warmup's): pinned, on a copy
+        stream of their own, the compute stream waiting on the copy.
+        Frames already on the device pass through; a CPU pipeline copies
+        with `to_device`."""
+        planes = tuple(frames) if self.input_format == "yuv420" \
+            else (frames,)
+        if self.device.type == "cuda" and all(map(on_host, planes)):
+            if self.staging is None:
+                self.staging = Upload(self.device)
+            planes = self.staging.put(planes)
+        else:
+            planes = tuple(to_device(p, self.device) for p in planes)
+        return planes if self.input_format == "yuv420" else planes[0]
 
     def enqueue(self, frames) -> Dict[str, torch.Tensor]:
         """`run` on what `upload` returned, under inference mode and the

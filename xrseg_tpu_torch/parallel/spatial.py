@@ -40,6 +40,7 @@ from torch import nn
 
 from xrseg_tpu_torch.compile import CompiledPipeline, bind_params
 from xrseg_tpu_torch.config import ExecutorConfig
+from xrseg_tpu_torch.device import Upload
 from xrseg_tpu_torch.models import layers as L
 from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.parallel.batch import on_device
@@ -200,10 +201,12 @@ def build_spatial_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
             copies[str(d)] = copy.deepcopy(params).to(d).eval()
     replicas = [copies[str(d)] for d in devs]
     shape = (batch, *(frame_hw or mcfg.input_size), 3)
+    staging = Upload(devs[0])        # one ring for every call's pipeline
 
     def fn(reps: List[yolo11.YOLO11], frames) -> Dict[str, torch.Tensor]:
         pipe = _BandedPipeline(cfg=cfg, params=reps, input_shape=shape,
-                               device=devs[0], resize_mode=resize_mode)
+                               device=devs[0], resize_mode=resize_mode,
+                               staging=staging)
         with on_device(devs[0]):
             return pipe.enqueue(pipe.upload(frames))
 

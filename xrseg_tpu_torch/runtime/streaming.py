@@ -104,8 +104,9 @@ class StreamingRunner:
                      sum(not slot.computed() for *_, slot in self._inflight))
         with tr.section("dispatch", fid):
             with tr.device_span("batch_device", fid, self.pipeline.device):
-                # the upload (pageable: it may wait for the card), then
-                # the program's launches on frames already there
+                # the upload (staged on a copy stream: the host waits
+                # only for its own copy into the pinned slot), then the
+                # program's launches on frames already there
                 with tr.detail("upload", fid):
                     x = self.pipeline.upload(frames)
                 with tr.detail("enqueue", fid):

@@ -27,7 +27,10 @@ through the kernel, and 0 on the CPU),
 conv_epilogue_channels_last_per_batch (those of them on a channels-last
 output, all of them on the card) and area_attention_calls_per_batch (the
 fused attention calls a batch: 16 a YOLO12x batch, 0 for YOLO11, YOLOv8
-and on the CPU).
+and on the CPU), upload_staged_per_batch (the batches staged through the
+pipeline's pinned ring, `device.Upload`: 1 on the card, 0 on the CPU) and
+slot_waits (the staged batches that waited for their slot's earlier copy
+to land).
 """
 from __future__ import annotations
 
@@ -89,6 +92,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     fps = {False: [], True: []}
     traced, epilogues, epilogues_cl, attention = [], [], [], []
+    staged, slot_waits = [], []
     for on in [False, True, True, False] * (args.rounds // 2) + \
             [False, True] * (args.rounds % 2):
         tracer.reset()
@@ -100,6 +104,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         epilogues.append(counts["conv_epilogue_cuda"] / n)
         epilogues_cl.append(counts["conv_epilogue_cuda", "channels_last"] / n)
         attention.append(counts["area_attention_cuda"] / n)
+        staged.append(counts["upload_staged"] / n)
+        slot_waits.append(counts["upload_staged", "slot_wait"])
         if on:
             traced.append(readings(tracer.export()))
         tracer.enable(False)
@@ -112,7 +118,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
            "arch": args.arch, "traced": traced,
            "conv_epilogue_launches_per_batch": epilogues,
            "conv_epilogue_channels_last_per_batch": epilogues_cl,
-           "area_attention_calls_per_batch": attention}
+           "area_attention_calls_per_batch": attention,
+           "upload_staged_per_batch": staged, "slot_waits": slot_waits}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
