@@ -258,10 +258,26 @@ PORT_ONLY = {
                          ("models/layers.py", "ABlock"),
                          ("models/layers.py", "A2C2f"),
                          ("models/yolo11.py", "YOLO12_SCALES"),
-                         ("models/yolo11.py", "refuse_yolo12"),
+                         ("models/yolo11.py", "refuse_arch"),
                          ("ops/attention.py", "area_attention"),
                          ("ops/attention.py", "area_attention_cuda"),
                          ("ops/attention.py", "area_attention_torch"))},
+    **{(mod, name): "no JAX counterpart: Segment Anything exists only in "
+       "the port"
+       for mod, name in (("compile.py", "SAMPipeline"),
+                         ("models/layers.py", "LayerNorm2d"),
+                         ("models/yolo11.py", "ARCH_PATHS"),
+                         ("ops/attention.py", "relpos_attention"),
+                         ("ops/attention.py", "relpos_attention_cuda"),
+                         ("ops/attention.py", "relpos_attention_torch"),
+                         ("ops/attention.py", "get_rel_pos"),
+                         ("ops/attention.py", "window_partition"),
+                         ("ops/attention.py", "window_unpartition"),
+                         ("ops/attention.py", "attend"),
+                         ("ops/masks.py", "sam_postprocess_masks"),
+                         ("ops/preprocess.py", "sam_input_hw"),
+                         ("ops/preprocess.py", "sam_preprocess"),
+                         ("ops/preprocess.py", "sam_boxes"))},
 }
 
 

@@ -30,6 +30,11 @@ kernels inside as custom ops) with its converter CLI,
 
 which writes an ultralytics-contract .onnx instead for an .onnx --out.
 
+For arch "sam" (Segment Anything, models/sam.py) `build_pipeline` returns
+a SAMPipeline: frames and their box prompts in, a mask, an IoU and the
+low-resolution logits for each box out, packed as bytes into one row a
+frame for its readback (no NMS and no slate).
+
 A frame's two copies each leave the compute stream for a copy stream of
 their own (`device.py`). On the way in, `CompiledPipeline.upload` stages
 host frames for a card through the pipeline's `device.Upload` (a ring of
@@ -60,7 +65,7 @@ from xrseg_tpu_torch.device import (Readback, Upload, on_host,
                                     resolve_device, to_device)
 from xrseg_tpu_torch.io.onnx_export import export_onnx
 from xrseg_tpu_torch.io.weights import cast_params, load_params_auto
-from xrseg_tpu_torch.models import yolo11
+from xrseg_tpu_torch.models import sam, yolo11
 from xrseg_tpu_torch.ops import depth_fusion as df
 from xrseg_tpu_torch.ops import preprocess as pre_ops
 from xrseg_tpu_torch.ops import masks as mask_ops
@@ -105,15 +110,18 @@ class CompiledPipeline:
         stream of their own, the compute stream waiting on the copy.
         Frames already on the device pass through; a CPU pipeline copies
         with `to_device`."""
-        planes = tuple(frames) if self.input_format == "yuv420" \
-            else (frames,)
+        if self.input_format == "yuv420":
+            return self._stage(tuple(frames))
+        return self._stage((frames,))[0]
+
+    def _stage(self, planes: tuple) -> tuple:
+        """`upload`'s copy of each plane: through `staging` for host
+        planes and a card, else as they lie or with `to_device`."""
         if self.device.type == "cuda" and all(map(on_host, planes)):
             if self.staging is None:
                 self.staging = Upload(self.device)
-            planes = self.staging.put(planes)
-        else:
-            planes = tuple(to_device(p, self.device) for p in planes)
-        return planes if self.input_format == "yuv420" else planes[0]
+            return self.staging.put(planes)
+        return tuple(to_device(p, self.device) for p in planes)
 
     def enqueue(self, frames) -> Dict[str, torch.Tensor]:
         """`run` on what `upload` returned, under inference mode and the
@@ -149,6 +157,20 @@ class CompiledPipeline:
             mask_dtype=self.mask_dtype, emit_masks=self.emit_masks,
             mask_display_hw=self.mask_display_hw)
 
+    def unpack_rows(self, rows: np.ndarray, out) -> Dict[str, Any]:
+        """The batch's slate rows, read back to the host ([B, L], a view of
+        a readback buffer), as copies: each frame's unpack_slate, or its
+        prob row for classify; a dict of per-frame lists for B > 1."""
+        boxes = out.get("boxes_xywhr", out.get("boxes_xywh"))
+        if boxes is None:    # classify: the slate IS the prob row
+            slates = [{"probs": np.array(row)} for row in rows]
+        else:
+            max_det, box_dim = boxes.shape[1], boxes.shape[2]
+            slates = [unpack_slate(row, max_det, box_dim=box_dim)
+                      for row in rows]
+        return slates[0] if len(slates) == 1 else {
+            k: [s[k] for s in slates] for k in slates[0]}
+
     def dummy_input(self):
         """Zero frames of the pipeline's geometry and input format."""
         B, H, W, _ = self.input_shape
@@ -180,9 +202,14 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
                    tta: bool = False,
                    tta_kpt_flip_idx: Optional[Sequence[int]] = None,
                    tta_views: Optional[Sequence[Tuple[float, bool]]] = None,
+                   prompts_per_frame: Optional[int] = None,
                    device="cuda") -> CompiledPipeline:
     """Bind `params` (a YOLO11 module, moved to `device`) into a pipeline
     for frames [batch, frame_h, frame_w, 3] uint8.
+
+    For arch "sam" `params` is a models.sam.SAM and the pipeline a
+    SAMPipeline: its input is the frames and `prompts_per_frame` boxes a
+    frame; none of the options below applies to it.
 
     input_format="yuv420" takes planar camera frames instead, a tuple
     (y [B,H,W], u [B,H/2,W/2], v [B,H/2,W/2]) of uint8 planes, converted
@@ -208,9 +235,21 @@ def build_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     anchor axis (A -> V*A) before one NMS call. Segment survivors
     synthesize their masks against the protos of their own view (flipped
     protos flipped back). The validations are the JAX package's."""
-    check_output_options(emit_masks, mask_display_hw, input_format)
     if tta:
         _check_tta(cfg.model, emit_masks, tta_kpt_flip_idx, tta_views)
+    if cfg.model.arch == "sam" or prompts_per_frame is not None:
+        given = {"resize_mode": resize_mode != "stretch",
+                 "crop_masks": crop_masks,
+                 "mask_dtype": mask_dtype != "float32",
+                 "input_format": input_format != "rgb",
+                 "params_dtype": params_dtype is not None,
+                 "emit_masks": emit_masks != "all",
+                 "mask_display_hw": mask_display_hw is not None}
+        return _build_sam_pipeline(
+            cfg, params, frame_hw=frame_hw, batch=batch,
+            prompts_per_frame=prompts_per_frame, device=device,
+            refused=[k for k, v in given.items() if v])
+    check_output_options(emit_masks, mask_display_hw, input_format)
     _check_merge(cfg.post)
     params = bind_params(cfg, params, params_dtype)
     dev = resolve_device(device)
@@ -248,7 +287,7 @@ def _check_tta(mcfg: ModelConfig, emit_masks: str, kpt_flip_idx,
                views) -> None:
     """build_pipeline(tta=True)'s checks, word for word the JAX
     package's."""
-    yolo11.refuse_yolo12(mcfg, "test-time augmentation")
+    yolo11.refuse_arch(mcfg, "test-time augmentation")
     if mcfg.task == "classify":
         raise ValueError("tta unsupported for task 'classify'"
                          " (nothing to merge pre-NMS)")
@@ -443,6 +482,7 @@ def build_ensemble_pipeline(cfg: ExecutorConfig, params_list,
     Segment masks stay exact per member: each survivor synthesizes against
     its own member's protos (indices // A), as TTA does per view."""
     mcfg = cfg.model
+    yolo11.refuse_arch(mcfg, "the model ensemble", ("sam",))
     model_cfgs = list(model_cfgs or [mcfg] * len(params_list))
     if len(model_cfgs) != len(params_list) or not params_list:
         raise ValueError("params_list and model_cfgs must be equal-length"
@@ -469,6 +509,127 @@ def build_ensemble_pipeline(cfg: ExecutorConfig, params_list,
         resize_mode=resize_mode, crop_masks=crop_masks,
         mask_dtype=getattr(torch, mask_dtype),
         readback=Readback(B * slate_length(cfg.post.max_detections), dev))
+
+
+@dataclasses.dataclass(kw_only=True)
+class SAMPipeline(CompiledPipeline):
+    """Segment Anything, box-prompted, as one frame program: frames and
+    boxes -> a mask, an IoU and the low-resolution logits for each box.
+
+    Its input is a tuple (frames uint8 [B, H, W, 3], boxes [B, P, 4] xyxy
+    in frame pixels), staged through `device.Upload` as two planes. `run`
+    is preprocess (ops/preprocess.sam_preprocess, sam_boxes) -> the image
+    encoder -> the prompt encoder and the mask decoder -> the masks at the
+    frame's size (ops/masks.sam_postprocess_masks); the last three inside a
+    profiler range `xrseg.sam_decoder` while a profiler records. No NMS and
+    no slate: the output holds masks uint8 [B, P, H, W] (logit > 0), iou
+    [B, P] float32 and low_res_logits [B, P, 4g, 4g] float32 (mask 0 and
+    IoU 0 of the four), and `slate`, the three packed as bytes into one
+    row a frame ([B, row_bytes] uint8: iou | logits | masks), the one copy
+    `readback` (a uint8 Readback) takes to the host; `unpack_rows` splits
+    it back."""
+    prompts: int
+
+    @property
+    def spec(self):
+        return self.params.spec
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of one frame's packed row."""
+        P, (H, W), lr = self.prompts, self.input_shape[1:3], \
+            self.spec.low_res
+        return P * 4 + P * lr * lr * 4 + P * H * W
+
+    def upload(self, frames):
+        """(frames, boxes) on the device, staged as two planes."""
+        return self._stage(tuple(frames))
+
+    def run(self, frames: torch.Tensor, boxes: torch.Tensor
+            ) -> Dict[str, torch.Tensor]:
+        x, b = self.preprocess(frames, boxes)
+        emb = self.params.encode(x)
+        with sam.profiler_range("xrseg.sam_decoder"):
+            return self.decode(self.params.decode(emb, b))
+
+    def preprocess(self, frames: torch.Tensor, boxes: torch.Tensor):
+        """The encoder's input [B, S, S, 3] (compute dtype) and the boxes
+        in its pixels."""
+        S = self.spec.img_size
+        x = pre_ops.sam_preprocess(frames, S, sam.PIXEL_MEAN, sam.PIXEL_STD,
+                                   self.params.dtype)
+        return x, pre_ops.sam_boxes(boxes, tuple(frames.shape[1:3]), S)
+
+    def decode(self, out) -> Dict[str, torch.Tensor]:
+        """The decoder's four masks and IoUs -> mask 0 at the frame's
+        size, its IoU and logits, and the packed rows."""
+        B, P = out["iou"].shape[:2]
+        hw, S = tuple(self.input_shape[1:3]), self.spec.img_size
+        low = out["masks"][:, :, 0].float()
+        iou = out["iou"][:, :, 0].contiguous()
+        masks = (mask_ops.sam_postprocess_masks(
+            low, pre_ops.sam_input_hw(hw, S), hw, S) > 0).to(torch.uint8)
+        slate = torch.cat([iou.view(torch.uint8).reshape(B, -1),
+                           low.view(torch.uint8).reshape(B, -1),
+                           masks.reshape(B, -1)], 1)
+        return {"masks": masks, "iou": iou, "low_res_logits": low,
+                "slate": slate}
+
+    def unpack_rows(self, rows: np.ndarray, out) -> Dict[str, Any]:
+        """The packed rows [B, row_bytes] -> copies: iou [B, P] and
+        low_res_logits [B, P, 4g, 4g] float32, masks [B, P, H, W] uint8."""
+        B, P, lr = rows.shape[0], self.prompts, self.spec.low_res
+        a, b = P * 4, P * 4 + P * lr * lr * 4
+        return {"iou": np.array(rows[:, :a]).view(np.float32).reshape(B, P),
+                "low_res_logits": np.array(rows[:, a:b]).view(
+                    np.float32).reshape(B, P, lr, lr),
+                "masks": np.array(rows[:, b:]).reshape(
+                    B, P, *self.input_shape[1:3])}
+
+    def dummy_input(self):
+        """Zero frames, each box the whole frame."""
+        B, H, W, _ = self.input_shape
+        boxes = np.tile(np.array([0, 0, W, H], np.float32),
+                        (B, self.prompts, 1))
+        return np.zeros(self.input_shape, np.uint8), boxes
+
+    def warmup(self) -> "SAMPipeline":
+        """Run one dummy batch and read its rows back (SAM launches no
+        kernel of this repository, so nothing is built)."""
+        self(self.dummy_input())["slate"].cpu()
+        return self
+
+
+def _build_sam_pipeline(cfg: ExecutorConfig, params, *,
+                       frame_hw: Optional[Tuple[int, int]] = None,
+                       batch: Optional[int] = None,
+                       prompts_per_frame: Optional[int] = None,
+                       device="cuda", refused=()) -> SAMPipeline:
+    """build_pipeline for arch "sam": `params` a models.sam.SAM built for
+    cfg.model, frames [batch, *frame_hw, 3] with prompts_per_frame boxes
+    each. `refused` names build_pipeline options that were given: SAM has
+    none of them."""
+    if cfg.model.arch != "sam":
+        raise ValueError(f"prompts_per_frame is for arch 'sam', not "
+                         f"{cfg.model.arch!r}")
+    if refused:
+        raise ValueError(f"arch 'sam' takes none of the options "
+                         f"{sorted(refused)}")
+    if not prompts_per_frame or prompts_per_frame < 1:
+        raise ValueError("arch 'sam' needs prompts_per_frame >= 1 (the "
+                         "boxes a frame)")
+    if not isinstance(params, sam.SAM):
+        raise TypeError("arch 'sam' needs a models.sam.SAM")
+    if params.cfg != cfg.model:
+        raise ValueError("params were built for another ModelConfig")
+    dev = resolve_device(device)
+    B = batch or cfg.batch_size
+    fh, fw = frame_hw or cfg.model.input_size
+    pipe = SAMPipeline(cfg=cfg, params=params.to(dev).eval(),
+                       input_shape=(B, fh, fw, 3), device=dev,
+                       prompts=int(prompts_per_frame))
+    pipe.readback = Readback(B * pipe.row_bytes, dev, torch.uint8)
+    return pipe
 
 
 def bind_params(cfg: ExecutorConfig, params, params_dtype
@@ -712,7 +873,7 @@ def build_xr_tick_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11, *,
     storage, as in build_pipeline.
     """
     mcfg = cfg.model
-    yolo11.refuse_yolo12(mcfg, "the XR tick")
+    yolo11.refuse_arch(mcfg, "the XR tick")
     if mcfg.task != "segment":
         raise ValueError(f"fused_tick requires task='segment', "
                          f"got {mcfg.task!r}")

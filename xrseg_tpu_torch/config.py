@@ -14,13 +14,15 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """YOLO11 family model configuration (arch "yolo12", the port's own,
-    runs the segment and detect tasks only).
+    runs the segment and detect tasks only; arch "sam", also the port's
+    own, is Segment Anything at scale b, l or h, box-prompted, at a square
+    input_size of 1024: models/sam.py).
 
     Reference contract: 640x640 input, 80 COCO classes, 32 mask
     prototypes at 160x160.
     """
     scale: str = "n"                 # one of n / s / m / l / x
-    arch: str = "yolo11"             # "yolo11" | "yolov8" | "yolo12"
+    arch: str = "yolo11"             # "yolo11" | "yolov8" | "yolo12" | "sam"
     num_classes: int = 80
     num_masks: int = 32              # mask coefficients (segmentation only)
     reg_max: int = 16                # DFL bins per box side

@@ -149,15 +149,16 @@ def _fill(buf: torch.Tensor, src) -> None:
 
 
 class Readback:
-    """One flat float32 output's way to the host without blocking it.
+    """One flat output's way to the host without blocking it.
 
-    On a card it owns a pinned host buffer of `numel` floats and a copy
-    stream. `start(out)` is called once the frame's last op is queued: the
-    copy stream waits for the compute stream's work so far, then copies
-    `out` into the buffer. `computed()` and `copied()` poll the two events
-    and never block; `wait()` blocks until the copy has landed. `host()` is
-    a view of the buffer that the next `start` overwrites, so a caller
-    copies what it keeps.
+    On a card it owns a pinned host buffer of `numel` elements of `dtype`
+    (float32 unless asked: a slate; SAM's packed rows are bytes) and a
+    copy stream. `start(out)` is called once the frame's last op is
+    queued: the copy stream waits for the compute stream's work so far,
+    then copies `out` into the buffer. `computed()` and `copied()` poll the
+    two events and never block; `wait()` blocks until the copy has landed.
+    `host()` is a view of the buffer that the next `start` overwrites, so
+    a caller copies what it keeps.
 
     A slot holds one frame: from `start` until `host()` (or `release()`,
     for a frame that is dropped) the copy is held, and a second `start`
@@ -167,26 +168,26 @@ class Readback:
     are true.
     """
 
-    def __init__(self, numel: int, dev: torch.device):
+    def __init__(self, numel: int, dev: torch.device,
+                 dtype: torch.dtype = torch.float32):
         self.held = False        # a started copy that host() has not taken
         on_card = dev.type == "cuda"
         if on_card and dev.index is None:      # "cuda" -> the current card
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
-        self.buffer = torch.empty(numel, dtype=torch.float32,
-                                  pin_memory=on_card)
+        self.buffer = torch.empty(numel, dtype=dtype, pin_memory=on_card)
         self.stream = torch.cuda.Stream(dev) if on_card else None
         self._computed = torch.cuda.Event() if on_card else None
         self._copied = torch.cuda.Event() if on_card else None
 
     def start(self, out: torch.Tensor) -> None:
         flat = out.detach().reshape(-1)
-        if flat.shape != self.buffer.shape or flat.dtype != torch.float32 \
-                or flat.device != self.device:
+        if flat.shape != self.buffer.shape or flat.dtype != \
+                self.buffer.dtype or flat.device != self.device:
             raise ValueError(
                 f"readback of {tuple(out.shape)} {out.dtype} on {out.device} "
-                f"into a buffer of {self.buffer.numel()} float32 for "
-                f"{self.device}")
+                f"into a buffer of {self.buffer.numel()} {self.buffer.dtype} "
+                f"for {self.device}")
         if self.held:
             raise RuntimeError(
                 "readback slot still holds a frame that host() has not "

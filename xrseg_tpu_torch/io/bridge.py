@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from xrseg_tpu_torch.config import ModelConfig
-from xrseg_tpu_torch.models.yolo11 import (YOLO11, refuse_yolo12,
+from xrseg_tpu_torch.models.yolo11 import (YOLO11, refuse_arch,
                                            yolo11_for_state)
 
 _LEAVES = {"w": ("weight", (3, 2, 0, 1)), "b": ("bias", None),
@@ -72,5 +72,5 @@ def params_from_jax(tree: Any, cfg: ModelConfig) -> YOLO11:
     computing the same function. Every parameter must be present and no
     extra one may be (strict load). Class branches take the tree's width
     (models/yolo11.yolo11_for_state: a transferred checkpoint's)."""
-    refuse_yolo12(cfg, "the JAX bridge")
+    refuse_arch(cfg, "the JAX bridge")
     return yolo11_for_state(cfg, state_dict_from_jax(tree))

@@ -27,7 +27,7 @@ import numpy as np
 
 from xrseg_tpu_torch.io.weights import params_to_tree
 from xrseg_tpu_torch.models.yolo11 import (YOLO11, Spec, make_anchors,
-                                           refuse_yolo12)
+                                           refuse_arch)
 from xrseg_tpu_torch.viz.labels import COCO_LABELS
 
 # ---------------------------------------------------------------------------
@@ -312,11 +312,11 @@ def export_onnx(params, cfg, path: str,
     the weighted-op order follows ordered_param_slots, classify's linear
     head rides the Gemm node.)
     """
+    refuse_arch(cfg, "ONNX export")
     if isinstance(params, YOLO11):
         params = params_to_tree(params)
     Spec(cfg)                                  # validates cfg
     H, W = cfg.input_size
-    refuse_yolo12(cfg, "ONNX export")
     g = _G()
     x0 = "images"
 

@@ -17,7 +17,7 @@ import torch
 
 from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.io.torch_pt import load_state, seed_o2o
-from xrseg_tpu_torch.models.yolo11 import YOLO11, Spec, refuse_yolo12
+from xrseg_tpu_torch.models.yolo11 import YOLO11, Spec, refuse_arch
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +193,7 @@ def ordered_param_slots(cfg: ModelConfig):
     "convtranspose", "gemm" (the classify head's linear layer) and "dfl"
     (the fixed arange conv, which the port's decode has no parameter for).
     """
-    refuse_yolo12(cfg, "the ONNX and .sentis slot mapping")
+    refuse_arch(cfg, "the ONNX and .sentis slot mapping")
     s = Spec(cfg)
     slots = []
 

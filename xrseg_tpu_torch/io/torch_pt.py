@@ -38,7 +38,7 @@ import torch
 from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.models.yolo11 import (YOLO11, YOLO11_SCALES,
                                            YOLOV8_SCALES, Spec,
-                                           make_divisible, refuse_yolo12)
+                                           make_divisible, refuse_arch)
 
 # ultralytics nn.BatchNorm2d eps (modules/conv.py Conv.__init__)
 ULTRALYTICS_BN_EPS = 1e-3
@@ -59,7 +59,7 @@ def ultralytics_slots(cfg: ModelConfig) -> List[Tuple[Tuple, str, str]]:
           'dfl'    the fixed arange conv    (validated, not loaded)
 
     Module indices follow the ultralytics yolo11*/yolov8* yamls."""
-    refuse_yolo12(cfg, "the ultralytics .pt mapping")
+    refuse_arch(cfg, "the ultralytics .pt mapping")
     s = Spec(cfg)
     v8 = s.arch == "yolov8"
     out: List[Tuple[Tuple, str, str]] = []

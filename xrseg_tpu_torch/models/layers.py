@@ -1,6 +1,7 @@
 """YOLO11 building blocks as torch modules (counterpart of
 xrseg_tpu/models/layers.py), and YOLO12's area-attention blocks (AAttn,
-ABlock, A2C2f), which exist only in the port.
+ABlock, A2C2f) and Segment Anything's LayerNorm2d, which exist only in
+the port.
 
 Activations are [B, C, H, W] inside the network; the model's public
 functions keep the JAX package's NHWC layout. Every activation and every
@@ -436,6 +437,26 @@ class Proto(nn.Module):
         with torch.no_grad():
             _uniform_(self.up_w, -bound, bound, gen)
             self.up_b.zero_()
+
+
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channels of a [B, C, H, W] map at each pixel
+    (Segment Anything's LayerNorm2d): weight * (x - mean) / sqrt(var +
+    eps) + bias, the statistics in float32 and the result in x's dtype.
+    The map is normed as its NHWC view, which is dense for a channels-last
+    map, and comes back in x's layout."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],),
+                         self.weight.to(x.dtype), self.bias.to(x.dtype),
+                         self.eps)
+        return y.permute(0, 3, 1, 2)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

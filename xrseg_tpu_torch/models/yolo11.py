@@ -31,7 +31,8 @@ Both archs of the JAX package ("yolo11", "yolov8") and every task of
 it ("segment", "detect", "obb", "pose", "classify") are ported. The port
 adds "yolo12" (Ultralytics yolo12-seg.yaml: area attention in A2C2f
 blocks at P4 and P5), for the segment and detect tasks only; the JAX
-package has no twin of it.
+package has no twin of it. Its arch "sam" (Segment Anything) is another
+network, models/sam.py.
 """
 from __future__ import annotations
 
@@ -95,6 +96,10 @@ def check_supported(cfg: ModelConfig) -> None:
     with a task other than segment and detect. The port also builds
     yolo12 (YOLO12_SCALES), which the JAX package has not; the message for
     an unknown arch stays the JAX package's."""
+    if cfg.arch == "sam":
+        raise ValueError("arch 'sam' is models.sam.SAM (a ViT image encoder "
+                         "and a box-prompted mask decoder), not a YOLO "
+                         "network")
     if cfg.arch not in SCALES:
         raise ValueError(
             f"Unknown arch {cfg.arch!r}; expected 'yolo11' or 'yolov8'")
@@ -110,14 +115,22 @@ def check_supported(cfg: ModelConfig) -> None:
             f"o2o (NMS-free) supports detect/segment, not {cfg.task}")
 
 
-def refuse_yolo12(cfg: ModelConfig, path: str) -> None:
+# what each arch beyond the YOLO11/YOLOv8 layers runs through, for refuse_arch
+ARCH_PATHS = {
+    "yolo12": "build_pipeline and StreamingRunner, segment and detect",
+    "sam": "build_pipeline and StreamingRunner, with box prompts",
+}
+
+
+def refuse_arch(cfg: ModelConfig, path: str,
+                archs: Tuple[str, ...] = ("yolo12", "sam")) -> None:
     """Raise for a path that knows only the YOLO11 and YOLOv8 layers (a
-    weight format, a parallel layout, a pipeline variant) when cfg is a
-    yolo12: it would build, load or split the wrong network."""
-    if cfg.arch == "yolo12":
-        raise ValueError(f"{path} does not support arch 'yolo12' (it runs "
-                         "build_pipeline and StreamingRunner, segment and "
-                         "detect)")
+    weight format, a parallel layout, a pipeline variant) when cfg is one
+    of `archs` (yolo12 and sam; a path that runs YOLO12 names sam alone):
+    it would build, load or split the wrong network."""
+    if cfg.arch in archs:
+        raise ValueError(f"{path} does not support arch {cfg.arch!r} (it "
+                         f"runs {ARCH_PATHS[cfg.arch]})")
 
 
 class Spec:

@@ -56,6 +56,23 @@ def upsample_masks(masks: torch.Tensor, out_hw) -> torch.Tensor:
     return y.reshape(*masks.shape[:-2], oh, ow)
 
 
+def sam_postprocess_masks(masks: torch.Tensor, input_hw, frame_hw,
+                          size: int) -> torch.Tensor:
+    """Segment Anything's low-resolution logits [..., h, w] -> logits at
+    the frame's size [..., H, W], float32 (SAM's postprocess_masks): a
+    bilinear resize to the padded input (size x size), the crop to the
+    resized frame (input_hw), a bilinear resize to frame_hw; half-pixel
+    centres, no antialiasing (both resizes enlarge). A mask is the logit
+    above 0."""
+    h, w = masks.shape[-2:]
+    x = F.interpolate(masks.float().reshape(-1, 1, h, w), size=(size, size),
+                      mode="bilinear", align_corners=False)
+    x = x[..., :input_hw[0], :input_hw[1]]
+    x = F.interpolate(x, size=tuple(frame_hw), mode="bilinear",
+                      align_corners=False)
+    return x.reshape(*masks.shape[:-2], *x.shape[-2:])
+
+
 def threshold_masks(masks: torch.Tensor, confidence: float) -> torch.Tensor:
     """Binary mask at the vis/depth confidence gate."""
     return masks > confidence

@@ -10,6 +10,14 @@ used.
 mode="stretch" is the reference's ToTensor semantics; mode="letterbox"
 pads to the model size with gray 114 (ultralytics semantics).
 
+Segment Anything takes its own input (`sam_preprocess`): the longest side
+resized to the model's size (ResizeLongestSide; 960x1280 -> 768x1024) by
+the same 2-tap bilinear on 0..255 values (cv2's INTER_LINEAR, as
+Ultralytics' SAM predictor resizes; SAM's own PIL resize antialiases),
+normalised by SAM's pixel mean and std, then zero-padded at the bottom and
+right to a square. `sam_boxes` maps xyxy boxes in frame pixels onto that
+input as ResizeLongestSide.apply_boxes does.
+
 The gather plan and the 1/255 scale are small constants of the geometry.
 They are uploaded once per (geometry, dtype, device) and kept, so a frame
 uploads nothing but itself and the host never waits for the card here.
@@ -21,6 +29,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from xrseg_tpu_torch.precision import precision_scope
 
@@ -74,6 +83,57 @@ def resize_normalize(frames: torch.Tensor, out_hw: Tuple[int, int],
     if W != ow:
         x = _lerp_axis(x, 2, W, ow)
     return x
+
+
+def sam_input_hw(frame_hw: Tuple[int, int], size: int) -> Tuple[int, int]:
+    """The frame's size with its longest side resized to `size`
+    (ResizeLongestSide.get_preprocess_shape)."""
+    h, w = frame_hw
+    scale = size * 1.0 / max(h, w)
+    return int(h * scale + 0.5), int(w * scale + 0.5)
+
+
+@functools.lru_cache(maxsize=8)
+def _sam_norm_on(mean: Tuple[float, ...], std: Tuple[float, ...],
+                 device: torch.device):
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device))
+
+
+def sam_preprocess(frames: torch.Tensor, size: int, mean: Tuple[float, ...],
+                   std: Tuple[float, ...], dtype=torch.float32
+                   ) -> torch.Tensor:
+    """uint8 [B,H,W,3] -> dtype [B,size,size,3]: the longest side resized
+    to `size` (2-tap bilinear on 0..255 in float32), (x - mean) / std, the
+    rest zero."""
+    if frames.dim() != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"expected [B,H,W,3] frames, got "
+                         f"{tuple(frames.shape)}")
+    _, H, W, _ = frames.shape
+    nh, nw = sam_input_hw((H, W), size)
+    x = frames.float()
+    if H != nh:
+        x = _lerp_axis(x, 1, H, nh)
+    if W != nw:
+        x = _lerp_axis(x, 2, W, nw)
+    m, s = _sam_norm_on(tuple(mean), tuple(std), x.device)
+    x = (x - m) / s
+    return F.pad(x, (0, 0, 0, size - nw, 0, size - nh)).to(dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _box_scale_on(frame_hw: Tuple[int, int], size: int,
+                  device: torch.device) -> torch.Tensor:
+    (h, w), (nh, nw) = frame_hw, sam_input_hw(frame_hw, size)
+    return torch.tensor([nw / w, nh / h, nw / w, nh / h],
+                        dtype=torch.float32, device=device)
+
+
+def sam_boxes(boxes: torch.Tensor, frame_hw: Tuple[int, int], size: int
+              ) -> torch.Tensor:
+    """xyxy boxes [..., 4] in frame pixels -> float32 in the pixels of
+    sam_preprocess's input (ResizeLongestSide.apply_boxes)."""
+    return boxes.float() * _box_scale_on(tuple(frame_hw), size, boxes.device)
 
 
 def preprocess(frames: torch.Tensor, out_hw: Tuple[int, int] = (640, 640),

@@ -268,7 +268,7 @@ def build_sharded_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
     (multihost.shard_host_batch, returning this process's outputs the
     same way). tp_min_channels below a model's widest conv turns on
     tensor parallelism there; the default leaves it off (DP only)."""
-    yolo11.refuse_yolo12(cfg.model, "data and tensor parallelism")
+    yolo11.refuse_arch(cfg.model, "data and tensor parallelism")
     d = mesh.shape["data"]
     if batch % d:
         raise ValueError(f"batch {batch} not divisible by data axis {d}")

@@ -88,7 +88,7 @@ class PipelinedRunner:
                  devices: Optional[Sequence] = None, *,
                  frame_hw: Optional[Tuple[int, int]] = None,
                  batch: int = 1, resize_mode: str = "stretch"):
-        yolo11.refuse_yolo12(cfg.model, "pipeline parallelism")
+        yolo11.refuse_arch(cfg.model, "pipeline parallelism")
         if devices is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(

@@ -187,7 +187,7 @@ def build_spatial_pipeline(cfg: ExecutorConfig, params: yolo11.YOLO11,
     frames are preprocessed on the first device, then split into bands;
     the decode (K1, or K3 for obb) runs on the first device."""
     mcfg = cfg.model
-    yolo11.refuse_yolo12(mcfg, "spatial parallelism")
+    yolo11.refuse_arch(mcfg, "spatial parallelism")
     devs = mesh.axis_devices(axis)
     n = len(devs)
     if mcfg.input_size[0] % (n * 32):

@@ -25,9 +25,9 @@ import dataclasses
 import time
 from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
-import numpy as np
+import torch
 
-from xrseg_tpu_torch.compile import CompiledPipeline, unpack_slate
+from xrseg_tpu_torch.compile import CompiledPipeline
 from xrseg_tpu_torch.device import Readback
 from xrseg_tpu_torch.runtime.tracing import Tracer
 
@@ -43,9 +43,10 @@ class StreamResult:
 class ReadbackSlots:
     """`slots` Readbacks for each output length, taken in turn. A runner
     that keeps up to `slots` frames in flight and reads them in FIFO order
-    takes `next(numel)` for each frame it starts; a slot whose frame was
-    not read yet raises in `start` rather than lose it. Lengths differ
-    only when a tick runner's executor switches geometry."""
+    takes `next(numel, dtype)` for each frame it starts; a slot whose frame
+    was not read yet raises in `start` rather than lose it. Lengths differ
+    only when a tick runner's executor switches geometry; the dtype is a
+    pipeline's own (float32 slates, SAM's uint8 rows)."""
 
     def __init__(self, device, slots: int):
         if slots < 1:
@@ -54,11 +55,12 @@ class ReadbackSlots:
         self._by_len: Dict[int, List[Readback]] = {}
         self._turn: Dict[int, int] = {}
 
-    def next(self, numel: int) -> Readback:
+    def next(self, numel: int, dtype=torch.float32) -> Readback:
         ring = self._by_len.get(numel)
-        if ring is None:
-            ring = self._by_len[numel] = [Readback(numel, self.device)
+        if ring is None or ring[0].buffer.dtype != dtype:
+            ring = self._by_len[numel] = [Readback(numel, self.device, dtype)
                                           for _ in range(self.slots)]
+            self._turn[numel] = 0
         i = self._turn.get(numel, 0)
         self._turn[numel] = (i + 1) % self.slots
         return ring[i]
@@ -88,8 +90,10 @@ class StreamingRunner:
         return len(self._inflight)
 
     def submit(self, frames) -> Optional[StreamResult]:
-        """Dispatch a frame batch; returns the oldest completed result once
-        the pipeline is full, else None (fill phase).
+        """Dispatch a frame batch (the pipeline's input: frames, or its
+        tuple of them, the yuv420 planes or SAM's frames and boxes);
+        returns the oldest completed result once the pipeline is full, else
+        None (fill phase).
 
         With the tracer enabled, the batch's spans carry its frame_id:
         dispatch { upload, enqueue, readback_start } here and readback
@@ -112,7 +116,8 @@ class StreamingRunner:
                 with tr.detail("enqueue", fid):
                     out = self.pipeline.enqueue(x)
             with tr.detail("readback_start", fid):
-                slot = self._slots.next(out["slate"].numel())
+                slot = self._slots.next(out["slate"].numel(),
+                                        out["slate"].dtype)
                 slot.start(out["slate"])
         self._inflight.append((fid, time.perf_counter(), out, slot))
         self._next_id += 1
@@ -130,17 +135,9 @@ class StreamingRunner:
                     slot.wait()
                 tr.device_done("batch_device", fid)
             with tr.detail("unpack", fid):
-                rows = slot.host().reshape(out["slate"].shape)
-                boxes = out.get("boxes_xywhr", out.get("boxes_xywh"))
-                # both branches copy, so the slot may take the next frame
-                if boxes is None:    # classify: the slate IS the prob row
-                    slates = [{"probs": np.array(row)} for row in rows]
-                else:
-                    max_det, box_dim = boxes.shape[1], boxes.shape[2]
-                    slates = [unpack_slate(row, max_det, box_dim=box_dim)
-                              for row in rows]
-        slate = slates[0] if len(slates) == 1 else {
-            k: [s[k] for s in slates] for k in slates[0]}
+                # a copy, so the slot may take the next frame
+                slate = self.pipeline.unpack_rows(
+                    slot.host().reshape(out["slate"].shape), out)
         return StreamResult(frame_id=fid, slate=slate,
                             latency_s=time.perf_counter() - t0,
                             device_out=out)

@@ -255,6 +255,7 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
                      optimizer: Optimizer, device="cuda") -> TrainState:
     """A fresh model from `gen` (models/yolo11.init_params) on `device`,
     with zero optimizer moments."""
+    yolo11.refuse_arch(cfg, "training", ("sam",))
     model = yolo11.init_params(gen, cfg).to(resolve_device(device))
     return TrainState(params=model, opt_state=optimizer.init(model), step=0)
 
@@ -668,6 +669,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     Numpy arrays or tensors on any device; they are moved to `device`.
     Over a mesh also a list of per-row shards (shard_batch, Loader(mesh=))
     or a dict of this process's rows (multihost.shard_host_batch)."""
+    yolo11.refuse_arch(cfg, "training", ("sam",))
     if mesh is None:
         if fsdp:
             raise ValueError("fsdp=True requires a mesh")
@@ -691,7 +693,7 @@ def shard_train_state(state: TrainState, mesh: Mesh,
     are moved, not copied, so read the result, not the argument. A state
     placed before is gathered first. Across processes every process takes
     rank 0's weights and moments."""
-    yolo11.refuse_yolo12(state.params.cfg, "training over a mesh")
+    yolo11.refuse_arch(state.params.cfg, "training over a mesh")
     if fsdp and mesh.multiprocess:
         raise ValueError(FSDP_ACROSS_PROCESSES)
     if state.placement is not None:

@@ -41,6 +41,7 @@ import torch
 
 from xrseg_tpu_torch.config import ModelConfig
 from xrseg_tpu_torch.device import resolve_device
+from xrseg_tpu_torch.models import yolo11
 from xrseg_tpu_torch.train import data as data_lib
 from xrseg_tpu_torch.train import train_step as ts
 
@@ -110,6 +111,7 @@ class Trainer:
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),
                  mesh=None, params=None, device="cuda"):
+        yolo11.refuse_arch(cfg, "training", ("sam",))
         self.mesh = mesh
         self.device = (mesh.first_device if mesh is not None
                        else resolve_device(device))
